@@ -9,16 +9,32 @@
    (batch 8, K=3199 frames, padded to 3200), for every dilation 1..128,
    gLN and cLN, causal and non-causal, in f32 and in bf16, then the
    32-block chains of both forms;
-4. slice phase: writes seeded paper-config weights with the port's
+4. training kernel phase: holds K2's save mode and the backward kernels
+   (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, KB2 tcn_bwd_dwconv, KB3
+   tcn_bwd_dx) against their plain versions at the training shapes (batch
+   5 x 4 s, K=3199 padded to 3200), every dilation, gLN and cLN, causal
+   and not, f32 and bf16; then the 32-block save-form chain and its
+   backward (whole_tcn_bwd), the per-block recompute and hybrid
+   backwards, and requires two backward runs to give identical bytes;
+5. slice phase: writes seeded paper-config weights with the port's
    save_checkpoint and synthetic 8 kHz mixtures with its wavio, then runs
    `convtasnet_torch.cli.separate` on cuda with --batch_size 8 and
    --use_kernels auto (the main path), block and 0; checks the wavs, the
    launch counts (NB per forward for every kernel of the form) and the
    agreement of the kernel forms with the eager run;
-5. times the forward at batch 8 and batch 1 (4 s at 8 kHz) and each kernel
-   per launch, beside its plain version, one PyTorch call where there is
-   one, and its roofline bound;
-6. prints the card again, a {"kernels": [...]} line and, last,
+6. train phase: writes a synthetic 4 s, 8 kHz wav dataset (10 tr, 4 cv
+   utterances) with the port's synthetic.py and runs
+   `convtasnet_torch.cli.train` on cuda at the paper config, --batch_size
+   5, with --use_kernels hybrid (the main path), whole and 0: finite
+   losses, checkpoints that load, a --continue_from resume, and the launch
+   counts of the run; then one train step of each form from the same
+   seed: the launches per step, the loss, and the gradients against the
+   eager autograd step in f32 and bf16;
+7. times the forward at batch 8 and batch 1 (4 s at 8 kHz), the train
+   step at batch 5 x 4 s, each kernel per launch beside its plain
+   version, one PyTorch call where there is one, and its roofline bound,
+   and the backward of each training op beside its plain version;
+8. prints the card again, a {"kernels": [...]} line and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It imports nothing
@@ -48,11 +64,35 @@ TOL_BF16 = 1.6e-2       # single kernels in bf16: a few bf16 ulps
 TOL_CHAIN_BF16 = 1e-2   # 32-block chain in bf16, relative L2
 TOL_E2E_BF16 = 5e-2     # separated wavs, kernel forms vs eager, relative L2
 TOL_E2E_F32 = 1e-3      # f32 forward, kernel forms vs eager, relative L2
+# Training. The backward kernels round their wide streams to bf16 where the
+# plain versions do, but sum in another order, so a bf16 rounding can fall
+# the other way; through the 32-block backward chain such flips compound
+# like the forward chain's (5.9e-3 relative L2 on the H100, PERF.md), twice over
+# (forward recompute and backward).
+TOL_BWD_CHAIN_BF16 = 5e-2   # 32-block backward / per-block backwards, bf16, relative L2
+TOL_GRAD_F32 = 1e-3         # train-step gradients, kernel forms vs eager autograd, per leaf
+# bf16 train step against eager autograd: the eager chain rounds every op's
+# output to bf16 (PyTorch's bf16 kernels) where the kernels keep f32 inside
+# a block and round only the stored streams, so the two differ by the
+# bf16 drift of 32 blocks forward and backward: a few 2^-8 relative steps,
+# compounded. Stated before the first paper-config run.
+TOL_GRAD_BF16 = 1e-1        # train-step gradients, relative L2 per leaf, bf16
+TOL_LOSS_BF16 = 2e-2        # first-step loss, kernel forms vs eager, relative
+TOL_LOSS_F32 = 1e-4
+# d_alpha1 / d_alpha2 are each one sum over M*K*H = 8.2M terms of mixed sign:
+# in f32 a change of summation order alone moves the result by about
+# eps * sqrt(N) * sum|t| / |sum t| (6e-8 * 2900 * 1..10 = 2e-4..2e-3).
+TOL_ALPHA_F32 = 2e-3
 
 SR = 8000
 SOURCE = "convtasnet_torch/csrc/tcn_block.cu"
 WHOLE_TCN = "convtasnet_tpu/ops/pallas/whole_tcn.py:55"
 WHOLE_BLOCK = "convtasnet_tpu/ops/pallas/fused_whole_block.py:57"
+SOURCE_BWD = "convtasnet_torch/csrc/tcn_block_bwd.cu"
+BWD_BLOCK = "convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py:64"
+GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "dout_w")
+TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
+                 "tcn_bwd_dx", "tcn_wgrad_in")
 
 
 def log(*a):
@@ -124,6 +164,380 @@ class Checks:
                                  + "\n".join(self.failed))
 
 
+def all_counts():
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    return {**tb.counts(), **tbb.counts()}
+
+
+def reset_all_counts():
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    tb.reset_counts()
+    tbb.reset_counts()
+
+
+def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
+    """Training kernels against their plain versions; returns the bf16
+    max |kernel - plain| of each."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    from convtasnet_torch.ops.kernels.whole_block_hybrid import whole_block_hybrid
+    from convtasnet_torch.ops.kernels.whole_block_vjp import whole_block_train
+    from convtasnet_torch.ops.kernels.whole_tcn import PLAIN_STAGES
+    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import chain_save, whole_tcn_bwd
+
+    B = cfg.B
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x32 = torch.randn((M, Kp, B), generator=gen, device=dev)
+    x32[:, K:] = 0
+    g32 = torch.randn((M, Kp, B), generator=gen, device=dev)  # pad rows must be ignored
+    chk = Checks("training kernel phase")
+    errs = {n: 0.0 for n in TRAIN_KERNELS}
+
+    def err(name, k, p, dt):
+        if dt == torch.bfloat16:
+            errs[name] = max(errs[name], float((k.float() - p.float()).abs().max()))
+
+    log("training kernel phase (kernel vs plain version):")
+    nb = 3
+    for dt in (torch.float32, torch.bfloat16):
+        tol = TOL_F32 if dt == torch.float32 else TOL_BF16
+        tag = "f32" if dt == torch.float32 else "bf16"
+        x, g = x32.to(dt), g32.to(dt)
+        in_w, out_w = blocks["in_w"][nb].to(dt), blocks["out_w"][nb].to(dt)
+        in_wt, out_wt = in_w.t().contiguous(), out_w.t().contiguous()
+        a1, g1, b1, w, a2, g2, b2 = (blocks[k][nb] for k in (
+            "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma", "dw_beta"))
+        for norm in ("gLN", "cLN"):
+            red = (1,) if norm == "gLN" else (2,)
+            y1, s1 = tb.in_gemm_plain(x, in_w, a1, norm)
+            for causal in (False, True):
+                for xi in range(cfg.X):
+                    d = 2 ** xi
+                    what = f"{tag} {norm} causal={causal} d={d}"
+                    args = (y1, s1, a1, g1, b1, w, a2, norm, d, causal, K)
+                    _, s2k, ck = tb.tcn_dwconv(*args, save=True)
+                    _, s2, c = tb.dwconv_plain(*args, save=True)
+                    chk(f"K2 save {what} c", rel_max(ck, c), tol)
+                    chk(f"K2 save {what} stats", rel_max(s2k.sum(red), s2.sum(red)), tol)
+                    err("tcn_dwconv_save", ck, c, dt)
+                    dz, colp, gs2 = tbb.bwd_dz_plain(g, out_wt, c, s2, a2, g2, norm, K)
+                    ends = xi in (0, cfg.X - 1)
+                    if ends:
+                        dzk, colk, gs2k = tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K)
+                        chk(f"KB1 {what} dz", rel_max(dzk, dz), tol)
+                        chk(f"KB1 {what} dg2/db2", rel_max(colk.sum(0), colp.sum(0)), tol)
+                        chk(f"KB1 {what} norm2 sums", rel_max(gs2k.sum(red), gs2.sum(red)), tol)
+                        err("tcn_bwd_dz", dzk, dz, dt)
+                        z = (s2, a2, g2, b2, norm)
+                        wk, wp = tbb.tcn_wgrad(c, g, K, z).sum(0), tbb.wgrad_plain(c, g, K, z).sum(0)
+                        chk(f"KW {what} dout_w", rel_max(wk, wp), tol)
+                        err("tcn_wgrad_out", wk, wp, dt)
+                    bargs = (y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, d, causal, K)
+                    dbk, chpk, gs1k, da2k = tbb.tcn_bwd_dwconv(*bargs)
+                    db, chp, gs1, da2 = tbb.bwd_dwconv_plain(*bargs)
+                    chk(f"KB2 {what} db", rel_max(dbk, db), tol)
+                    chk(f"KB2 {what} dw/dg1/db1", rel_max(chpk.sum(0), chp.sum(0)), tol)
+                    chk(f"KB2 {what} norm1 sums", rel_max(gs1k.sum(red), gs1.sum(red)), tol)
+                    chk(f"KB2 {what} d_alpha2", rel_max(da2k.sum(), da2.sum()),
+                        max(tol, TOL_ALPHA_F32))
+                    err("tcn_bwd_dwconv", dbk, db, dt)
+                    if ends:
+                        xargs = (db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
+                        dxk, dy1k, da1k = tbb.tcn_bwd_dx(*xargs)
+                        dx, dy1, da1 = tbb.bwd_dx_plain(*xargs)
+                        chk(f"KB3 {what} dx", rel_max(dxk, dx), tol)
+                        chk(f"KB3 {what} dx pad rows zero", float(dxk[:, K:].abs().max()), 0.0)
+                        chk(f"KB3 {what} dy1", rel_max(dy1k, dy1), tol)
+                        chk(f"KB3 {what} d_alpha1", rel_max(da1k.sum(), da1.sum()),
+                            max(tol, TOL_ALPHA_F32))
+                        err("tcn_bwd_dx", dxk, dx, dt)
+                        wk, wp = tbb.tcn_wgrad(x, dy1, K).sum(0), tbb.wgrad_plain(x, dy1, K).sum(0)
+                        chk(f"KW {what} din_w", rel_max(wk, wp), tol)
+                        err("tcn_wgrad_in", wk, wp, dt)
+        # The 32-block chain: save-form forward and the backward of every block.
+        ctol = TOL_F32 if dt == torch.float32 else TOL_BWD_CHAIN_BF16
+        for norm in ("gLN", "cLN"):
+            for causal in (False, True):
+                what = f"{tag} {norm} causal={causal}"
+                want = chain_save(x, *stacked, norm, causal, cfg.X, K, PLAIN_STAGES)
+                got = chain_save(x, *stacked, norm, causal, cfg.X, K)
+                for name, a, b in zip(("out", "x_res", "c_res"), got, want):
+                    chk(f"save-form chain {what} {name}", rel_l2(a, b),
+                        TOL_F32 if dt == torch.float32 else TOL_CHAIN_BF16)
+                _, x_res, c_res, s2 = want
+                gw = whole_tcn_bwd(g, x_res, c_res, s2, *stacked, norm, causal, cfg.X, K,
+                                   tb.in_gemm_plain, tbb.PLAIN_BWD)
+                gk = whole_tcn_bwd(g, x_res, c_res, s2, *stacked, norm, causal, cfg.X, K)
+                for name, a, b in zip(GRAD_NAMES, gk, gw):
+                    chk(f"whole_tcn_bwd {what} {name}", rel_l2(a, b),
+                        max(ctol, TOL_ALPHA_F32) if name in ("da1", "da2") else ctol)
+                chk(f"whole_tcn_bwd {what} dx pad rows zero", float(gk[0][:, K:].abs().max()), 0.0)
+        # Rows 4 and 5: one block at the smallest and the largest dilation.
+        for op in (whole_block_train, whole_block_hybrid):
+            for norm, d in (("gLN", 1), ("cLN", 2 ** (cfg.X - 1))):
+                params = [t[nb] for t in stacked]
+                res = []
+                for plain in (False, True):
+                    leaves = [x.clone().requires_grad_(True)] + [
+                        p.clone().requires_grad_(True) for p in params]
+                    out = op(*leaves, norm, d, cfg.causal, K, plain=plain)
+                    res.append(torch.autograd.grad(out, leaves, g))
+                for name, a, b in zip(GRAD_NAMES, *res):
+                    chk(f"{op.__name__} {tag} {norm} d={d} {name}", rel_l2(a, b),
+                        max(ctol, TOL_ALPHA_F32) if name in ("da1", "da2") else ctol)
+    # Gradients repeat bit for bit.
+    x, g = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
+    _, x_res, c_res, s2 = chain_save(x, *stacked, "gLN", False, cfg.X, K)
+    a = whole_tcn_bwd(g, x_res, c_res, s2, *stacked, "gLN", False, cfg.X, K)
+    b = whole_tcn_bwd(g, x_res, c_res, s2, *stacked, "gLN", False, cfg.X, K)
+    chk("whole_tcn_bwd bf16 two runs, differing tensors",
+        float(sum(not torch.equal(u, v) for u, v in zip(a, b))), 0.0)
+    torch.cuda.synchronize()
+    chk.done()
+    return errs
+
+
+def step_grads(params, state, cfg, mix, src, lens):
+    """(loss, gradient leaves) of one training forward + backward."""
+    from convtasnet_torch.models.conv_tasnet import forward
+    from convtasnet_torch.ops.loss import cal_loss
+    from convtasnet_torch.training.optim import tree_leaves, tree_map
+
+    leaves_tree = tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+    est, _ = forward(leaves_tree, state, cfg, mix, train=True)
+    loss = cal_loss(src, est, lens)[0]
+    return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(leaves_tree))
+
+
+def per_step_launches(form, NB):
+    """Kernel launches of one train step of `form` (see ops/kernels)."""
+    bwd = {k: NB for k in ("tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv", "tcn_bwd_dx",
+                           "tcn_wgrad_in")}
+    if form == "hybrid":
+        return dict(tcn_in_gemm=2 * NB, tcn_dwconv=0, tcn_dwconv_save=NB,
+                    tcn_out_gemm_fold=0, tcn_out_gemm_unfold=NB, **bwd)
+    if form == "whole":
+        return dict(tcn_in_gemm=2 * NB, tcn_dwconv=NB, tcn_dwconv_save=NB,
+                    tcn_out_gemm_fold=0, tcn_out_gemm_unfold=NB, **bwd)
+    return {}
+
+
+def train_phase(cfg, dev, tmp):
+    """The train CLI at the paper config and one train step of each form;
+    returns (launch counts of the main path's run, step-time medians)."""
+    import dataclasses
+
+    from convtasnet_torch.cli.train import main as train_main
+    from convtasnet_torch.data.dataset import AudioDataset
+    from convtasnet_torch.data.synthetic import make_wav_dataset
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.training.checkpoint import load_checkpoint
+    from convtasnet_torch.training.optim import Optimizer
+    from convtasnet_torch.training.solver import make_train_step
+
+    NB = cfg.R * cfg.X
+    chk = Checks("train phase")
+    tr = os.path.join(make_wav_dataset(os.path.join(tmp, "tr"), n_utts=10, min_sec=4.0,
+                                       max_sec=4.0, seed=0, splits=("tr",)), "tr")
+    cv = os.path.join(make_wav_dataset(os.path.join(tmp, "cv"), n_utts=4, min_sec=4.0,
+                                       max_sec=4.0, seed=1, splits=("cv",)), "cv")
+    steps, n_cv = 2, 4
+    cv_launch = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+    base = ["--train_dir", tr, "--valid_dir", cv, "--batch_size", "5", "--device", str(dev),
+            "--num_workers", "2", "--print_freq", "1", "--seed", "0",
+            "--norm_type", cfg.norm_type, "--compute_dtype", cfg.compute_dtype]
+    for k in ("N", "L", "B", "H", "P", "X", "R", "C"):
+        base += [f"--{k}", str(getattr(cfg, k))]
+    path_counts = {}
+    for form in ("hybrid", "whole", "0"):
+        folder = os.path.join(tmp, f"exp_{form}")
+        reset_all_counts()
+        t0 = time.perf_counter()
+        out = train_main(base + ["--use_kernels", form, "--epochs", "1", "--checkpoint", "1",
+                                 "--save_every_steps", "1", "--save_folder", folder])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+        path_counts[form] = counts
+        log(f"train --use_kernels {form}: {out['steps']} steps + {n_cv} CV forwards in "
+            f"{wall:.2f} s, tr_loss {out['tr_loss']}, cv_loss {out['cv_loss']}, launches {counts}")
+        chk(f"train {form}: steps", abs(out["steps"] - steps), 0)
+        chk(f"train {form}: losses finite",
+            float(not np.all(np.isfinite(out["tr_loss"] + out["cv_loss"]))), 0)
+        per = per_step_launches(form, NB)
+        for k, v in counts.items():
+            want = steps * per.get(k, 0) + (n_cv * cv_launch.get(k, 0) if form != "0" else 0)
+            chk(f"train {form}: {k} launches", abs(v - want), 0)
+        for name in ("epoch1.ckpt", "final.ckpt", "latest.ckpt"):
+            ck = load_checkpoint(os.path.join(folder, name), dev)
+            chk(f"train {form}: {name} has optimizer state",
+                float(not ck["header"]["has_opt"]), 0)
+    folder = os.path.join(tmp, "exp_hybrid")
+    out = train_main(base + ["--use_kernels", "hybrid", "--epochs", "2", "--save_folder",
+                             folder, "--continue_from", os.path.join(folder, "epoch1.ckpt")])
+    log(f"train --continue_from epoch1.ckpt: {out['steps']} steps, history {out['history']}")
+    chk("resume: one more epoch of steps", abs(out["steps"] - steps), 0)
+    chk("resume: two epochs of losses", abs(len(out["tr_loss"]) - 2), 0)
+    chk("resume: losses finite", float(not np.all(np.isfinite(out["tr_loss"]))), 0)
+
+    # One train step of each form from the same seed and batch.
+    batch = AudioDataset(tr, 5).load_batch(0)
+    mix, lens, src = (torch.from_numpy(np.asarray(a)).to(dev)
+                      for a in (batch.mixture, batch.lengths, batch.source))
+    params, state = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    for dtype, gtol, ltol in (("float32", TOL_GRAD_F32, TOL_LOSS_F32),
+                              ("bfloat16", TOL_GRAD_BF16, TOL_LOSS_BF16)):
+        ref_loss, ref = step_grads(params, state, dataclasses.replace(
+            cfg, compute_dtype=dtype, use_kernels="0"), mix, src, lens)
+        for form in ("hybrid", "whole"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype, use_kernels=form)
+            loss, grads = step_grads(params, state, c, mix, src, lens)
+            chk(f"step {dtype} {form}: loss vs eager ({loss:.5f} vs {ref_loss:.5f})",
+                abs(loss - ref_loss) / max(abs(ref_loss), 1e-6), ltol)
+            worst = max((rel_l2(a, b), i) for i, (a, b) in enumerate(zip(grads, ref)))
+            chk(f"step {dtype} {form}: gradients vs eager autograd, worst leaf #{worst[1]} "
+                "(relative L2)", worst[0], gtol)
+    timing = {}
+    for form in ("hybrid", "whole", "0"):
+        c = dataclasses.replace(cfg, use_kernels=form)
+        opt = Optimizer("adam", lr=1e-3)
+        step = make_train_step(c, opt, 5.0)
+        opt_state = opt.init(params)
+        reset_all_counts()
+        step(params, opt_state, state, mix, src, lens)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        for k, v in counts.items():
+            chk(f"one {form} step: {k} launches", abs(v - per_step_launches(form, NB).get(k, 0)), 0)
+        ms, n = forward_ms(lambda: step(params, opt_state, state, mix, src, lens), iters=10,
+                           warm=2)
+        timing[f"train_step_batch5_{form}_ms"] = ms
+        timing[f"train_step_batch5_{form}_audio_s_per_s"] = 5 * 4.0 / (ms / 1e3)
+        log(f"  train step batch 5 x 4 s, --use_kernels {form}: median {ms:.3f} ms of {n} "
+            f"({5 * 4.0 / (ms / 1e3):.1f} audio-s/s)")
+    torch.cuda.synchronize()
+    chk.done()
+    return path_counts["hybrid"], timing
+
+
+def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
+    """Timing specs of the training kernels at the main path's shapes (bf16)."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+
+    B, H, P = cfg.B, cfg.H, cfg.P
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    dt, it, rows, nb = torch.bfloat16, 2, M * Kp, 3
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((M, Kp, B), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(dt)
+    g = torch.randn((M, Kp, B), generator=gen, device=dev).to(dt)
+    in_w, out_w = blocks["in_w"][nb].to(dt), blocks["out_w"][nb].to(dt)
+    in_wt, out_wt = in_w.t().contiguous(), out_w.t().contiguous()
+    a1, g1, b1, w, a2, g2, b2 = (blocks[k][nb] for k in (
+        "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma", "dw_beta"))
+    norm = cfg.norm_type
+    y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
+    _, s2, c = tb.tcn_dwconv(y1, s1, a1, g1, b1, w, a2, norm, 1, cfg.causal, K, save=True)
+    dz, _, gs2 = tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K)
+    db, _, gs1, _ = tbb.tcn_bwd_dwconv(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, 1,
+                                       cfg.causal, K)
+    _, dy1, _ = tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
+    z = (s2, a2, g2, b2, norm)
+    gemm = 2.0 * rows * B * H
+
+    def per_dilation(fn, **kw):
+        def run():
+            for xi in range(cfg.X):
+                fn(2 ** xi, **kw)
+        return run
+
+    def dws(d, plain=False):
+        f = tb.dwconv_plain if plain else tb.tcn_dwconv
+        f(y1, s1, a1, g1, b1, w, a2, norm, d, cfg.causal, K, save=True)
+
+    def kb2(d, plain=False):
+        f = tbb.bwd_dwconv_plain if plain else tbb.tcn_bwd_dwconv
+        f(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, d, cfg.causal, K)
+
+    return {
+        "tcn_dwconv_save": dict(
+            source=SOURCE, replaces=WHOLE_TCN, kernel=per_dilation(dws),
+            plain=per_dilation(dws, plain=True), library=None, per=cfg.X,
+            bytes=3 * rows * H * it + (s1.numel() + s2.numel()) * 4 + (P + 2) * H * 4,
+            flops=rows * H * (2.0 * P + 12)),
+        "tcn_bwd_dz": dict(
+            source=SOURCE_BWD, replaces=BWD_BLOCK,
+            kernel=lambda: tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K),
+            plain=lambda: tbb.bwd_dz_plain(g, out_wt, c, s2, a2, g2, norm, K),
+            library=lambda: torch.matmul(g.view(rows, B), out_wt),
+            bytes=(rows * B + B * H + 2 * rows * H) * it + s2.numel() * 4 + 2 * H * 4,
+            flops=gemm, per=1),
+        "tcn_wgrad_out": dict(
+            source=SOURCE_BWD, replaces=BWD_BLOCK,
+            kernel=lambda: tbb.tcn_wgrad(c, g, K, z).sum(0),
+            plain=lambda: tbb.wgrad_plain(c, g, K, z).sum(0),
+            library=lambda: torch.matmul(c.view(rows, H).t(), g.view(rows, B)),
+            bytes=rows * (B + H) * it + H * B * 4, flops=gemm, per=1),
+        "tcn_bwd_dwconv": dict(
+            source=SOURCE_BWD, replaces=BWD_BLOCK, kernel=per_dilation(kb2),
+            plain=per_dilation(kb2, plain=True), library=None, per=cfg.X,
+            bytes=4 * rows * H * it + (s1.numel() + s2.numel() + gs2.numel()) * 4
+            + (2 * P + 4) * H * 4, flops=rows * H * (4.0 * P + 30)),
+        "tcn_bwd_dx": dict(
+            source=SOURCE_BWD, replaces=BWD_BLOCK,
+            kernel=lambda: tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K),
+            plain=lambda: tbb.bwd_dx_plain(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K),
+            library=lambda: torch.matmul(dy1.view(rows, H), in_wt),
+            bytes=(3 * rows * H + 2 * rows * B + H * B) * it + (s1.numel() + gs1.numel()) * 4,
+            flops=gemm, per=1),
+        "tcn_wgrad_in": dict(
+            source=SOURCE_BWD, replaces=BWD_BLOCK,
+            kernel=lambda: tbb.tcn_wgrad(x, dy1, K).sum(0),
+            plain=lambda: tbb.wgrad_plain(x, dy1, K).sum(0),
+            library=lambda: torch.matmul(x.view(rows, B).t(), dy1.view(rows, H)),
+            bytes=rows * (B + H) * it + B * H * 4, flops=gemm, per=1),
+    }
+
+
+def backward_timing(stacked, cfg, dev, M=5, K=3199):
+    """ms of the backward of the three training ops at the main path's
+    shapes (bf16, gLN, dilation 1 for the per-block ones), beside their
+    plain versions: row 3 over all NB blocks, rows 4 and 5 for one block."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    from convtasnet_torch.ops.kernels.whole_block_hybrid import hybrid_bwd_math
+    from convtasnet_torch.ops.kernels.whole_block_vjp import recompute_bwd
+    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import chain_save, whole_tcn_bwd
+
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    dt, norm = torch.bfloat16, "gLN"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((M, Kp, cfg.B), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(dt)
+    g = torch.randn((M, Kp, cfg.B), generator=gen, device=dev).to(dt)
+    _, x_res, c_res, s2 = chain_save(x, *stacked, norm, False, cfg.X, K)
+    one = [t[0] for t in stacked]
+    in_w, a1 = one[0].to(dt), one[1]
+    y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
+    _, _, c = tb.tcn_dwconv(y1, s1, a1, *one[2:6], norm, 1, False, K, save=True)
+    runs = {
+        "bwd_chain_hybrid": lambda: whole_tcn_bwd(g, x_res, c_res, s2, *stacked, norm, False,
+                                                  cfg.X, K),
+        "bwd_chain_hybrid_plain": lambda: whole_tcn_bwd(g, x_res, c_res, s2, *stacked, norm,
+                                                        False, cfg.X, K, tb.in_gemm_plain,
+                                                        tbb.PLAIN_BWD),
+        "bwd_block_whole": lambda: recompute_bwd(g, x, *one, norm, 1, False, K),
+        "bwd_block_whole_plain": lambda: recompute_bwd(g, x, *one, norm, 1, False, K,
+                                                       plain=True),
+        "bwd_block_hybrid_torch": lambda: hybrid_bwd_math(x, y1, c, g, *one, norm, 1, False, K),
+    }
+    out = {f"{k}_ms": cuda_ms(fn, iters=5, warm=1) for k, fn in runs.items()}
+    for k, v in out.items():
+        log(f"  {k}: {v:.3f} ms at M={M}, K_pad={Kp}, bf16")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -147,7 +561,7 @@ def main() -> int:
 
     # ---- build ----------------------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build_all(["tcn_block"])
+    reports = _build.build_all(["tcn_block", "tcn_block_bwd"])
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s")
     for name, rep in reports.items():
@@ -239,6 +653,9 @@ def main() -> int:
     torch.cuda.synchronize()
     chk.done()
 
+    # ---- training kernel phase ---------------------------------------------
+    train_errs = train_kernel_phase(blocks, stacked, cfg, dev)
+
     # ---- slice phase: the separate CLI ------------------------------------
     from convtasnet_torch.cli.separate import main as separate_main
 
@@ -313,6 +730,11 @@ def main() -> int:
             chk(f"f32 forward {form} vs eager (rel L2)",
                 rel_l2(outs32[form], outs32["0"]), TOL_E2E_F32)
     chk.done()
+
+    # ---- train phase: the train CLI and one step of each form ---------------
+    log("train phase:")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts, train_timing = train_phase(cfg, dev, tmp)
 
     # ---- timing -------------------------------------------------------------
     log("timing (CUDA events, after warm-up):")
@@ -404,11 +826,31 @@ def main() -> int:
         log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f}, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bound {bound:.4f} "
             f"by {kernels[-1]['bound_by']}) at M={M}, K_pad={Kp}, B={B}, H={H}, bf16")
+    M5, rows5 = 5, 5 * Kp
+    for name, s in train_kernel_specs(blocks, cfg, dev, M=M5, K=K).items():
+        ms = cuda_ms(s["kernel"]) / s["per"]
+        plain_ms = cuda_ms(s["plain"]) / s["per"]
+        lib_ms = cuda_ms(s["library"]) if s["library"] else None
+        t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = s["flops"] / PEAK_FLOPS[dt] * 1e3
+        bound = max(t_bytes, t_ops)
+        kernels.append({
+            "name": name, "route": "cuda", "source": s["source"], "replaces": s["replaces"],
+            "launches": train_counts[name], "path": "train --use_kernels hybrid",
+            "max_abs_err": train_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        })
+        log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f}, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bound {bound:.4f} "
+            f"by {kernels[-1]['bound_by']}) at M={M5}, K_pad={Kp} ({rows5} rows), "
+            f"B={B}, H={H}, bf16")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
 
-    log(json.dumps({"build_s": build_s, "latency": latency}))
+    train_timing.update(backward_timing(stacked, cfg, dev, M=M5, K=K))
+    log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

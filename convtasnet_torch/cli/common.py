@@ -11,11 +11,14 @@ def add_use_kernels_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--use_kernels", default="auto", type=str.lower,
         choices=USE_KERNELS_CHOICES,
-        help="TCN chain path: auto (whole-TCN form: the Hopper kernels with "
-             "norm2 folded into out_w; default), block (whole-block form: "
-             "the same kernels, norm2 unfolded), 0 (eager op-by-op chain). "
-             "BN models always run the eager chain; on the CPU every kernel "
-             "takes its plain PyTorch version")
+        help="TCN chain path. Inference: auto, hybrid and whole run the "
+             "whole-TCN form (the Hopper kernels with norm2 folded into out_w; "
+             "auto is the default), block the whole-block form (norm2 "
+             "unfolded), 0 the eager op-by-op chain. Training: auto, block and "
+             "0 differentiate the eager chain, hybrid runs the whole-TCN "
+             "training op (residual-saving forward, backward kernels), whole "
+             "the per-block recompute op. BN models always run the eager "
+             "chain; on the CPU every kernel takes its plain PyTorch version")
 
 
 def add_device_flag(p: argparse.ArgumentParser) -> None:

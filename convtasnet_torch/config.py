@@ -3,12 +3,23 @@
 Field names and defaults follow the JAX package's config (the paper config:
 N=256, L=20, B=256, H=512, P=3, X=8, R=4, C=2, gLN, non-causal, relu,
 bf16 activations). `use_kernels` takes the place of the JAX `use_pallas`
-switch and selects how the TCN chain runs:
+switch and selects how the TCN chain runs (`ConvTasNetConfig.kernel_form`,
+the rules of convtasnet_tpu/models/conv_tasnet.py:182-233):
 
-  "auto"  -> the whole-TCN form: per block the three Hopper kernels of
-             csrc/tcn_block.cu with norm2 folded into the out_w product;
-  "block" -> the whole-block form: the same kernels, norm2 unfolded;
-  0       -> the eager op-by-op chain (always the case for BN).
+  inference (train=False)
+    "auto", "hybrid", "whole" -> the whole-TCN form: per block the three
+             Hopper kernels of csrc/tcn_block.cu, norm2 folded into out_w;
+    "block" -> the whole-block form: the same kernels, norm2 unfolded;
+  training (train=True)
+    "auto", "block" -> the eager chain under autograd (as the JAX package
+             keeps training on XLA for use_pallas=True);
+    "hybrid" -> the whole-TCN training op (residual-saving forward,
+             backward kernels of csrc/tcn_block_bwd.cu), or the per-block
+             hybrid op when its residuals exceed the memory gate
+             (models/conv_tasnet.py);
+    "whole"  -> the per-block recompute op (whole_block_vjp.py);
+  0 -> the eager op-by-op chain. BN is always eager, and off the CPU so
+  are widths B or H that are not multiples of 128 (the kernels' tiles).
 
 A CPU tensor takes each kernel's plain PyTorch version.
 """
@@ -22,7 +33,8 @@ import torch
 # Reference numerical epsilon (conv_tasnet.py:10, pit_criterion.py:9).
 EPS = 1e-8
 
-USE_KERNELS_CHOICES = ("auto", "block", "0")
+USE_KERNELS_CHOICES = ("auto", "block", "hybrid", "whole", "0")
+KERNEL_WIDTH = 128  # B and H multiples the CUDA kernels tile (csrc/tcn_block.cuh BN)
 
 # Keys a JAX checkpoint header carries that have no meaning here.
 _JAX_ONLY_KEYS = ("use_pallas", "remat", "scan_unroll")
@@ -78,13 +90,22 @@ class ConvTasNetConfig:
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
-    @property
-    def kernel_form(self) -> str:
-        """"whole_tcn", "whole_block" or "eager" (BN is always eager)."""
+    def kernel_form(self, train: bool = False, device=None) -> str:
+        """How the TCN chain runs for a forward with `train` on `device`
+        (default CUDA, the entry points' default): "eager", the inference
+        forms "whole_tcn" / "whole_block", or the training forms
+        "whole_tcn_train" (use_kernels="hybrid") / "whole_block_train"
+        ("whole"). Decided from the config before any launch."""
         flag = str(self.use_kernels).lower()
         if self.norm_type == "BN" or flag in ("0", "false"):
             return "eager"
-        return "whole_block" if flag == "block" else "whole_tcn"
+        # The kernels tile B and H by 128; the CPU's plain versions take any width.
+        on_card = device is None or torch.device(device).type != "cpu"
+        if on_card and (self.B % KERNEL_WIDTH or self.H % KERNEL_WIDTH):
+            return "eager"
+        if not train:
+            return "whole_block" if flag == "block" else "whole_tcn"
+        return {"hybrid": "whole_tcn_train", "whole": "whole_block_train"}.get(flag, "eager")
 
     def num_frames(self, T: int) -> int:
         """K = (T - L) // (L/2) + 1 (conv_tasnet.py:113)."""
@@ -111,3 +132,49 @@ class EvalConfig:
     cal_sdr: bool = False
     sample_rate: int = 8000
     batch_size: int = 1
+
+
+# TrainConfig fields whose non-default values wait for a later slice.
+_LATER = {"dp": 1, "tp": 1, "cp": 1, "visualize": False}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer knobs (convtasnet_tpu/config.py:106-143, the reference's
+    train.py:53-98)."""
+
+    epochs: int = 30
+    half_lr: bool = True
+    early_stop: bool = True
+    max_norm: float = 5.0  # global grad-norm clip (solver.py:184-185)
+    batch_size: int = 3
+    optimizer: str = "adam"  # "adam" | "sgd"
+    lr: float = 1e-3
+    momentum: float = 0.0
+    l2: float = 0.0  # weight decay, coupled as in torch
+    sample_rate: int = 8000
+    segment: float = 4.0  # seconds; < 0 means full utterances
+    cv_maxlen: float = 8.0  # seconds
+    shuffle: bool = False
+    save_folder: str = "exp/temp"
+    checkpoint: bool = False  # per-epoch checkpoints
+    # Every N train steps write latest.ckpt with (epoch, step_in_epoch) and
+    # the running sums; resume replays the loader order and skips them.
+    save_every_steps: int = 0
+    continue_from: str = ""
+    model_path: str = "final.ckpt"
+    print_freq: int = 10
+    seed: int = 0
+    visualize: bool = False
+    dp: int = 1
+    tp: int = 1
+    cp: int = 1
+
+    def __post_init__(self):
+        if self.optimizer not in ("adam", "sgd"):
+            raise ValueError(f"unsupported optimizer: {self.optimizer}")
+        for k, default in _LATER.items():
+            if getattr(self, k) != default:
+                raise NotImplementedError(
+                    f"TrainConfig.{k}={getattr(self, k)!r} is not ported yet "
+                    "(waits for a later slice of the port)")

@@ -3,7 +3,10 @@
 //   K1 tcn_in_gemm   y1 = round(x @ in_w); f32 partial sums of a = PReLU(y1)
 //   K2 tcn_dwconv    b = round(norm1(a)) with rows outside [0, K) zero,
 //                    c = P-tap dilated depthwise conv (f32), e = PReLU(c);
-//                    stores round(e) and f32 partial sums of e (rows < K)
+//                    stores round(e) and f32 partial sums of e (rows < K);
+//                    in save mode (training) also round(c), pad rows not
+//                    masked, the residual the backward (tcn_block_bwd.cu)
+//                    needs for dPReLU2 and d_alpha2
 //   K3 tcn_out_gemm  o = round(norm2(e) @ out_w), x' = round(x + o), rows
 //                    >= K exactly zero. x' may be x itself: the chain
 //                    updates the residual stream IN PLACE after its first
@@ -29,15 +32,11 @@
 // shared-memory tiles with WMMA (mma.sync) for bf16 and SIMT FMA for f32,
 // no cp.async / TMA pipeline, and K2 reads each y1 row P times through L1.
 // Making them reach the bound (wgmma, TMA, fusing K2 into K3) is later work.
-#include <mma.h>
-
 #include <cstdint>
 
 #include "tcn_block.cuh"
 
 namespace tcn {
-
-using bf16 = __nv_bfloat16;
 
 struct GemmArgs {
   const void* A;          // IN: x [rows, kdim];  OUT: e [rows, kdim]
@@ -54,94 +53,6 @@ struct GemmArgs {
 };
 
 enum Mode { IN_GEMM = 0, OUT_FOLD = 1, OUT_UNFOLD = 2 };
-
-template <typename T> struct Tiles {
-  static constexpr int PAD = 16 / sizeof(T);  // keeps 16-byte row alignment
-  static constexpr int LDA = BK + PAD;
-  static constexpr int LDB = BN + PAD;
-  static constexpr int LDC = BN + 4;
-  static constexpr int AB_BYTES = (BM * LDA + BK * LDB) * sizeof(T);
-  static constexpr int C_BYTES = BM * LDC * sizeof(float);
-  static constexpr int BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  static constexpr int VEC = 16 / sizeof(T);
-};
-
-// Accumulates the CTA's [BM, BN] tile of A @ W into Cs (f32, row stride
-// LDC). bf16: WMMA 16x16x16 fragments, 8 warps of 32x32. f32: SIMT FMA,
-// each thread 4 rows x 8 columns.
-template <typename T> struct TileMma;
-
-template <> struct TileMma<bf16> {
-  using Tl = Tiles<bf16>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-  __device__ void step(const bf16* As, const bf16* Bs) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * Tl::LDA + kk, Tl::LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * Tl::LDB + wc * 32 + j * 16, Tl::LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  __device__ void store(float* Cs) {
-    const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * Tl::LDC + wc * 32 + j * 16,
-                                        acc[i][j], Tl::LDC, nvcuda::wmma::mem_row_major);
-  }
-};
-
-template <> struct TileMma<float> {
-  using Tl = Tiles<float>;
-  float acc[4][8];
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  __device__ void step(const float* As, const float* Bs) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[(ty * 4 + i) * Tl::LDA + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * Tl::LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-  __device__ void store(float* Cs) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Cs[(ty * 4 + i) * Tl::LDC + tx + 16 * j] = acc[i][j];
-  }
-};
 
 // Grid (rows / BM, ncols / BN), GEMM_THREADS threads. kpad % BM == 0, so a
 // CTA's rows belong to one batch item.
@@ -293,6 +204,8 @@ struct DwArgs {
   const float* w;         // [P, H] f32
   const float* alpha2;
   void* e;                // [M, kpad, H]
+  void* c;                // save mode: conv output before PReLU2 [M, kpad, H]
+                          // (rounded, pad rows not masked); null otherwise
   float* stats2;          // gLN: [M, kpad / DW_ROWS] pairs; cLN: [M * kpad] pairs
   int kpad, k_valid, H, P, dilation, left, gln;
 };
@@ -353,6 +266,7 @@ __global__ void __launch_bounds__(DW_THREADS) dwconv_kernel(DwArgs g) {
       }
       const float ev = prelu(acc, a2);
       e[(ibase + k) * g.H + c] = from_f<T>(ev);
+      if (g.c) static_cast<T*>(g.c)[(ibase + k) * g.H + c] = from_f<T>(acc);
       if (valid) {
         rs += ev;
         rss += ev * ev;
@@ -418,11 +332,11 @@ extern "C" int tcn_in_gemm(int device, int dtype, const void* x, const void* in_
 
 extern "C" int tcn_dwconv(int device, int dtype, const void* y1, const float* stats1,
                           int n1, const float* alpha1, const float* g1, const float* b1,
-                          const float* w, const float* alpha2, void* e, float* stats2,
-                          int M, int kpad, int k_valid, int H, int P, int dilation,
-                          int causal, int gln, void* stream) {
+                          const float* w, const float* alpha2, void* e, void* c,
+                          float* stats2, int M, int kpad, int k_valid, int H, int P,
+                          int dilation, int causal, int gln, void* stream) {
   cudaSetDevice(device);
-  DwArgs g{y1, stats1, n1, alpha1, g1, b1, w, alpha2, e, stats2,
+  DwArgs g{y1, stats1, n1, alpha1, g1, b1, w, alpha2, e, c, stats2,
            kpad, k_valid, H, P, dilation, 0, gln};
   const int span = (P - 1) * dilation;
   g.left = causal ? span : span / 2;

@@ -1,4 +1,5 @@
-// Shared definitions of the TCN-block kernels (tcn_block.cu).
+// Shared definitions of the TCN-block kernels (tcn_block.cu, the forward,
+// and tcn_block_bwd.cu, the backward).
 //
 // Tile sizes are mirrored in convtasnet_torch/ops/kernels/tcn_block.py,
 // which checks every shape against them before a launch.
@@ -6,8 +7,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 
 namespace tcn {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int BM = 64;            // GEMM rows (frames) per CTA
 constexpr int BN = 128;           // GEMM output columns per CTA
@@ -75,5 +79,94 @@ __device__ __forceinline__ float2 moments(float s, float ss, float n) {
   const float var = fmaxf(ss / n - mean * mean, 0.f);
   return make_float2(mean, 1.f / sqrtf(var + EPS));
 }
+
+template <typename T> struct Tiles {
+  static constexpr int PAD = 16 / sizeof(T);  // keeps 16-byte row alignment
+  static constexpr int LDA = BK + PAD;
+  static constexpr int LDB = BN + PAD;
+  static constexpr int LDC = BN + 4;
+  static constexpr int AB_BYTES = (BM * LDA + BK * LDB) * sizeof(T);
+  static constexpr int C_BYTES = BM * LDC * sizeof(float);
+  static constexpr int BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
+  static constexpr int VEC = 16 / sizeof(T);
+};
+
+// Accumulates the CTA's [BM, BN] tile of A @ W into Cs (f32, row stride
+// LDC), from As [BM, BK] (row stride LDA) and Bs [BK, BN] (row stride LDB).
+// bf16: WMMA 16x16x16 fragments, 8 warps of 32x32. f32: SIMT FMA, each
+// thread 4 rows x 8 columns.
+template <typename T> struct TileMma;
+
+template <> struct TileMma<bf16> {
+  using Tl = Tiles<bf16>;
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  __device__ void init() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
+  }
+  __device__ void step(const bf16* As, const bf16* Bs) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * Tl::LDA + kk, Tl::LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Bs + kk * Tl::LDB + wc * 32 + j * 16, Tl::LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+  __device__ void store(float* Cs) {
+    const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        nvcuda::wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * Tl::LDC + wc * 32 + j * 16,
+                                        acc[i][j], Tl::LDC, nvcuda::wmma::mem_row_major);
+  }
+};
+
+template <> struct TileMma<float> {
+  using Tl = Tiles<float>;
+  float acc[4][8];
+  __device__ void init() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  __device__ void step(const float* As, const float* Bs) {
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[(ty * 4 + i) * Tl::LDA + kk];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * Tl::LDB + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  __device__ void store(float* Cs) {
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Cs[(ty * 4 + i) * Tl::LDC + tx + 16 * j] = acc[i][j];
+  }
+};
 
 }  // namespace tcn

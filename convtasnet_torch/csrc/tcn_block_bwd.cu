@@ -1,0 +1,698 @@
+// Hopper kernels of the backward of one Conv-TasNet temporal block (sm_90a).
+//
+// Forward of the block (tcn_block.cu), with a = PReLU1(y1), b = norm1(a)
+// (rows outside [0, K) zero), c = dwconv(b), e = PReLU2(c),
+// z = norm2(e) and out = x + z @ out_w. Given the upstream cotangent g
+// [rows, B], the block input x, y1 and the norm1 partials (K1 rerun on x),
+// the saved c and the norm2 partials (K2 in save mode), one block's
+// backward is five launches:
+//
+//   KB1 tcn_bwd_dz      dz = round(g @ out_w^T) (g rows >= K read as 0);
+//                       epilogue: e, ehat from c; per-tile column partials
+//                       of dg2 = sum dz*ehat and db2 = sum dz; partials of
+//                       the norm2 backward sums sum dz*g2 and sum dz*g2*ehat
+//                       (per item for gLN, per row for cLN)
+//   KW  tcn_wgrad (z)   dout_w = z^T g, z = round(g2*ehat + b2) formed from
+//                       c in the A-operand load; split over row chunks
+//   KB2 tcn_bwd_dwconv  de = round(inv2*(dz*g2 - mean(dz*g2)
+//                       - ehat*mean(dz*g2*ehat))), dc = round(de*PReLU2'(c))
+//                       (recomputed for the conv halo rows), the depthwise
+//                       transpose db[j] = round(sum_p w[p]*dc[j+left-p*d]),
+//                       partials of dw[p] = sum_k dc[k]*b[k-left+p*d]
+//                       (b recomputed from y1), dg1, db1, d_alpha2 and of the
+//                       norm1 backward sums
+//   KB3 tcn_bwd_dx      da and dy1 = round(da*PReLU1'(y1)) formed in the
+//                       A-operand load (the blockIdx.y == 0 CTAs store dy1
+//                       and the d_alpha1 partials), dx = round(round(dy1 @
+//                       in_w^T) + g), rows >= K exactly zero
+//   KW  tcn_wgrad       din_w = x^T dy1, split over row chunks
+//
+// Replaces the TPU kernels convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py
+// (_bwd_block_kernel, :64) and ops/pallas/whole_block_vjp.py (_bwd_kernel,
+// :69). Those hold a whole item's [K, H] slabs in VMEM and carry the f32
+// weight-gradient sums across the sequential grid; an SM has 227 KB and
+// CTAs run in no order, so here the block's backward passes dz, db and dy1
+// [rows, H] through device memory, every cross-CTA sum (the gLN backward
+// means over all K*H elements of an item, the weight gradients over all
+// M*K rows) is written as per-tile partials that the next kernel or the
+// wrapper sums in a fixed order, and no float atomic is used: gradients
+// repeat bit for bit.
+//
+// Rounding points follow the TPU kernel: the wide streams dz, de, dc, db,
+// da, dy1 and dx are rounded to the activation type; statistics,
+// reductions, GEMM accumulators and parameter gradients are f32; EPS sits
+// inside the rsqrt; PReLU and its derivative compare in f32; rows >= K of
+// c, g, de, db, da and dx are masked where the TPU kernel masks them.
+//
+// Bound on the H100 at the paper config, batch 5 (16,000 rows): every
+// launch is bound by device-memory bytes (KB1 ~41 MB, KB2 ~66 MB, KB3
+// ~57 MB at 3.35 TB/s, against 8.4 GFLOP per GEMM pair at 989 TFLOP/s).
+// This first version is simple rather than fast: the same shared-memory
+// WMMA / SIMT tiles as the forward, no cp.async / TMA pipeline, and KB2
+// recomputes each halo row of dc and b P times through L1.
+#include <cstdint>
+
+#include "tcn_block.cuh"
+
+namespace tcn {
+
+constexpr int MAXP = 8;           // depthwise taps held in registers by KB2
+constexpr int MAX_CHUNK = 1024;   // rows per split of tcn_wgrad
+
+__device__ __forceinline__ float dprelu(float v, float alpha) {
+  return v >= 0.f ? 1.f : alpha;
+}
+
+// Sum of n (a, b) pairs in index order (per-row partials).
+__device__ __forceinline__ float2 sum_pairs(const float* p, int n) {
+  float s = 0.f, ss = 0.f;
+  for (int i = 0; i < n; ++i) {
+    s += p[2 * i];
+    ss += p[2 * i + 1];
+  }
+  return make_float2(s, ss);
+}
+
+// ---------------------------------------------------------------------------
+// KB1: dz = round(g @ out_w^T) with the norm2-backward partials.
+// Grid (rows / BM, H / BN), GEMM_THREADS threads.
+// ---------------------------------------------------------------------------
+struct DzArgs {
+  const void* g;         // [rows, B] upstream cotangent
+  const void* wt;        // out_w^T [B, H], activation type
+  const void* c;         // saved conv output [rows, H]
+  const float* stats2;   // K2 partials of e: n2 pairs per item (gLN) / row (cLN)
+  int n2;
+  const float* alpha2;
+  const float* g2;       // [H]
+  void* dz;              // [rows, H]
+  float* colpart;        // [rows / BM, 2, H]: sum dz*ehat, sum dz over the tile
+  float* npart;          // gLN [rows / BM * H / BN] pairs; cLN [rows, H / BN] pairs
+  int kpad, k_valid, B, H, gln;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS) bwd_dz_kernel(DzArgs g) {
+  using Tl = Tiles<T>;
+  constexpr int VEC = Tl::VEC;
+  constexpr int NW = GEMM_THREADS / 32;
+  __shared__ __align__(128) unsigned char smem[Tl::BYTES];
+  __shared__ float2 red[NW];
+  __shared__ float2 rowmom[BM];
+  __shared__ float2 colred[NW][BN];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + BM * Tl::LDA;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int item = row0 / g.kpad;
+  if (g.gln) {
+    const float2 t = reduce_partials(g.stats2 + 2 * (size_t)item * g.n2, g.n2, red);
+    const float2 mm = moments(t.x, t.y, (float)g.k_valid * (float)g.H);
+    for (int r = threadIdx.x; r < BM; r += blockDim.x) rowmom[r] = mm;
+  } else {
+    for (int r = threadIdx.x; r < BM; r += blockDim.x) {
+      const float2 t = sum_pairs(g.stats2 + 2 * (size_t)(row0 + r) * g.n2, g.n2);
+      rowmom[r] = moments(t.x, t.y, (float)g.H);
+    }
+  }
+  __syncthreads();
+
+  const T* A = static_cast<const T*>(g.g);
+  const T* W = static_cast<const T*>(g.wt);
+  TileMma<T> mma;
+  mma.init();
+  for (int k0 = 0; k0 < g.B; k0 += BK) {
+    for (int i = threadIdx.x; i < BM * BK / VEC; i += blockDim.x) {
+      const int r = i / (BK / VEC), cv = (i % (BK / VEC)) * VEC;
+      const int grow = row0 + r;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (grow % g.kpad < g.k_valid)  // upstream rows >= K are meaningless
+        u = *reinterpret_cast<const uint4*>(A + (size_t)grow * g.B + k0 + cv);
+      *reinterpret_cast<uint4*>(As + r * Tl::LDA + cv) = u;
+    }
+    for (int i = threadIdx.x; i < BK * BN / VEC; i += blockDim.x) {
+      const int r = i / (BN / VEC), cv = (i % (BN / VEC)) * VEC;
+      *reinterpret_cast<uint4*>(Bs + r * Tl::LDB + cv) =
+          *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * g.H + col0 + cv);
+    }
+    __syncthreads();
+    mma.step(As, Bs);
+    __syncthreads();
+  }
+  mma.store(Cs);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* cin = static_cast<const T*>(g.c);
+  T* dz = static_cast<T*>(g.dz);
+  const float a2 = *g.alpha2;
+  float cdze[BN / 32], cdz[BN / 32];
+#pragma unroll
+  for (int j = 0; j < BN / 32; ++j) cdze[j] = cdz[j] = 0.f;
+  float ts = 0.f, tss = 0.f;
+  for (int r = warp; r < BM; r += NW) {
+    const size_t grow = (size_t)row0 + r;
+    const bool valid = (int)(grow % g.kpad) < g.k_valid;
+    const float2 mm = rowmom[r];
+    float rs = 0.f, rss = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      const int col = col0 + lane + 32 * j;
+      const size_t idx = grow * g.H + col;
+      const float d = valid ? round_dt<T>(Cs[r * Tl::LDC + lane + 32 * j]) : 0.f;
+      dz[idx] = from_f<T>(d);
+      const float cf = valid ? to_f(cin[idx]) : 0.f;  // stored c pad rows are unmasked
+      const float ehat = (prelu(cf, a2) - mm.x) * mm.y;
+      cdze[j] += d * ehat;
+      cdz[j] += d;
+      const float dzg = d * g.g2[col];
+      rs += dzg;
+      rss += dzg * ehat;
+    }
+    if (g.gln) {
+      ts += rs;
+      tss += rss;
+    } else {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        rss += __shfl_xor_sync(0xffffffffu, rss, off);
+      }
+      if (lane == 0) {
+        float* p = g.npart + 2 * (grow * gridDim.y + blockIdx.y);
+        p[0] = rs;
+        p[1] = rss;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 32; ++j) colred[warp][lane + 32 * j] = make_float2(cdze[j], cdz[j]);
+  if (g.gln) {
+    const float2 t = block_sum2(ts, tss, red);  // syncs: colred is complete after it
+    if (threadIdx.x == 0) {
+      float* p = g.npart + 2 * ((size_t)blockIdx.x * gridDim.y + blockIdx.y);
+      p[0] = t.x;
+      p[1] = t.y;
+    }
+  } else {
+    __syncthreads();
+  }
+  for (int cc = threadIdx.x; cc < BN; cc += blockDim.x) {
+    float s = 0.f, s1 = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      s += colred[w][cc].x;
+      s1 += colred[w][cc].y;
+    }
+    float* p = g.colpart + (size_t)blockIdx.x * 2 * g.H + col0 + cc;
+    p[0] = s;
+    p[g.H] = s1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// KW: part[split] = A^T @ Bm over one chunk of rows, f32.
+// Grid (n1 / BM, n2 / BN, rows / chunk), GEMM_THREADS threads; chunk is a
+// multiple of BK that divides kpad, so a chunk lies in one batch item.
+// ZMODE: A is the saved c and the operand is z = round(g2*ehat + b2).
+// Bm rows >= K are read as zero.
+// ---------------------------------------------------------------------------
+struct WgArgs {
+  const void* A;         // [rows, n1]
+  const void* Bm;        // [rows, n2]
+  float* part;           // [rows / chunk, n1, n2]
+  const float* stats2;   // ZMODE: K2 partials (norm2 moments)
+  int n2s;
+  const float* alpha2;
+  const float* g2;       // ZMODE: [n1]
+  const float* b2;       // ZMODE: [n1]
+  int kpad, k_valid, n1, n2, chunk, gln;
+};
+
+template <typename T, bool ZMODE>
+__global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WgArgs g) {
+  using Tl = Tiles<T>;
+  constexpr int VEC = Tl::VEC;
+  __shared__ __align__(128) unsigned char smem[Tl::BYTES];
+  __shared__ float2 red[GEMM_THREADS / 32];
+  __shared__ float2 rowmom[ZMODE ? MAX_CHUNK : 1];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + BM * Tl::LDA;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int i0 = blockIdx.x * BM, j0 = blockIdx.y * BN;
+  const size_t rbase = (size_t)blockIdx.z * g.chunk;
+  const int item = (int)(rbase / g.kpad);
+  float a2 = 0.f;
+  if (ZMODE) {
+    a2 = *g.alpha2;
+    if (g.gln) {
+      const float2 t = reduce_partials(g.stats2 + 2 * (size_t)item * g.n2s, g.n2s, red);
+      const float2 mm = moments(t.x, t.y, (float)g.k_valid * (float)g.n1);
+      for (int r = threadIdx.x; r < g.chunk; r += blockDim.x) rowmom[r] = mm;
+    } else {
+      for (int r = threadIdx.x; r < g.chunk; r += blockDim.x) {
+        const float2 t = sum_pairs(g.stats2 + 2 * (rbase + r) * g.n2s, g.n2s);
+        rowmom[r] = moments(t.x, t.y, (float)g.n1);
+      }
+    }
+    __syncthreads();
+  }
+
+  const T* A = static_cast<const T*>(g.A);
+  const T* Bm = static_cast<const T*>(g.Bm);
+  TileMma<T> mma;
+  mma.init();
+  for (int k0 = 0; k0 < g.chunk; k0 += BK) {
+    // A^T tile: As[i][r] = A[row r][i0 + i] (transposed in the store).
+    for (int t = threadIdx.x; t < BK * BM / VEC; t += blockDim.x) {
+      const int r = t / (BM / VEC), iv = (t % (BM / VEC)) * VEC;
+      const size_t grow = rbase + k0 + r;
+      uint4 u = *reinterpret_cast<const uint4*>(A + grow * g.n1 + i0 + iv);
+      T* v = reinterpret_cast<T*>(&u);
+      if (ZMODE) {
+        const float2 mm = rowmom[k0 + r];
+        const bool valid = (int)(grow % g.kpad) < g.k_valid;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const int ch = i0 + iv + j;
+          const float cf = valid ? to_f(v[j]) : 0.f;
+          v[j] = from_f<T>(g.g2[ch] * ((prelu(cf, a2) - mm.x) * mm.y) + g.b2[ch]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) As[(iv + j) * Tl::LDA + r] = v[j];
+    }
+    for (int t = threadIdx.x; t < BK * BN / VEC; t += blockDim.x) {
+      const int r = t / (BN / VEC), cv = (t % (BN / VEC)) * VEC;
+      const size_t grow = rbase + k0 + r;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if ((int)(grow % g.kpad) < g.k_valid)
+        u = *reinterpret_cast<const uint4*>(Bm + grow * g.n2 + j0 + cv);
+      *reinterpret_cast<uint4*>(Bs + r * Tl::LDB + cv) = u;
+    }
+    __syncthreads();
+    mma.step(As, Bs);
+    __syncthreads();
+  }
+  mma.store(Cs);
+  __syncthreads();
+  float* out = g.part + (size_t)blockIdx.z * g.n1 * g.n2;
+  for (int t = threadIdx.x; t < BM * BN; t += blockDim.x) {
+    const int r = t / BN, cc = t % BN;
+    out[(size_t)(i0 + r) * g.n2 + j0 + cc] = Cs[r * Tl::LDC + cc];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// KB2: norm2 / PReLU2 backward, depthwise transpose, partials of dw, dg1,
+// db1, d_alpha2 and of the norm1 backward sums.
+// Grid M * kpad / DW_ROWS, DW_THREADS threads, one thread per channel (a
+// stride of DW_THREADS), the CTA's DW_ROWS rows in a loop. Dynamic shared
+// memory holds per-row terms of two windows of DW_ROWS + span rows:
+//   dc window, rows k0 + left - span + i: (mean2, inv2, mean(dz*g2),
+//     mean(dz*g2*ehat)) (float4);
+//   b window,  rows k0 - left + i: (mean1, inv1) (float2).
+// Rows outside [0, K) hold zeros and are never read.
+// ---------------------------------------------------------------------------
+struct DwbArgs {
+  const void* y1;        // [rows, H]
+  const void* c;         // [rows, H]
+  const void* dz;        // [rows, H]
+  const float* stats1;   // K1 partials of a: n1 pairs per item / row
+  int n1;
+  const float* stats2;   // K2 partials of e
+  int n2;
+  const float* gs2;      // KB1 partials of (sum dz*g2, sum dz*g2*ehat)
+  int ng2;
+  const float* alpha1;
+  const float* g1;
+  const float* b1;
+  const float* w;        // [P, H]
+  const float* alpha2;
+  const float* g2;
+  void* db;              // [rows, H]
+  float* chpart;         // [rows / DW_ROWS, P + 2, H]: dw[0..P), dg1, db1
+  float* gs1;            // gLN [rows / DW_ROWS] pairs; cLN [rows] pairs
+  float* da2part;        // [rows / DW_ROWS]
+  int kpad, k_valid, H, P, dilation, left, gln;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(DW_THREADS) bwd_dwconv_kernel(DwbArgs g) {
+  constexpr int NW = DW_THREADS / 32;
+  extern __shared__ float4 win2[];  // [nh] dc window, then [nh] float2 b window
+  __shared__ float2 red[NW];
+  __shared__ float2 rowred[DW_ROWS][NW];
+  const int row0 = blockIdx.x * DW_ROWS;
+  const int item = row0 / g.kpad, k0 = row0 % g.kpad;
+  const int span = (g.P - 1) * g.dilation;
+  const int nh = DW_ROWS + span;
+  float2* win1 = reinterpret_cast<float2*>(win2 + nh);
+  const size_t ibase = (size_t)item * g.kpad;
+  const float n_g = (float)g.k_valid * (float)g.H;
+  const int d0 = k0 + g.left - span;  // first row of the dc window
+  const int b0 = k0 - g.left;         // first row of the b window
+
+  if (g.gln) {
+    const float2 t1 = reduce_partials(g.stats1 + 2 * (size_t)item * g.n1, g.n1, red);
+    const float2 t2 = reduce_partials(g.stats2 + 2 * (size_t)item * g.n2, g.n2, red);
+    const float2 tg = reduce_partials(g.gs2 + 2 * (size_t)item * g.ng2, g.ng2, red);
+    const float2 m1 = moments(t1.x, t1.y, n_g), m2 = moments(t2.x, t2.y, n_g);
+    const float4 m2g = make_float4(m2.x, m2.y, tg.x / n_g, tg.y / n_g);
+    for (int i = threadIdx.x; i < nh; i += blockDim.x) {
+      win2[i] = m2g;
+      win1[i] = m1;
+    }
+  } else {
+    const float n_c = (float)g.H;
+    for (int i = threadIdx.x; i < nh; i += blockDim.x) {
+      float4 m2g = make_float4(0.f, 0.f, 0.f, 0.f);
+      int src = d0 + i;
+      if (src >= 0 && src < g.k_valid) {
+        const float2 t2 = sum_pairs(g.stats2 + 2 * (ibase + src) * g.n2, g.n2);
+        const float2 tg = sum_pairs(g.gs2 + 2 * (ibase + src) * g.ng2, g.ng2);
+        const float2 m2 = moments(t2.x, t2.y, n_c);
+        m2g = make_float4(m2.x, m2.y, tg.x / n_c, tg.y / n_c);
+      }
+      win2[i] = m2g;
+      float2 m1 = make_float2(0.f, 0.f);
+      src = b0 + i;
+      if (src >= 0 && src < g.k_valid) {
+        const float2 t1 = sum_pairs(g.stats1 + 2 * (ibase + src) * g.n1, g.n1);
+        m1 = moments(t1.x, t1.y, n_c);
+      }
+      win1[i] = m1;
+    }
+  }
+  __syncthreads();
+
+  const T* y1 = static_cast<const T*>(g.y1);
+  const T* cin = static_cast<const T*>(g.c);
+  const T* dz = static_cast<const T*>(g.dz);
+  T* db = static_cast<T*>(g.db);
+  const float a1 = *g.alpha1, a2 = *g.alpha2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  float rsa[DW_ROWS], rsb[DW_ROWS];
+#pragma unroll
+  for (int rr = 0; rr < DW_ROWS; ++rr) rsa[rr] = rsb[rr] = 0.f;
+  float da2acc = 0.f;
+
+  for (int ch = threadIdx.x; ch < g.H; ch += blockDim.x) {
+    const float gc1 = g.g1[ch], bc1 = g.b1[ch], gc2 = g.g2[ch];
+    float wv[MAXP], dwacc[MAXP];
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) {
+      wv[p] = p < g.P ? g.w[p * g.H + ch] : 0.f;
+      dwacc[p] = 0.f;
+    }
+    float dg1acc = 0.f, db1acc = 0.f;
+    // de and dc of a row src in [0, K), channel ch.
+    auto dcde = [&](int src, float& de, float& cf) -> float {
+      const float4 m = win2[src - d0];
+      const size_t idx = (ibase + src) * g.H + ch;
+      cf = to_f(cin[idx]);
+      const float ehat = (prelu(cf, a2) - m.x) * m.y;
+      const float dzg = to_f(dz[idx]) * gc2;
+      de = round_dt<T>(m.y * (dzg - m.z - ehat * m.w));
+      return round_dt<T>(de * dprelu(cf, a2));
+    };
+#pragma unroll 1
+    for (int rr = 0; rr < DW_ROWS; ++rr) {
+      const int k = k0 + rr;
+      const bool valid = k < g.k_valid;
+      // db[k] = sum_p w[p] * dc[k + left - p*d]
+      float acc = 0.f;
+#pragma unroll
+      for (int p = 0; p < MAXP; ++p) {
+        if (p >= g.P) break;
+        const int src = k + g.left - p * g.dilation;
+        if (src < 0 || src >= g.k_valid) continue;  // dc is zero there
+        float de, cf;
+        acc += wv[p] * dcde(src, de, cf);
+      }
+      const float dbv = valid ? round_dt<T>(acc) : 0.f;
+      db[(ibase + k) * g.H + ch] = from_f<T>(dbv);
+      // norm1 backward terms of row k
+      const float2 m1 = win1[k - b0];
+      const float ahat = (prelu(to_f(y1[(ibase + k) * g.H + ch]), a1) - m1.x) * m1.y;
+      dg1acc += dbv * ahat;
+      db1acc += dbv;
+      const float dbg = dbv * gc1;
+      rsa[rr] += dbg;
+      rsb[rr] += dbg * ahat;
+      if (!valid) continue;
+      // own dc: d_alpha2 and dw[p] += dc[k] * b[k - left + p*d]
+      float de, cf;
+      const float dc = dcde(k, de, cf);
+      da2acc += de * fminf(cf, 0.f);
+#pragma unroll
+      for (int p = 0; p < MAXP; ++p) {
+        if (p >= g.P) break;
+        const int src = k - g.left + p * g.dilation;
+        if (src < 0 || src >= g.k_valid) continue;  // b is zero there
+        const float2 mb = win1[src - b0];
+        const float a = prelu(to_f(y1[(ibase + src) * g.H + ch]), a1);
+        dwacc[p] += dc * round_dt<T>(gc1 * ((a - mb.x) * mb.y) + bc1);
+      }
+    }
+    float* cp = g.chpart + (size_t)blockIdx.x * (g.P + 2) * g.H + ch;
+    for (int p = 0; p < g.P; ++p) cp[p * g.H] = dwacc[p];
+    cp[g.P * g.H] = dg1acc;
+    cp[(g.P + 1) * g.H] = db1acc;
+  }
+
+  // Per-row sums over the channels: warp shuffle, then warps in order.
+#pragma unroll
+  for (int rr = 0; rr < DW_ROWS; ++rr) {
+    float s = rsa[rr], s1 = rsb[rr];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    }
+    if (lane == 0) rowred[rr][warp] = make_float2(s, s1);
+  }
+  const float2 t = block_sum2(da2acc, 0.f, red);  // syncs: rowred is complete
+  if (threadIdx.x == 0) g.da2part[blockIdx.x] = t.x;
+  if (g.gln) {
+    if (threadIdx.x == 0) {
+      float s = 0.f, s1 = 0.f;
+      for (int rr = 0; rr < DW_ROWS && k0 + rr < g.k_valid; ++rr)
+        for (int w = 0; w < NW; ++w) {
+          s += rowred[rr][w].x;
+          s1 += rowred[rr][w].y;
+        }
+      g.gs1[2 * blockIdx.x] = s;
+      g.gs1[2 * blockIdx.x + 1] = s1;
+    }
+  } else if (threadIdx.x < DW_ROWS) {
+    float s = 0.f, s1 = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      s += rowred[threadIdx.x][w].x;
+      s1 += rowred[threadIdx.x][w].y;
+    }
+    g.gs1[2 * ((size_t)row0 + threadIdx.x)] = s;
+    g.gs1[2 * ((size_t)row0 + threadIdx.x) + 1] = s1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// KB3: dx = round(round(dy1 @ in_w^T) + g), dy1 formed in the A load.
+// Grid (rows / BM, B / BN), GEMM_THREADS threads.
+// ---------------------------------------------------------------------------
+struct DxArgs {
+  const void* db;        // [rows, H]
+  const void* y1;        // [rows, H]
+  const void* wt;        // in_w^T [H, B]
+  const void* g;         // [rows, B] upstream cotangent
+  const float* stats1;   // K1 partials
+  int n1;
+  const float* gs1;      // KB2 partials of (sum db*g1, sum db*g1*ahat)
+  int ng1;
+  const float* alpha1;
+  const float* g1;
+  void* dx;              // [rows, B]
+  void* dy1;             // [rows, H], written by the blockIdx.y == 0 CTAs
+  float* da1part;        // [rows / BM]
+  int kpad, k_valid, B, H, gln;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(GEMM_THREADS) bwd_dx_kernel(DxArgs g) {
+  using Tl = Tiles<T>;
+  constexpr int VEC = Tl::VEC;
+  __shared__ __align__(128) unsigned char smem[Tl::BYTES];
+  __shared__ float2 red[GEMM_THREADS / 32];
+  __shared__ float4 rowmom[BM];  // (mean1, inv1, mean(db*g1), mean(db*g1*ahat))
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + BM * Tl::LDA;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int item = row0 / g.kpad;
+  if (g.gln) {
+    const float n = (float)g.k_valid * (float)g.H;
+    const float2 t1 = reduce_partials(g.stats1 + 2 * (size_t)item * g.n1, g.n1, red);
+    const float2 tg = reduce_partials(g.gs1 + 2 * (size_t)item * g.ng1, g.ng1, red);
+    const float2 m1 = moments(t1.x, t1.y, n);
+    for (int r = threadIdx.x; r < BM; r += blockDim.x)
+      rowmom[r] = make_float4(m1.x, m1.y, tg.x / n, tg.y / n);
+  } else {
+    const float n = (float)g.H;
+    for (int r = threadIdx.x; r < BM; r += blockDim.x) {
+      const size_t row = (size_t)row0 + r;
+      const float2 t1 = sum_pairs(g.stats1 + 2 * row * g.n1, g.n1);
+      const float2 tg = sum_pairs(g.gs1 + 2 * row * g.ng1, g.ng1);
+      const float2 m1 = moments(t1.x, t1.y, n);
+      rowmom[r] = make_float4(m1.x, m1.y, tg.x / n, tg.y / n);
+    }
+  }
+  __syncthreads();
+
+  const T* dbp = static_cast<const T*>(g.db);
+  const T* y1 = static_cast<const T*>(g.y1);
+  const T* W = static_cast<const T*>(g.wt);
+  T* dy1 = static_cast<T*>(g.dy1);
+  const float a1 = *g.alpha1;
+  const bool store_dy1 = blockIdx.y == 0;
+  float da1acc = 0.f;
+  TileMma<T> mma;
+  mma.init();
+  for (int k0 = 0; k0 < g.H; k0 += BK) {
+    for (int i = threadIdx.x; i < BM * BK / VEC; i += blockDim.x) {
+      const int r = i / (BK / VEC), cv = (i % (BK / VEC)) * VEC;
+      const size_t grow = (size_t)row0 + r;
+      const size_t idx = grow * g.H + k0 + cv;
+      const bool valid = (int)(grow % g.kpad) < g.k_valid;
+      uint4 u = *reinterpret_cast<const uint4*>(dbp + idx);
+      const uint4 uy = *reinterpret_cast<const uint4*>(y1 + idx);
+      T* v = reinterpret_cast<T*>(&u);
+      const T* yv = reinterpret_cast<const T*>(&uy);
+      const float4 mm = rowmom[r];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float y = to_f(yv[j]);
+        const float ahat = (prelu(y, a1) - mm.x) * mm.y;
+        const float dbg = to_f(v[j]) * g.g1[k0 + cv + j];
+        const float da = valid ? round_dt<T>(mm.y * (dbg - mm.z - ahat * mm.w)) : 0.f;
+        da1acc += da * fminf(y, 0.f);
+        v[j] = from_f<T>(da * dprelu(y, a1));
+      }
+      *reinterpret_cast<uint4*>(As + r * Tl::LDA + cv) = u;
+      if (store_dy1) *reinterpret_cast<uint4*>(dy1 + idx) = u;
+    }
+    for (int i = threadIdx.x; i < BK * BN / VEC; i += blockDim.x) {
+      const int r = i / (BN / VEC), cv = (i % (BN / VEC)) * VEC;
+      *reinterpret_cast<uint4*>(Bs + r * Tl::LDB + cv) =
+          *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * g.B + col0 + cv);
+    }
+    __syncthreads();
+    mma.step(As, Bs);
+    __syncthreads();
+  }
+  mma.store(Cs);
+  const float2 t = block_sum2(da1acc, 0.f, red);  // also syncs Cs
+  if (store_dy1 && threadIdx.x == 0) g.da1part[blockIdx.x] = t.x;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* gin = static_cast<const T*>(g.g);
+  T* dx = static_cast<T*>(g.dx);
+  for (int r = warp; r < BM; r += GEMM_THREADS / 32) {
+    const size_t grow = (size_t)row0 + r;
+    const bool valid = (int)(grow % g.kpad) < g.k_valid;
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      const int c = lane + 32 * j;
+      const size_t idx = grow * g.B + col0 + c;
+      dx[idx] = valid ? from_f<T>(round_dt<T>(Cs[r * Tl::LDC + c]) + to_f(gin[idx]))
+                      : from_f<T>(0.f);
+    }
+  }
+}
+
+}  // namespace tcn
+
+using namespace tcn;
+
+// dtype: 0 = float32, 1 = bfloat16. Every function returns the
+// cudaGetLastError() of its launch (0 = success); nothing synchronises.
+
+extern "C" int tcn_bwd_dz(int device, int dtype, const void* g, const void* wt,
+                          const void* c, const float* stats2, int n2, const float* alpha2,
+                          const float* g2, void* dz, float* colpart, float* npart,
+                          int rows, int kpad, int k_valid, int B, int H, int gln,
+                          void* stream) {
+  cudaSetDevice(device);
+  DzArgs a{g, wt, c, stats2, n2, alpha2, g2, dz, colpart, npart, kpad, k_valid, B, H, gln};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid(rows / BM, H / BN);
+  if (dtype)
+    bwd_dz_kernel<bf16><<<grid, GEMM_THREADS, 0, s>>>(a);
+  else
+    bwd_dz_kernel<float><<<grid, GEMM_THREADS, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+extern "C" int tcn_wgrad(int device, int dtype, int zmode, const void* A, const void* Bm,
+                         float* part, const float* stats2, int n2s, const float* alpha2,
+                         const float* g2, const float* b2, int rows, int kpad, int k_valid,
+                         int n1, int n2, int chunk, int gln, void* stream) {
+  cudaSetDevice(device);
+  WgArgs a{A, Bm, part, stats2, n2s, alpha2, g2, b2, kpad, k_valid, n1, n2, chunk, gln};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid(n1 / BM, n2 / BN, rows / chunk);
+  if (zmode) {
+    if (dtype)
+      wgrad_kernel<bf16, true><<<grid, GEMM_THREADS, 0, s>>>(a);
+    else
+      wgrad_kernel<float, true><<<grid, GEMM_THREADS, 0, s>>>(a);
+  } else {
+    if (dtype)
+      wgrad_kernel<bf16, false><<<grid, GEMM_THREADS, 0, s>>>(a);
+    else
+      wgrad_kernel<float, false><<<grid, GEMM_THREADS, 0, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+extern "C" int tcn_bwd_dwconv(int device, int dtype, const void* y1, const void* c,
+                              const void* dz, const float* stats1, int n1,
+                              const float* stats2, int n2, const float* gs2, int ng2,
+                              const float* alpha1, const float* g1, const float* b1,
+                              const float* w, const float* alpha2, const float* g2,
+                              void* db, float* chpart, float* gs1, float* da2part, int M,
+                              int kpad, int k_valid, int H, int P, int dilation, int causal,
+                              int gln, void* stream) {
+  cudaSetDevice(device);
+  const int span = (P - 1) * dilation;
+  DwbArgs a{y1, c, dz, stats1, n1, stats2, n2, gs2, ng2, alpha1, g1, b1, w, alpha2, g2,
+            db, chpart, gs1, da2part, kpad, k_valid, H, P, dilation,
+            causal ? span : span / 2, gln};
+  const size_t smem = (size_t)(DW_ROWS + span) * (sizeof(float4) + sizeof(float2));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = M * kpad / DW_ROWS;
+  if (dtype)
+    bwd_dwconv_kernel<bf16><<<grid, DW_THREADS, smem, s>>>(a);
+  else
+    bwd_dwconv_kernel<float><<<grid, DW_THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+extern "C" int tcn_bwd_dx(int device, int dtype, const void* db, const void* y1,
+                          const void* wt, const void* g, const float* stats1, int n1,
+                          const float* gs1, int ng1, const float* alpha1, const float* g1,
+                          void* dx, void* dy1, float* da1part, int rows, int kpad,
+                          int k_valid, int B, int H, int gln, void* stream) {
+  cudaSetDevice(device);
+  DxArgs a{db, y1, wt, g, stats1, n1, gs1, ng1, alpha1, g1, dx, dy1, da1part,
+           kpad, k_valid, B, H, gln};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid(rows / BM, B / BN);
+  if (dtype)
+    bwd_dx_kernel<bf16><<<grid, GEMM_THREADS, 0, s>>>(a);
+  else
+    bwd_dx_kernel<float><<<grid, GEMM_THREADS, 0, s>>>(a);
+  return cudaGetLastError();
+}

@@ -10,10 +10,15 @@ Rounding points kept from the JAX forward: each pointwise output is cast
 to the compute dtype before PReLU, the mask stays in the compute dtype,
 decode runs in f32 and the output is zero-padded back to T.
 
-The TCN chain runs in one of three forms (cfg.kernel_form): the
-whole-TCN kernels (ops/kernels/whole_tcn.py), the whole-block kernels
-(ops/kernels/whole_block.py), or the eager `_temporal_block` chain, which
-BN always takes.
+The TCN chain runs in the form cfg.kernel_form(train, device) names: for
+inference the whole-TCN kernels (ops/kernels/whole_tcn.py) or the
+whole-block kernels (ops/kernels/whole_block.py); for training the
+whole-TCN training op (ops/kernels/whole_tcn_hybrid.py; per block
+ops/kernels/whole_block_hybrid.py behind the memory gate below) or the
+per-block recompute op (ops/kernels/whole_block_vjp.py); else the eager
+`_temporal_block` chain under autograd, which BN always takes. The
+stacked [R, X, ...] block parameters reach the ops as [NB, ...] views, so
+their gradients flow back to the leaves.
 """
 
 from __future__ import annotations
@@ -31,7 +36,10 @@ from ..ops.conv import depthwise_dilated, pointwise
 from ..ops.framing import frame_signal, overlap_and_add
 from ..ops.kernels.tcn_block import ROW_ALIGN
 from ..ops.kernels.whole_block import whole_block
+from ..ops.kernels.whole_block_hybrid import whole_block_hybrid
+from ..ops.kernels.whole_block_vjp import whole_block_train
 from ..ops.kernels.whole_tcn import alloc_scratch, whole_tcn
+from ..ops.kernels.whole_tcn_hybrid import whole_tcn_train
 from ..ops.norms import apply_norm
 from ..utils.initializers import xavier_normal
 
@@ -40,6 +48,32 @@ State = Dict[str, Any]
 
 _BLOCK_ORDER = ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu",
                 "dw_gamma", "dw_beta", "out_w")
+
+# Memory gate of use_kernels="hybrid" in training. The whole-TCN training
+# op holds every block's input x_nb and conv output c_nb until the
+# backward: NB * M * K_pad * (B + H) activation elements (786 MB at the
+# paper config, batch 5 x 4 s, bf16). It runs when they fit a quarter of
+# the card's memory (20 GB of an 80 GB H100), leaving the rest to the
+# weights, the optimizer state and the backward's [M, K_pad, H]
+# temporaries; otherwise the per-block hybrid op runs. On the CPU the
+# budget is a fixed 8 GiB.
+RESIDUAL_SHARE_OF_DEVICE = 0.25
+CPU_RESIDUAL_BUDGET = 8 << 30
+
+
+def residual_budget(device) -> int:
+    """Bytes the whole-TCN training op may hold in residuals on `device`."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        total = torch.cuda.get_device_properties(dev).total_memory
+        return int(RESIDUAL_SHARE_OF_DEVICE * total)
+    return CPU_RESIDUAL_BUDGET
+
+
+def residual_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int) -> int:
+    """Bytes of the whole-TCN training op's residuals x_nb and c_nb."""
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    return cfg.R * cfg.X * M * K_pad * (cfg.B + cfg.H) * itemsize
 
 
 def resolve_device(device=None) -> torch.device:
@@ -161,16 +195,27 @@ def _temporal_block(x: torch.Tensor, bp: Dict[str, torch.Tensor],
     return x + y, new_state
 
 
-def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig) -> torch.Tensor:
-    """The TCN chain through ops/kernels: K is padded to ROW_ALIGN once here
-    (pad rows exact zeros, statistics over the true K frames)."""
+def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
+                  form: str) -> torch.Tensor:
+    """The TCN chain through ops/kernels in `form` (cfg.kernel_form): K is
+    padded to ROW_ALIGN once here (pad rows exact zeros, statistics over
+    the true K frames)."""
     M, K, _ = x.shape
     Kp = -(-K // ROW_ALIGN) * ROW_ALIGN
     x = F.pad(x, (0, 0, 0, Kp - K))
     bp = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in blocks.items()}
-    if cfg.kernel_form == "whole_tcn":
-        x = whole_tcn(x, *[bp[k] for k in _BLOCK_ORDER], cfg.norm_type,
-                      cfg.causal, cfg.X, valid_k=K)
+    args = [bp[k] for k in _BLOCK_ORDER]
+    if form == "whole_tcn_train" and residual_bytes(cfg, M, Kp) > residual_budget(x.device):
+        form = "whole_block_hybrid"
+    if form == "whole_tcn":
+        x = whole_tcn(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
+    elif form == "whole_tcn_train":
+        x = whole_tcn_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
+    elif form in ("whole_block_train", "whole_block_hybrid"):
+        op = whole_block_train if form == "whole_block_train" else whole_block_hybrid
+        for nb in range(cfg.R * cfg.X):
+            x = op(x, *[a[nb] for a in args], cfg.norm_type, 2 ** (nb % cfg.X),
+                   cfg.causal, valid_k=K)
     else:
         scratch = (alloc_scratch(M, Kp, cfg.H, x.dtype, x.device)
                    if x.is_cuda else None)
@@ -197,8 +242,9 @@ def separate(params: Params, state: State, cfg: ConvTasNetConfig,
     x = pointwise(x, sp["bottleneck"]["w"], dt).to(dt)  # [M, K, B]
 
     new_state = state
-    if cfg.kernel_form != "eager":
-        x = _kernel_chain(x, sp["blocks"], cfg)
+    form = cfg.kernel_form(train, mixture_w.device)
+    if form != "eager":
+        x = _kernel_chain(x, sp["blocks"], cfg, form)
     else:
         has_bn = cfg.norm_type == "BN"
         block_state = state.get("blocks") if has_bn else None
@@ -257,7 +303,7 @@ def _to_module(tree) -> nn.Module:
         if isinstance(v, dict):
             m.add_module(k, _to_module(v))
         else:
-            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            m.register_parameter(k, nn.Parameter(v))
     return m
 
 
@@ -268,9 +314,11 @@ def _from_module(m: nn.Module) -> Params:
 
 
 class ConvTasNet(nn.Module):
-    """nn.Module over the functional model: parameters registered under the
-    JAX leaf names (e.g. `separator.blocks.in_w`), BN running stats as
-    buffers. forward(mixture [M, T]) -> estimates [M, C, T] float32."""
+    """nn.Module over the functional model: trainable parameters registered
+    under the JAX leaf names (e.g. `separator.blocks.in_w`), BN running
+    stats as buffers. forward(mixture [M, T]) -> estimates [M, C, T]
+    float32, in train mode when the module is (callers that only serve
+    wrap it in torch.inference_mode())."""
 
     def __init__(self, cfg: ConvTasNetConfig, params: Optional[Params] = None,
                  state: Optional[State] = None, device=None,
@@ -297,7 +345,7 @@ class ConvTasNet(nn.Module):
         est, new_state = forward(self.params(), self.state(), self.cfg, mixture,
                                  train=self.training)
         for k, v in new_state.get("blocks", {}).items():
-            getattr(self, f"bn_{k}").copy_(v)
+            getattr(self, f"bn_{k}").copy_(v.detach())
         return est
 
     def num_params(self) -> int:

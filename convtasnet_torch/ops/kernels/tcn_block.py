@@ -4,7 +4,9 @@ plain PyTorch versions.
 One temporal block runs as
   K1 tcn_in_gemm:  y1 = round(x @ in_w), partial sums of a = PReLU(y1);
   K2 tcn_dwconv:   e = round(PReLU(dwconv(round(norm1(a))))), partial sums
-                   of e over the rows < K;
+                   of e over the rows < K; with save=True (training) also
+                   c = round(dwconv(...)), the conv output before PReLU2,
+                   pad rows not masked;
   K3 tcn_out_gemm: x' = round(x + round(norm2(e) @ out_w)), in place when
                    the caller passes out=x, with
                    norm2 folded into the product (fold=True, the whole-TCN
@@ -40,7 +42,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "tcn_in_gemm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tcn_dwconv": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+    "tcn_dwconv": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _P],
@@ -148,9 +150,11 @@ tcn_in_gemm.launches = 0
 # ---------------------------------------------------------------------------
 
 def dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
-                 causal, valid_k, e: Optional[torch.Tensor] = None):
+                 causal, valid_k, e: Optional[torch.Tensor] = None,
+                 save: bool = False, c: Optional[torch.Tensor] = None):
     """Plain version of K2 (whole_tcn.py:139-188 with the conv halo of
-    rows outside [0, K) zero)."""
+    rows outside [0, K) zero). save=True also returns round(c)
+    (whole_tcn.py:277-280, fused_whole_block.py:250-253)."""
     M, Kp, H = y1.shape
     dt = y1.dtype
     a = _prelu_f32(y1.float(), alpha1)
@@ -167,22 +171,26 @@ def dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
     span = (P - 1) * dilation
     left = span if causal else span // 2
     bp = F.pad(b, (0, 0, left, span - left))
-    c = None
+    cv = None
     for p in range(P):
         tap = bp[:, p * dilation: p * dilation + Kp].float() * w[p]
-        c = tap if c is None else c + tap
-    ev = _prelu_f32(c, alpha2)
+        cv = tap if cv is None else cv + tap
+    ev = _prelu_f32(cv, alpha2)
     em = torch.where(rows, ev, 0.0)
     stats = _sums(em, (1, 2))[:, None, :] if norm_type == "gLN" else _sums(em, -1)[:, :, None, :]
+    if save:
+        return _into(e, ev.to(dt)), stats, _into(c, cv.to(dt))
     return _into(e, ev.to(dt)), stats
 
 
 def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
-               causal, valid_k, e: Optional[torch.Tensor] = None):
-    """K2. Returns (e [M, K_pad, H], partial sums); e may be given."""
+               causal, valid_k, e: Optional[torch.Tensor] = None,
+               save: bool = False, c: Optional[torch.Tensor] = None):
+    """K2. Returns (e [M, K_pad, H], partial sums), and c [M, K_pad, H]
+    third with save=True; e and c may be given."""
     if y1.device.type == "cpu":
         return dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type,
-                            dilation, causal, valid_k, e)
+                            dilation, causal, valid_k, e, save, c)
     M, Kp, H = y1.shape
     P = w.shape[0]
     dt = y1.dtype
@@ -196,9 +204,14 @@ def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
     alpha1, alpha2 = alpha1.reshape(1), alpha2.reshape(1)
     if e is None:
         e = torch.empty_like(y1)
+    if save and c is None:
+        c = torch.empty_like(y1)
     stats = torch.empty((M, Kp // DW_ROWS, 2) if gln else (M, Kp, 1, 2),
                         dtype=torch.float32, device=y1.device)
     _check_cuda(y1, e, dtype=dt)
+    if save:
+        _check_cuda(y1, c, dtype=dt)
+        _require(c.shape == y1.shape and e.shape == y1.shape, "e / c do not match y1")
     _check_cuda(y1, stats1, alpha1, g1, b1, w, alpha2, stats, dtype=None)
     for t in (stats1, alpha1, g1, b1, w, alpha2):
         _require(t.dtype == torch.float32, "statistics and parameters must be float32")
@@ -208,14 +221,19 @@ def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
     rc = _lib().tcn_dwconv(y1.device.index, _DTYPES[dt], y1.data_ptr(), stats1.data_ptr(),
                            n1, alpha1.data_ptr(), g1.data_ptr(), b1.data_ptr(),
                            w.data_ptr(), alpha2.data_ptr(), e.data_ptr(),
+                           c.data_ptr() if save else None,
                            stats.data_ptr(), M, Kp, valid_k, H, P, dilation,
                            int(causal), int(gln), _stream(y1))
     _build.check(rc, "tcn_dwconv")
+    if save:
+        tcn_dwconv.launches_save += 1
+        return e, stats, c
     tcn_dwconv.launches += 1
     return e, stats
 
 
 tcn_dwconv.launches = 0
+tcn_dwconv.launches_save = 0
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +328,7 @@ tcn_out_gemm.launches_unfold = 0
 def reset_counts() -> None:
     tcn_in_gemm.launches = 0
     tcn_dwconv.launches = 0
+    tcn_dwconv.launches_save = 0
     tcn_out_gemm.launches_fold = 0
     tcn_out_gemm.launches_unfold = 0
 
@@ -317,5 +336,6 @@ def reset_counts() -> None:
 def counts() -> dict:
     return {"tcn_in_gemm": tcn_in_gemm.launches,
             "tcn_dwconv": tcn_dwconv.launches,
+            "tcn_dwconv_save": tcn_dwconv.launches_save,
             "tcn_out_gemm_fold": tcn_out_gemm.launches_fold,
             "tcn_out_gemm_unfold": tcn_out_gemm.launches_unfold}

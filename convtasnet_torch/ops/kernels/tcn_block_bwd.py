@@ -1,0 +1,412 @@
+"""Wrappers of the TCN-block backward kernels (csrc/tcn_block_bwd.cu) and
+their plain PyTorch versions.
+
+The backward of one block, given the upstream cotangent g [M, K_pad, B],
+the block input x, y1 and the norm1 partials s1 (K1 rerun on x), the saved
+conv output c and the norm2 partials s2 (K2 in save mode), runs as
+
+  KB1 tcn_bwd_dz:      dz = round(g @ out_w^T), partials of dg2, db2 and of
+                       the norm2 backward sums (sum dz*g2, sum dz*g2*ehat);
+  KW  tcn_wgrad (z):   dout_w = z^T g, z = round(norm2(PReLU2(c)));
+  KB2 tcn_bwd_dwconv:  de, dc = round(de * PReLU2'(c)), the depthwise
+                       transpose db, partials of dw, dg1, db1, d_alpha2 and
+                       of the norm1 backward sums;
+  KB3 tcn_bwd_dx:      da, dy1 = round(da * PReLU1'(y1)), dx = round(round(
+                       dy1 @ in_w^T) + g) with rows >= K zero, d_alpha1
+                       partials;
+  KW  tcn_wgrad:       din_w = x^T dy1;
+
+and `block_bwd` sums the f32 partials over their first axis. Rows >= K
+of g are ignored. The partial layouts follow tcn_block.py: gLN [M, n, 2]
+per item, cLN [M, K_pad, n, 2] per row, and the reader sums whatever n it
+is given; the plain versions write n = 1.
+
+Counterpart of the TPU kernels whole_tcn_hybrid.py `_bwd_block_kernel`
+and whole_block_vjp.py `_bwd_kernel`; the math is their norm / PReLU /
+depthwise backward (whole_block_hybrid.py:22-34). A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .tcn_block import (_DTYPES, BM, BN, DW_ROWS, _check_cuda, _check_widths,
+                        _moments, _prelu_f32, _require, _stream)
+
+MAXP = 8            # depthwise taps KB2 holds in registers
+MAX_SPAN = 1024     # KB2's shared-memory windows: (32 + span) * 24 bytes
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "tcn_bwd_dz": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _P],
+    "tcn_wgrad": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_bwd_dwconv": [_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
+                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("tcn_block_bwd")
+    for fn, args in _SIGNATURES.items():
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = args, ctypes.c_int
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _rows(Kp: int, valid_k: int, device) -> torch.Tensor:
+    return (torch.arange(Kp, device=device) < valid_k)[None, :, None]
+
+
+def _norm_terms(stats, norm_type, valid_k, H):
+    """(mean, inv) broadcastable to [M, K_pad, 1] from (sum, sumsq) partials."""
+    if norm_type == "gLN":
+        mean, inv = _moments(stats.sum(1), float(valid_k) * H)
+        return mean[:, None, None], inv[:, None, None]
+    mean, inv = _moments(stats.sum(2), float(H))
+    return mean[..., None], inv[..., None]
+
+
+def _grad_means(parts, norm_type, valid_k, H):
+    """(mean(dy*gamma), mean(dy*gamma*hat)) from their partial sums."""
+    if norm_type == "gLN":
+        s = parts.sum(1) / (float(valid_k) * H)
+        return s[:, None, None, 0], s[:, None, None, 1]
+    s = parts.sum(2) / float(H)
+    return s[..., 0, None], s[..., 1, None]
+
+
+def _pair_sums(a, b, norm_type):
+    """Partials of (sum a, sum b): gLN [M, 1, 2], cLN [M, K_pad, 1, 2]."""
+    if norm_type == "gLN":
+        return torch.stack([a.sum((1, 2)), b.sum((1, 2))], -1)[:, None, :]
+    return torch.stack([a.sum(-1), b.sum(-1)], -1)[:, :, None, :]
+
+
+def _n_parts(stats, gln: bool) -> int:
+    return stats.shape[1] if gln else stats.shape[2]
+
+
+def _check_stats(stats, M, Kp, gln, what):
+    _require(stats.dtype == torch.float32 and stats.is_contiguous(),
+             f"{what} must be contiguous float32")
+    _require(stats.shape[0] == M and (gln or stats.shape[1] == Kp),
+             f"{what} does not match the activations")
+
+
+def _check_params(*ts):
+    for t in ts:
+        _require(t.dtype == torch.float32 and t.is_contiguous(),
+                 "parameters must be contiguous float32")
+
+
+_LAUNCHES = {"tcn_bwd_dz": 0, "tcn_wgrad_out": 0, "tcn_bwd_dwconv": 0,
+             "tcn_bwd_dx": 0, "tcn_wgrad_in": 0}
+
+
+def counts() -> dict:
+    return dict(_LAUNCHES)
+
+
+def reset_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# KB1: dz and the norm2-backward partials
+# ---------------------------------------------------------------------------
+
+def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
+    """Plain version of KB1. g [M, K_pad, B], out_wt = out_w^T [B, H]
+    (activation dtype), c [M, K_pad, H]. Returns (dz, colpart [1, 2, H]
+    = (sum dz*ehat, sum dz), norm2-backward partials)."""
+    M, Kp, _ = g.shape
+    H = out_wt.shape[1]
+    dt = g.dtype
+    rows = _rows(Kp, valid_k, g.device)
+    gm = torch.where(rows, g, torch.zeros((), dtype=dt, device=g.device))
+    dz = torch.matmul(gm.float(), out_wt.float()).to(dt)
+    mean, inv = _norm_terms(stats2, norm_type, valid_k, H)
+    cf = torch.where(rows, c.float(), 0.0)
+    ehat = (_prelu_f32(cf, alpha2) - mean) * inv
+    d = dz.float()
+    colpart = torch.stack([(d * ehat).sum((0, 1)), d.sum((0, 1))])[None]
+    dzg = d * g2
+    return dz, colpart, _pair_sums(dzg, dzg * ehat, norm_type)
+
+
+def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
+    """KB1. Same signature and results as bwd_dz_plain."""
+    if g.device.type == "cpu":
+        return bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k)
+    M, Kp, B = g.shape
+    H = out_wt.shape[1]
+    dt = g.dtype
+    _check_widths(Kp, B, H, dt)
+    _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
+    _require(out_wt.shape == (B, H) and c.shape == (M, Kp, H) and g2.shape == (H,),
+             "KB1 operand shapes do not match")
+    gln = norm_type == "gLN"
+    alpha2 = alpha2.reshape(1)
+    _check_cuda(g, out_wt, c, dtype=dt)
+    _check_cuda(g, stats2, alpha2, g2)
+    _check_stats(stats2, M, Kp, gln, "stats2")
+    _check_params(alpha2, g2)
+    nct = H // BN
+    dz = torch.empty((M, Kp, H), dtype=dt, device=g.device)
+    colpart = torch.empty((M * Kp // BM, 2, H), dtype=torch.float32, device=g.device)
+    npart = torch.empty((M, Kp // BM * nct, 2) if gln else (M, Kp, nct, 2),
+                        dtype=torch.float32, device=g.device)
+    rc = _lib().tcn_bwd_dz(g.device.index, _DTYPES[dt], g.data_ptr(), out_wt.data_ptr(),
+                           c.data_ptr(), stats2.data_ptr(), _n_parts(stats2, gln),
+                           alpha2.data_ptr(), g2.data_ptr(), dz.data_ptr(),
+                           colpart.data_ptr(), npart.data_ptr(), M * Kp, Kp, valid_k,
+                           B, H, int(gln), _stream(g))
+    _build.check(rc, "tcn_bwd_dz")
+    _LAUNCHES["tcn_bwd_dz"] += 1
+    return dz, colpart, npart
+
+
+# ---------------------------------------------------------------------------
+# KW: weight gradients A^T @ Bm, split over row chunks
+# ---------------------------------------------------------------------------
+
+def wgrad_chunk(Kp: int) -> int:
+    """Rows per split: 128 * q for the largest q <= 8 dividing K_pad / 128,
+    so a chunk lies in one batch item."""
+    n = Kp // 128
+    return 128 * max(q for q in range(1, 9) if n % q == 0)
+
+
+def wgrad_plain(A, Bm, valid_k, z=None):
+    """Plain version of KW: [1, n1, n2] = A^T @ Bm over the rows < valid_k
+    of each item. z = (stats2, alpha2, g2, b2, norm_type) makes the A
+    operand round(g2 * ehat + b2) with ehat from A = c (dout_w)."""
+    M, Kp, n1 = A.shape
+    dt = A.dtype
+    rows = _rows(Kp, valid_k, A.device)
+    Bm = torch.where(rows, Bm, torch.zeros((), dtype=Bm.dtype, device=Bm.device))
+    if z is not None:
+        stats2, alpha2, g2, b2, norm_type = z
+        mean, inv = _norm_terms(stats2, norm_type, valid_k, n1)
+        cf = torch.where(rows, A.float(), 0.0)
+        A = (g2 * ((_prelu_f32(cf, alpha2) - mean) * inv) + b2).to(dt)
+    return torch.matmul(A.float().reshape(-1, n1).t(), Bm.float().reshape(M * Kp, -1))[None]
+
+
+def tcn_wgrad(A, Bm, valid_k, z=None):
+    """KW. Returns f32 partials [n_split, n1, n2]; their sum over axis 0 is
+    the weight gradient."""
+    if A.device.type == "cpu":
+        return wgrad_plain(A, Bm, valid_k, z)
+    M, Kp, n1 = A.shape
+    n2 = Bm.shape[2]
+    dt = A.dtype
+    _check_widths(Kp, n1, n2, dt)
+    _require(Bm.shape[:2] == (M, Kp), "KW operands must have the same rows")
+    _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
+    _check_cuda(A, Bm, dtype=dt)
+    chunk = wgrad_chunk(Kp)
+    part = torch.empty((M * Kp // chunk, n1, n2), dtype=torch.float32, device=A.device)
+    stats2 = alpha2 = g2 = b2 = None
+    gln, n2s = 0, 0
+    if z is not None:
+        stats2, alpha2, g2, b2, norm_type = z
+        gln = int(norm_type == "gLN")
+        alpha2 = alpha2.reshape(1)
+        _check_cuda(A, stats2, alpha2, g2, b2)
+        _check_stats(stats2, M, Kp, gln, "stats2")
+        _check_params(alpha2, g2, b2)
+        _require(g2.shape == (n1,) and b2.shape == (n1,), "norm2 vectors do not match")
+        n2s = _n_parts(stats2, gln)
+    rc = _lib().tcn_wgrad(A.device.index, _DTYPES[dt], int(z is not None), A.data_ptr(),
+                          Bm.data_ptr(), part.data_ptr(), _ptr(stats2), n2s, _ptr(alpha2),
+                          _ptr(g2), _ptr(b2), M * Kp, Kp, valid_k, n1, n2, chunk, gln,
+                          _stream(A))
+    _build.check(rc, "tcn_wgrad")
+    _LAUNCHES["tcn_wgrad_out" if z is not None else "tcn_wgrad_in"] += 1
+    return part
+
+
+# ---------------------------------------------------------------------------
+# KB2: norm2 / PReLU2 backward and the depthwise transpose
+# ---------------------------------------------------------------------------
+
+def bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
+                     g2, norm_type, dilation, causal, valid_k):
+    """Plain version of KB2. Returns (db [M, K_pad, H], channel partials
+    [1, P + 2, H] = (dw[0..P), dg1, db1), norm1-backward partials,
+    d_alpha2 partials [1])."""
+    M, Kp, H = y1.shape
+    P = w.shape[0]
+    dt = y1.dtype
+    span = (P - 1) * dilation
+    left = span if causal else span // 2
+    rows = _rows(Kp, valid_k, y1.device)
+    m1, i1 = _norm_terms(stats1, norm_type, valid_k, H)
+    m2, i2 = _norm_terms(stats2, norm_type, valid_k, H)
+    sa, sb = _grad_means(gs2, norm_type, valid_k, H)
+    cf = torch.where(rows, c.float(), 0.0)
+    ehat = (_prelu_f32(cf, alpha2) - m2) * i2
+    de = torch.where(rows, (i2 * (dz.float() * g2 - sa - ehat * sb)).to(dt).float(), 0.0)
+    dc = (de * torch.where(cf >= 0, 1.0, alpha2.float())).to(dt).float()
+    da2 = (de * torch.clamp(cf, max=0.0)).sum()
+    # db[j] = sum_p w[p] * dc[j + left - p*d]
+    dcp = F.pad(dc, (0, 0, span - left, left))
+    db = None
+    for p in range(P):
+        tap = w[p] * dcp[:, span - p * dilation: span - p * dilation + Kp]
+        db = tap if db is None else db + tap
+    db = torch.where(rows, db.to(dt).float(), 0.0)
+    # dw[p] = sum_k dc[k] * b[k - left + p*d], b recomputed from y1
+    ahat = (_prelu_f32(y1.float(), alpha1) - m1) * i1
+    b = torch.where(rows, (g1 * ahat + b1).to(dt).float(), 0.0)
+    bp = F.pad(b, (0, 0, left, span - left))
+    dw = torch.stack([(dc * bp[:, p * dilation: p * dilation + Kp]).sum((0, 1))
+                      for p in range(P)])
+    chpart = torch.cat([dw, (db * ahat).sum((0, 1))[None], db.sum((0, 1))[None]])[None]
+    dbg = db * g1
+    return db.to(dt), chpart, _pair_sums(dbg, dbg * ahat, norm_type), da2.reshape(1)
+
+
+def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
+                   g2, norm_type, dilation, causal, valid_k):
+    """KB2. Same signature and results as bwd_dwconv_plain."""
+    if y1.device.type == "cpu":
+        return bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w,
+                                alpha2, g2, norm_type, dilation, causal, valid_k)
+    M, Kp, H = y1.shape
+    P = w.shape[0]
+    dt = y1.dtype
+    _check_widths(Kp, BN, H, dt)
+    _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
+    _require(P <= MAXP, f"P={P} exceeds the kernel's {MAXP} taps")
+    _require((P - 1) * dilation <= MAX_SPAN,
+             f"conv span {(P - 1) * dilation} exceeds the kernel's halo limit")
+    _require(c.shape == y1.shape and dz.shape == y1.shape and w.shape == (P, H)
+             and g1.shape == (H,) and b1.shape == (H,) and g2.shape == (H,),
+             "KB2 operand shapes do not match")
+    gln = norm_type == "gLN"
+    alpha1, alpha2 = alpha1.reshape(1), alpha2.reshape(1)
+    _check_cuda(y1, c, dz, dtype=dt)
+    _check_cuda(y1, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2, g2)
+    for s, what in ((stats1, "stats1"), (stats2, "stats2"), (gs2, "KB1 partials")):
+        _check_stats(s, M, Kp, gln, what)
+    _check_params(alpha1, g1, b1, w, alpha2, g2)
+    ntile = M * Kp // DW_ROWS
+    db = torch.empty_like(y1)
+    chpart = torch.empty((ntile, P + 2, H), dtype=torch.float32, device=y1.device)
+    gs1 = torch.empty((M, Kp // DW_ROWS, 2) if gln else (M, Kp, 1, 2),
+                      dtype=torch.float32, device=y1.device)
+    da2part = torch.empty((ntile,), dtype=torch.float32, device=y1.device)
+    rc = _lib().tcn_bwd_dwconv(
+        y1.device.index, _DTYPES[dt], y1.data_ptr(), c.data_ptr(), dz.data_ptr(),
+        stats1.data_ptr(), _n_parts(stats1, gln), stats2.data_ptr(), _n_parts(stats2, gln),
+        gs2.data_ptr(), _n_parts(gs2, gln), alpha1.data_ptr(), g1.data_ptr(),
+        b1.data_ptr(), w.data_ptr(), alpha2.data_ptr(), g2.data_ptr(), db.data_ptr(),
+        chpart.data_ptr(), gs1.data_ptr(), da2part.data_ptr(), M, Kp, valid_k, H, P,
+        dilation, int(causal), int(gln), _stream(y1))
+    _build.check(rc, "tcn_bwd_dwconv")
+    _LAUNCHES["tcn_bwd_dwconv"] += 1
+    return db, chpart, gs1, da2part
+
+
+# ---------------------------------------------------------------------------
+# KB3: norm1 / PReLU1 backward and dx
+# ---------------------------------------------------------------------------
+
+def bwd_dx_plain(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
+    """Plain version of KB3. in_wt = in_w^T [H, B] (activation dtype).
+    Returns (dx [M, K_pad, B], dy1 [M, K_pad, H], d_alpha1 partials [1])."""
+    M, Kp, H = db.shape
+    dt = db.dtype
+    rows = _rows(Kp, valid_k, db.device)
+    m1, i1 = _norm_terms(stats1, norm_type, valid_k, H)
+    sa, sb = _grad_means(gs1, norm_type, valid_k, H)
+    y = y1.float()
+    ahat = (_prelu_f32(y, alpha1) - m1) * i1
+    da = torch.where(rows, (i1 * (db.float() * g1 - sa - ahat * sb)).to(dt).float(), 0.0)
+    da1 = (da * torch.clamp(y, max=0.0)).sum()
+    dy1 = (da * torch.where(y >= 0, 1.0, alpha1.float())).to(dt)
+    dx = (torch.matmul(dy1.float(), in_wt.float()).to(dt).float() + g.float()).to(dt)
+    dx = torch.where(rows, dx, torch.zeros((), dtype=dt, device=db.device))
+    return dx, dy1, da1.reshape(1)
+
+
+def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
+    """KB3. Same signature and results as bwd_dx_plain."""
+    if db.device.type == "cpu":
+        return bwd_dx_plain(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k)
+    M, Kp, H = db.shape
+    B = in_wt.shape[1]
+    dt = db.dtype
+    _check_widths(Kp, B, H, dt)
+    _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
+    _require(y1.shape == db.shape and in_wt.shape == (H, B) and g.shape == (M, Kp, B)
+             and g1.shape == (H,), "KB3 operand shapes do not match")
+    gln = norm_type == "gLN"
+    alpha1 = alpha1.reshape(1)
+    _check_cuda(db, y1, in_wt, g, dtype=dt)
+    _check_cuda(db, stats1, gs1, alpha1, g1)
+    _check_stats(stats1, M, Kp, gln, "stats1")
+    _check_stats(gs1, M, Kp, gln, "KB2 partials")
+    _check_params(alpha1, g1)
+    dx = torch.empty((M, Kp, B), dtype=dt, device=db.device)
+    dy1 = torch.empty_like(db)
+    da1part = torch.empty((M * Kp // BM,), dtype=torch.float32, device=db.device)
+    rc = _lib().tcn_bwd_dx(db.device.index, _DTYPES[dt], db.data_ptr(), y1.data_ptr(),
+                           in_wt.data_ptr(), g.data_ptr(), stats1.data_ptr(),
+                           _n_parts(stats1, gln), gs1.data_ptr(), _n_parts(gs1, gln),
+                           alpha1.data_ptr(), g1.data_ptr(), dx.data_ptr(), dy1.data_ptr(),
+                           da1part.data_ptr(), M * Kp, Kp, valid_k, B, H, int(gln),
+                           _stream(db))
+    _build.check(rc, "tcn_bwd_dx")
+    _LAUNCHES["tcn_bwd_dx"] += 1
+    return dx, dy1, da1part
+
+
+# ---------------------------------------------------------------------------
+# One block's backward
+# ---------------------------------------------------------------------------
+
+PLAIN_BWD = (bwd_dz_plain, wgrad_plain, bwd_dwconv_plain, bwd_dx_plain)
+KERNEL_BWD = (tcn_bwd_dz, tcn_wgrad, tcn_bwd_dwconv, tcn_bwd_dx)
+
+
+def block_bwd(g, x, y1, s1, c, s2, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
+              norm_type, dilation, causal, valid_k, stages=KERNEL_BWD
+              ) -> Tuple[torch.Tensor, ...]:
+    """Backward of one block. g, x [M, K_pad, B] and y1, c [M, K_pad, H] in
+    the activation dtype; in_w [B, H], out_w [H, B] in the activation
+    dtype; the rest f32. Returns (dx, din_w, da1, dg1, db1, dw, da2, dg2,
+    db2, dout_w), the JAX VJP's order; weight gradients f32, dx with
+    rows >= valid_k zero."""
+    dz_fn, wgrad_fn, dw_fn, dx_fn = stages
+    P = w.shape[0]
+    out_wt = out_w.t().contiguous()
+    in_wt = in_w.t().contiguous()
+    dz, colpart, gs2 = dz_fn(g, out_wt, c, s2, a2, g2, norm_type, valid_k)
+    dout_w = wgrad_fn(c, g, valid_k, (s2, a2, g2, b2, norm_type)).sum(0)
+    db, chpart, gs1, da2p = dw_fn(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2,
+                                  norm_type, dilation, causal, valid_k)
+    dx, dy1, da1p = dx_fn(db, y1, in_wt, g, s1, gs1, a1, g1, norm_type, valid_k)
+    din_w = wgrad_fn(x, dy1, valid_k).sum(0)
+    chs = chpart.sum(0)
+    cols = colpart.sum(0)
+    return (dx, din_w, da1p.sum(), chs[P], chs[P + 1], chs[:P], da2p.sum(),
+            cols[0], cols[1], dout_w)

@@ -1,0 +1,174 @@
+"""One temporal block as a differentiable op: kernel forward that saves y1
+and c, plain PyTorch backward that consumes them.
+
+Counterpart of convtasnet_tpu/ops/pallas/whole_block_hybrid.py
+(`whole_block_hybrid`, `_hybrid_bwd_math`): the per-block form of the
+hybrid training path, which the model takes when the whole-TCN op's
+residuals do not fit its memory gate. The forward is K1, K2 in save mode
+and the unfolded K3 (one fresh y1 and c per block: they are residuals, so
+no scratch is shared across blocks); the backward is `hybrid_bwd_math`, a
+line-for-line port of the JAX package's plain-array backward (its products
+are torch.matmul, as the JAX package leaves them to XLA).
+
+Backward math (biased-variance layer norm, EPS inside rsqrt): with
+vhat = (v - mu) * r, r = rsqrt(var + EPS) over n reduced elements,
+d_beta = sum(dy), d_gamma = sum(dy * vhat),
+dv = r * (dy*gamma - mean(dy*gamma) - vhat * mean(dy*gamma * vhat));
+PReLU: dv = dy * (v >= 0 ? 1 : alpha), d_alpha = sum(dy * min(v, 0));
+depthwise: db[j] = sum_p w[p] * dc[j + left - p*d],
+dw[p] = sum_k dc[k] * b[k - left + p*d].
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ...config import EPS
+from .tcn_block import (dwconv_plain, in_gemm_plain, out_gemm_plain, tcn_dwconv,
+                        tcn_in_gemm, tcn_out_gemm)
+
+
+def _prelu(v, alpha):
+    return torch.where(v >= 0, v, alpha * v)
+
+
+def _dprelu(v, alpha):
+    return torch.where(v >= 0, torch.ones((), dtype=v.dtype, device=v.device), alpha)
+
+
+def hybrid_bwd_math(x, y1, c, g, in_w, alpha1, gamma1, beta1, w, alpha2, gamma2,
+                    beta2, out_w, norm_type, dilation, causal, K):
+    """Backward of one block from the saved x, y1 and c (whole_block_hybrid.py
+    :62-204): wide [M, K_pad, H] tensors in the activation dtype, norm
+    statistics, reductions, product accumulators and parameter gradients
+    in f32. Returns (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w)."""
+    M, K_pad, B = x.shape
+    P, H = w.shape
+    span = (P - 1) * dilation
+    left = span if causal else span // 2
+    n = K * H
+    dt = x.dtype
+    f32 = torch.float32
+    gln = norm_type == "gLN"
+    a1 = alpha1.to(dt)
+    a2 = alpha2.to(dt)
+    g1 = gamma1.reshape(1, 1, H).to(dt)
+    b1 = beta1.reshape(1, 1, H).to(dt)
+    g2 = gamma2.reshape(1, 1, H).to(dt)
+    w_dt = w.to(dt)
+    zero = torch.zeros((), dtype=dt, device=x.device)
+    mask = (torch.arange(K_pad, device=x.device) < K)[None, :, None]
+
+    def rmask(v):
+        return torch.where(mask, v, zero.to(v.dtype))
+
+    def gmean(v):
+        return v.sum((1, 2), keepdim=True, dtype=f32) / n
+
+    def rstats(v):
+        mean = v.float().mean(-1, keepdim=True)
+        d = v.float() - mean
+        return mean, torch.rsqrt((d * d).mean(-1, keepdim=True) + EPS)
+
+    def norm_stats(v):
+        if gln:
+            mu = gmean(v)
+            return mu, torch.rsqrt(torch.clamp(gmean(v.float() * v.float()) - mu * mu,
+                                               min=0.0) + EPS)
+        return rstats(v)
+
+    def norm_bwd(dy, vhat, inv, gamma):
+        dyg = dy * gamma
+        if gln:
+            t = dyg - gmean(dyg).to(dt) - vhat * gmean(dyg * vhat).to(dt)
+        else:
+            t = (dyg - dyg.float().mean(-1, keepdim=True).to(dt)
+                 - vhat * (dyg * vhat).float().mean(-1, keepdim=True).to(dt))
+        return inv.to(dt) * t
+
+    def mm(a, b):
+        return torch.matmul(a.float(), b.float())
+
+    # Recompute the normalised activations from the saved slabs.
+    a = _prelu(y1, a1)
+    mu1, inv1 = norm_stats(a)
+    ahat = (a - mu1.to(dt)) * inv1.to(dt)
+    b = rmask(g1 * ahat + b1)
+    cf = rmask(c)  # the stored c pad rows are not masked
+    e = _prelu(cf, a2)
+    mu2, inv2 = norm_stats(e)
+    ehat = (e - mu2.to(dt)) * inv2.to(dt)
+    z = g2 * ehat + beta2.reshape(1, 1, H).to(dt)
+
+    # out_w backward
+    g_dt = rmask(g.to(dt))
+    dz = mm(g_dt, out_w.to(dt).t()).to(dt)
+    dout_w = mm(z.reshape(-1, H).t(), g_dt.reshape(-1, B))
+
+    # norm2 / PReLU2 backward
+    dg2 = (dz.float() * ehat.float()).sum((0, 1))
+    db2 = dz.sum((0, 1), dtype=f32)
+    de = rmask(norm_bwd(dz, ehat, inv2, g2))
+    da2 = (de.float() * torch.clamp(cf, max=0).float()).sum()
+    dc = de * _dprelu(cf, a2)
+
+    # depthwise transpose
+    bp = F.pad(b, (0, 0, left, span - left))
+    dw = torch.stack([(dc.float() * bp[:, p * dilation:p * dilation + K_pad].float())
+                      .sum((0, 1)) for p in range(P)])
+    dcp = F.pad(dc, (0, 0, span - left, left))
+    db = None
+    for p in range(P):
+        tap = w_dt[p] * dcp[:, span - p * dilation:span - p * dilation + K_pad]
+        db = tap if db is None else db + tap
+    db = rmask(db)
+
+    # norm1 / PReLU1 backward
+    dg1 = (db.float() * ahat.float()).sum((0, 1))
+    db1 = db.sum((0, 1), dtype=f32)
+    da = rmask(norm_bwd(db, ahat, inv1, g1))
+    da1 = (da.float() * torch.clamp(y1, max=0).float()).sum()
+    dy1 = da * _dprelu(y1, a1)
+
+    # in_w backward and the residual path
+    dx = rmask(mm(dy1, in_w.to(dt).t()).to(dt) + g_dt)
+    din_w = mm(x.reshape(-1, B).t(), dy1.reshape(-1, H))
+    return (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w)
+
+
+class _WholeBlockHybrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
+                causal, valid_k, plain):
+        in_gemm, dwconv, out_gemm = ((in_gemm_plain, dwconv_plain, out_gemm_plain)
+                                     if plain else (tcn_in_gemm, tcn_dwconv, tcn_out_gemm))
+        dt = x.dtype
+        y1, s1 = in_gemm(x, in_w.to(dt), a1, norm_type)
+        e, s2, c = dwconv(y1, s1, a1, g1, b1, w, a2, norm_type, dilation, causal, valid_k,
+                          save=True)
+        out = out_gemm(e, s2, x, out_w.to(dt), g2, b2, norm_type, valid_k, False)
+        ctx.save_for_backward(x, y1, c, in_w, a1, g1, b1, w, a2, g2, b2, out_w)
+        ctx.static = (norm_type, dilation, causal, valid_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, y1, c, in_w, a1, g1, b1, w, a2, g2, b2, out_w = ctx.saved_tensors
+        norm_type, dilation, causal, valid_k = ctx.static
+        dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = hybrid_bwd_math(
+            x, y1, c, gout, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
+            causal, valid_k)
+        return (dx, din_w, da1.reshape(a1.shape), dg1, db1, dw, da2.reshape(a2.shape),
+                dg2, db2, dout_w, None, None, None, None, None)
+
+
+def whole_block_hybrid(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
+                       causal, valid_k=None, plain=False):
+    """Differentiable whole-block op (saved-residual backward). x
+    [M, K_pad, B] with exact-zero pad rows (valid_k = the true frame
+    count); block weights f32, a1 / a2 0-d. A CUDA tensor runs K1, K2
+    (save) and K3 (unfolded) forward; the backward is plain PyTorch."""
+    K = x.shape[1] if valid_k is None else valid_k
+    return _WholeBlockHybrid.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
+                                   dilation, causal, K, plain)

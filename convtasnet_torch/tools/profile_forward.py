@@ -1,17 +1,22 @@
-"""Where the time of one separation forward goes, on one CUDA device.
+"""Where the time of one separation forward, or one train step, goes on
+one CUDA device.
 
     python -m convtasnet_torch.tools.profile_forward --batch 8 --use_kernels auto
+    python -m convtasnet_torch.tools.profile_forward --train --batch 5 --use_kernels hybrid
 
-Seeded paper-config weights, random mixtures of 4 s at 8 kHz. Prints one
-JSON line: the host-clock forward time (synchronised), the CUDA-event time,
-the device time by kernel from torch.profiler over 10 forwards, and the
-device's idle share: 1 - (device time per forward) / (CUDA-event time per
-forward). With --out the same JSON is also written to a file.
+Seeded paper-config weights, random mixtures (and, with --train, random
+sources) of 4 s at 8 kHz; --train profiles make_train_step (forward, uPIT
+loss, backward, clip, Adam update). Prints one JSON line: the host-clock
+time per call (synchronised), the CUDA-event time, the device time by
+kernel from torch.profiler over 10 calls, and the device's idle share:
+1 - (device time per call) / (CUDA-event time per call). With --out the
+same JSON is also written to a file.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -19,25 +24,37 @@ import time
 import numpy as np
 import torch
 
-from ..config import ConvTasNetConfig
+from ..config import USE_KERNELS_CHOICES, ConvTasNetConfig
 from ..models.conv_tasnet import forward, init_params, resolve_device
+from ..training.optim import Optimizer
+from ..training.solver import make_train_step
 
 
 SECONDS, ITERS = 4.0, 10
 
 
-def profile(batch: int, use_kernels: str) -> dict:
+def profile(batch: int, use_kernels: str, train: bool = False) -> dict:
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(ConvTasNetConfig(), use_kernels=use_kernels)
     params, state = init_params(torch.Generator(device=dev).manual_seed(1234),
                                 cfg, device=dev)
-    mix = torch.from_numpy(np.random.default_rng(0).normal(
-        size=(batch, int(SECONDS * 8000))).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(0)
+    T = int(SECONDS * 8000)
+    src = torch.from_numpy(rng.normal(size=(batch, cfg.C, T)).astype(np.float32)).to(dev)
+    mix = src.sum(1)
+    if train:
+        opt = Optimizer("adam")
+        opt_state = opt.init(params)
+        step = make_train_step(cfg, opt, 5.0)
+        lens = torch.full((batch,), T, dtype=torch.int32, device=dev)
 
-    def fwd():
-        return forward(params, state, cfg, mix)[0]
+        def fwd():
+            return step(params, opt_state, state, mix, src, lens)[3]
+    else:
+        def fwd():
+            return forward(params, state, cfg, mix)[0]
 
-    with torch.inference_mode():
+    with contextlib.nullcontext() if train else torch.inference_mode():
         for _ in range(3):
             fwd()
         torch.cuda.synchronize()
@@ -70,17 +87,18 @@ def profile(batch: int, use_kernels: str) -> dict:
         us = float(evt.self_device_time_total)
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and not evt.is_user_annotation and us > 0):
-            by_name[evt.key] = {"device_ms_per_forward": us / 1e3 / ITERS,
-                                "calls_per_forward": evt.count / ITERS}
-    busy_ms = sum(v["device_ms_per_forward"] for v in by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms_per_forward"]))
+            by_name[evt.key] = {"device_ms_per_call": us / 1e3 / ITERS,
+                                "launches_per_call": evt.count / ITERS}
+    busy_ms = sum(v["device_ms_per_call"] for v in by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms_per_call"]))
     return {
         "device": torch.cuda.get_device_name(dev),
+        "work": "train_step" if train else "forward",
         "batch": batch, "seconds": SECONDS, "use_kernels": use_kernels,
         "compute_dtype": cfg.compute_dtype, "iters": ITERS,
         "host_ms_median": float(np.median(host)), "event_ms": event_ms,
-        "profiled_window_ms_per_forward": window_ms / ITERS,
-        "device_busy_ms_per_forward": busy_ms,
+        "profiled_window_ms_per_call": window_ms / ITERS,
+        "device_busy_ms_per_call": busy_ms,
         # Against the unprofiled CUDA-event time: the profiler slows the
         # host, not the kernels.
         "device_idle_share": max(0.0, 1.0 - busy_ms / event_ms),
@@ -89,12 +107,13 @@ def profile(batch: int, use_kernels: str) -> dict:
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser("Profile one separation forward on the GPU")
+    p = argparse.ArgumentParser("Profile one separation forward or train step on the GPU")
     p.add_argument("--batch", type=int, default=8)
-    p.add_argument("--use_kernels", default="auto", choices=("auto", "block", "0"))
+    p.add_argument("--use_kernels", default="auto", choices=USE_KERNELS_CHOICES)
+    p.add_argument("--train", action="store_true", help="profile one train step")
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
-    res = profile(args.batch, args.use_kernels)
+    res = profile(args.batch, args.use_kernels, args.train)
     line = json.dumps(res)
     print(line)
     if args.out:

@@ -5,8 +5,10 @@ atomically (tmp + rename). Keys are the JAX pytree paths joined by "/"
 (`params/separator/blocks/in_w`, `state/blocks/in_mean`), so a checkpoint
 written by either package loads in the other. The model config is rebuilt
 from the header; the JAX-only keys it may carry (use_pallas, remat,
-scan_unroll) are dropped. Optimizer state waits for the training slice:
-"opt/" arrays are kept in the raw arrays and otherwise ignored.
+scan_unroll) are dropped. The optimizer state is stored under the JAX
+`opt/` keys (`opt/step` int32, `opt/lr`, `opt/mu/...`, `opt/nu/...`,
+convtasnet_tpu/training/checkpoint.py:78-86, :130-131), so either package
+resumes from the other's checkpoint with its optimizer state.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import ConvTasNetConfig
+from .optim import OptState
 
 _SEP = "/"
 FORMAT = "convtasnet_tpu.ckpt.v1"
@@ -67,20 +70,22 @@ def _check_against(template: Any, tree: Any, path: str) -> None:
 
 
 def save_checkpoint(path: str, cfg: ConvTasNetConfig, params: Any, state: Any,
-                    epoch: int = 0, tr_loss: Optional[list] = None,
-                    cv_loss: Optional[list] = None,
+                    opt_state: Optional[OptState] = None, epoch: int = 0,
+                    tr_loss: Optional[list] = None, cv_loss: Optional[list] = None,
                     extra: Optional[Dict[str, Any]] = None) -> None:
     """Atomically write a self-describing checkpoint."""
     arrays: Dict[str, np.ndarray] = {}
     arrays.update(_flatten(params, "params/"))
     arrays.update(_flatten(state, "state/"))
+    if opt_state is not None:
+        arrays.update(_flatten(opt_state._asdict(), "opt/"))
     header = {
         "format": FORMAT,
         "model_config": cfg.header_dict(),
         "epoch": int(epoch),
         "tr_loss": list(map(float, tr_loss or [])),
         "cv_loss": list(map(float, cv_loss or [])),
-        "has_opt": False,
+        "has_opt": opt_state is not None,
         "extra": extra or {},
     }
     d = os.path.dirname(os.path.abspath(path))
@@ -102,10 +107,12 @@ def load_header(path: str) -> Dict[str, Any]:
 
 
 def load_checkpoint(path: str, device=None, params_template: Any = None,
-                    state_template: Any = None) -> Dict[str, Any]:
-    """Load a checkpoint: the header, the raw flat arrays, the config and
-    the parameter / state trees as tensors on `device` (CPU by default).
-    With templates, every template leaf must be present with its shape."""
+                    state_template: Any = None, opt_template: Any = None
+                    ) -> Dict[str, Any]:
+    """Load a checkpoint: the header, the raw flat arrays, the config, the
+    parameter / state trees as tensors on `device` (CPU by default) and,
+    when the header has one, "opt_state" (an OptState). With templates,
+    every template leaf must be present with its shape."""
     dev = torch.device("cpu") if device is None else torch.device(device)
     with np.load(path) as z:
         header = json.loads(bytes(z["__header__"]).decode())
@@ -116,6 +123,12 @@ def load_checkpoint(path: str, device=None, params_template: Any = None,
         "params": _unflatten(arrays, "params/", dev),
         "state": _unflatten(arrays, "state/", dev),
     }
+    if header.get("has_opt"):
+        opt = _unflatten(arrays, "opt/", dev)
+        out["opt_state"] = OptState(step=opt["step"], lr=opt["lr"],
+                                    mu=opt.get("mu", {}), nu=opt.get("nu", {}))
+        if opt_template is not None:
+            _check_against(opt_template._asdict(), out["opt_state"]._asdict(), "opt/")
     if params_template is not None:
         _check_against(params_template, out["params"], "params/")
     if state_template is not None:

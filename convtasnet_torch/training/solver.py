@@ -1,0 +1,250 @@
+"""Training engine: train / eval steps, the epoch loop and the LR / stopping
+policy.
+
+Counterpart of convtasnet_tpu/training/solver.py (the reference Solver,
+solver.py:12-210):
+* one train step: forward with train=True (the TCN chain in the form
+  cfg.kernel_form(True) names), uPIT loss, backward, global-norm clip,
+  optimizer update; the eval step runs train=False under no_grad, so it
+  takes the inference kernels under any truthy use_kernels;
+* the learning rate lives in the optimizer state on the device, so
+  LR halving on a plateau (solver.py:105-123) is a tensor update;
+* per-epoch and best-model checkpoints, `continue_from`, and
+  `save_every_steps` mid-epoch resume with the running loss sums;
+* the CV mean weights each batch by its real utterance count;
+* device scalars (loss) are read back only at print_freq points and at
+  the end of an epoch, so the host keeps queueing steps.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import ConvTasNetConfig, TrainConfig
+from ..models.conv_tasnet import ConvTasNet, forward
+from ..ops.loss import cal_loss
+from .checkpoint import load_checkpoint, save_checkpoint
+from .optim import Optimizer, clip_by_global_norm, set_lr, tree_leaves, tree_map
+
+
+def make_train_step(cfg: ConvTasNetConfig, opt: Optimizer, max_norm: float) -> Callable:
+    """step(params, opt_state, state, mixture, source, lengths) ->
+    (params, opt_state, state, loss, grad_norm), all on the device."""
+
+    def step(params, opt_state, state, mixture, source, lengths):
+        leaves_tree = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        leaves = tree_leaves(leaves_tree)
+        est, new_state = forward(leaves_tree, state, cfg, mixture, train=True)
+        loss, *_ = cal_loss(source, est, lengths)
+        grad_of = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+        grads = tree_map(lambda p: grad_of[id(p)], leaves_tree)
+        grads, grad_norm = clip_by_global_norm(grads, max_norm)
+        params, opt_state = opt.update(grads, opt_state, params)
+        new_state = tree_map(lambda t: t.detach(), new_state)
+        return params, opt_state, new_state, loss.detach(), grad_norm
+
+    return step
+
+
+def make_eval_step(cfg: ConvTasNetConfig) -> Callable:
+    @torch.no_grad()
+    def step(params, state, mixture, source, lengths):
+        est, _ = forward(params, state, cfg, mixture, train=False)
+        loss, *_ = cal_loss(source, est, lengths)
+        return loss
+
+    return step
+
+
+class Solver:
+    """Epoch loop with the reference's LR-halving / early-stop state machine.
+
+    The model's parameters and state are the starting point (or those of
+    `continue_from`); training runs on the functional trees and writes the
+    final parameters back into the module."""
+
+    def __init__(self, model: ConvTasNet, train_cfg: TrainConfig, tr_loader, cv_loader,
+                 log: Optional[Callable[[str], None]] = None, metric_logger=None,
+                 train_step: Optional[Callable] = None,
+                 eval_step: Optional[Callable] = None):
+        self.model = model
+        self.cfg = train_cfg
+        self.tr_loader = tr_loader
+        self.cv_loader = cv_loader
+        self.device = next(model.parameters()).device
+        if metric_logger is None and log is None:
+            from ..utils.observability import MetricLogger
+
+            metric_logger = MetricLogger(train_cfg.save_folder)
+        self.metric_logger = metric_logger
+        self.log = log or metric_logger.log
+
+        self.opt = Optimizer(kind=train_cfg.optimizer, lr=train_cfg.lr,
+                             momentum=train_cfg.momentum, weight_decay=train_cfg.l2)
+        params = tree_map(lambda p: p.detach().clone(), model.params())
+        state = tree_map(lambda t: t.detach().clone(), model.state())
+        opt_state = self.opt.init(params)
+        self.start_epoch = 0
+        self.tr_loss: List[float] = []
+        self.cv_loss: List[float] = []
+        self.resume_step, self.resume_loss, self.resume_audio = 0, 0.0, 0.0
+        if train_cfg.continue_from:
+            self.log(f"Loading checkpoint {train_cfg.continue_from}")
+            ck = load_checkpoint(train_cfg.continue_from, self.device,
+                                 params_template=params, state_template=state,
+                                 opt_template=opt_state)
+            params, state = ck["params"], ck["state"]
+            opt_state = ck.get("opt_state", opt_state)
+            header = ck["header"]
+            self.start_epoch = header["epoch"]
+            self.tr_loss = header["tr_loss"][: self.start_epoch]
+            self.cv_loss = header["cv_loss"][: self.start_epoch]
+            # Mid-epoch checkpoint: resume inside the epoch it was cut in,
+            # with the running sums, so the epoch average is exact.
+            extra = header.get("extra", {}) or {}
+            self.resume_step = int(extra.get("step_in_epoch", 0))
+            if self.resume_step:
+                self.resume_loss = float(extra.get("running_loss", 0.0))
+                self.resume_audio = float(extra.get("running_audio_sec", 0.0))
+        self.params, self.state, self.opt_state = params, state, opt_state
+        self.train_step = train_step or make_train_step(model.cfg, self.opt,
+                                                        train_cfg.max_norm)
+        self.eval_step = eval_step or make_eval_step(model.cfg)
+        self.prev_val_loss = float("inf")
+        self.best_val_loss = float("inf")
+        self.halving = False
+        self.val_no_impv = 0
+        self.steps = 0
+        self.history: List[Dict[str, Any]] = []
+
+    # ------------------------------------------------------------------
+    def train(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        os.makedirs(cfg.save_folder, exist_ok=True)
+        for epoch in range(self.start_epoch, cfg.epochs):
+            self.log("Training...")
+            t0 = time.time()
+            tr_avg, audio_sps = self._run_one_epoch(epoch, cross_valid=False)
+            self.log(f"Train Summary | End of Epoch {epoch + 1} | "
+                     f"Time {time.time() - t0:.2f}s | Train Loss {tr_avg:.3f} | "
+                     f"{audio_sps:.1f} audio-s/s")
+
+            self.log("Cross validation...")
+            t0 = time.time()
+            val_loss, _ = self._run_one_epoch(epoch, cross_valid=True)
+            self.log(f"Valid Summary | End of Epoch {epoch + 1} | "
+                     f"Time {time.time() - t0:.2f}s | Valid Loss {val_loss:.3f}")
+
+            # LR halving / early stop (solver.py:105-123 semantics).
+            stop = False
+            if cfg.half_lr:
+                if val_loss >= self.prev_val_loss:
+                    self.val_no_impv += 1
+                    if self.val_no_impv >= 3:
+                        self.halving = True
+                    if self.val_no_impv >= 10 and cfg.early_stop:
+                        self.log("No improvement for 10 epochs, early stopping.")
+                        stop = True
+                else:
+                    self.val_no_impv = 0
+            if self.halving:
+                new_lr = float(self.opt_state.lr) / 2.0
+                self.opt_state = set_lr(self.opt_state, new_lr)
+                self.log(f"Learning rate adjusted to: {new_lr:.6f}")
+                self.halving = False
+            self.prev_val_loss = val_loss
+
+            self.tr_loss.append(tr_avg)
+            self.cv_loss.append(val_loss)
+            # Saved after the epoch's losses are recorded, so epochN.ckpt is
+            # self-consistent.
+            if cfg.checkpoint:
+                path = os.path.join(cfg.save_folder, f"epoch{epoch + 1}.ckpt")
+                self._save(path, epoch + 1)
+                self.log(f"Saving checkpoint model to {path}")
+            self.history.append({"epoch": epoch + 1, "tr_loss": tr_avg, "cv_loss": val_loss,
+                                 "lr": float(self.opt_state.lr), "audio_sps": audio_sps})
+            if self.metric_logger is not None:
+                self.metric_logger.metrics(**self.history[-1])
+            if val_loss < self.best_val_loss:
+                self.best_val_loss = val_loss
+                path = os.path.join(cfg.save_folder, cfg.model_path)
+                self._save(path, epoch + 1)
+                self.log(f"Find better validated model, saving to {path}")
+            if stop:
+                break
+        with torch.no_grad():
+            for p, new in zip(tree_leaves(self.model.params()), tree_leaves(self.params)):
+                p.copy_(new)
+        return {"tr_loss": self.tr_loss, "cv_loss": self.cv_loss,
+                "best_val_loss": self.best_val_loss, "history": self.history,
+                "steps": self.steps}
+
+    # ------------------------------------------------------------------
+    def _to_device(self, batch):
+        def dev(a):
+            return torch.from_numpy(np.asarray(a)).to(self.device, non_blocking=True)
+
+        return dev(batch.mixture), dev(batch.lengths), dev(batch.source)
+
+    def _run_one_epoch(self, epoch: int, cross_valid: bool):
+        loader = self.cv_loader if cross_valid else self.tr_loader
+        total_loss = 0.0
+        total_audio_sec = 0.0
+        total_w = 0  # CV: utterances accumulated (weighted batch means)
+        start = time.time()
+        skip = 0
+        if not cross_valid:
+            loader.set_epoch(epoch)  # deterministic order per (seed, epoch)
+            if self.resume_step and epoch == self.start_epoch:
+                skip = self.resume_step
+                total_loss = self.resume_loss
+                total_audio_sec = self.resume_audio
+                self.log(f"Resuming epoch {epoch + 1} at step {skip}")
+                self.resume_step = 0
+        it = loader.iter_from(skip) if skip else iter(loader)
+        i = skip - 1
+        last_loss = None
+        for i, batch in enumerate(it, start=skip):
+            mixture, lengths, source = self._to_device(batch)
+            if cross_valid:
+                loss = self.eval_step(self.params, self.state, mixture, source, lengths)
+                batch_w = int(np.sum(np.asarray(batch.lengths) > 0))
+                total_w += batch_w
+                total_loss = total_loss + loss * batch_w
+            else:
+                (self.params, self.opt_state, self.state, loss, _gn) = self.train_step(
+                    self.params, self.opt_state, self.state, mixture, source, lengths)
+                self.steps += 1
+                total_loss = total_loss + loss
+            last_loss = loss
+            total_audio_sec += float(np.sum(np.asarray(batch.lengths))) / self.cfg.sample_rate
+            if i % self.cfg.print_freq == 0:
+                elapsed = time.time() - start
+                denom = total_w if cross_valid else i + 1
+                self.log(f"Epoch {epoch + 1} | Iter {i + 1} | "
+                         f"Average Loss {float(total_loss) / max(denom, 1):.3f} | "
+                         f"Current Loss {float(last_loss):.6f} | "
+                         f"{1000 * elapsed / max(i + 1 - skip, 1):.1f} ms/batch")
+            if (not cross_valid and self.cfg.save_every_steps
+                    and (i + 1) % self.cfg.save_every_steps == 0):
+                path = os.path.join(self.cfg.save_folder, "latest.ckpt")
+                self._save(path, epoch, extra={"step_in_epoch": i + 1,
+                                               "running_loss": float(total_loss),
+                                               "running_audio_sec": total_audio_sec})
+        n = total_w if cross_valid else i + 1
+        if n <= 0:
+            return float("nan"), 0.0
+        epoch_loss = float(total_loss)  # one wait for the epoch's queued steps
+        audio_sps = total_audio_sec / max(time.time() - start, 1e-9)
+        return epoch_loss / n, audio_sps
+
+    def _save(self, path: str, epoch: int, extra: Optional[dict] = None) -> None:
+        save_checkpoint(path, self.model.cfg, self.params, self.state,
+                        opt_state=self.opt_state, epoch=epoch, tr_loss=self.tr_loss,
+                        cv_loss=self.cv_loss, extra=extra)

@@ -88,3 +88,131 @@ def test_unsupported_width_raises(dev):
     with pytest.raises(ValueError, match="multiples of 128"):
         tcn_block.tcn_in_gemm(x, torch.zeros((96, 128), device=dev),
                               torch.zeros(1, device=dev), "gLN")
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: K2 save mode, the backward kernels and the three ops
+# ---------------------------------------------------------------------------
+
+from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb  # noqa: E402
+from convtasnet_torch.ops.kernels.whole_block_hybrid import whole_block_hybrid  # noqa: E402
+from convtasnet_torch.ops.kernels.whole_block_vjp import whole_block_train  # noqa: E402
+from convtasnet_torch.ops.kernels.whole_tcn_hybrid import whole_tcn_train  # noqa: E402
+
+
+def _rel_max(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _bwd_inputs(dev, dtype, norm_type, causal, dilation, K=300, Kp=384, M=2, B=128,
+                H=256):
+    """Block inputs and the forward residuals from the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(dilation)
+    one = [a[0] for a in _blocks(1, B=B, H=H, device=dev)]
+    in_w, a1, g1, b1, w, a2, g2, b2, out_w = one
+    x = torch.randn((M, Kp, B), generator=gen, device=dev)
+    x[:, K:] = 0
+    g = torch.randn((M, Kp, B), generator=gen, device=dev).to(dtype)
+    x = x.to(dtype)
+    y1, s1 = tcn_block.in_gemm_plain(x, in_w.to(dtype), a1, norm_type)
+    _, s2, c = tcn_block.dwconv_plain(y1, s1, a1, g1, b1, w, a2, norm_type, dilation,
+                                      causal, K, save=True)
+    return dict(x=x, g=g, y1=y1, s1=s1, c=c, s2=s2, in_w=in_w.to(dtype), a1=a1, g1=g1,
+                b1=b1, w=w, a2=a2, g2=g2, b2=b2, out_w=out_w.to(dtype), K=K)
+
+
+BWD_CASES = [("gLN", False, 1), ("gLN", True, 8), ("cLN", False, 4), ("cLN", True, 32)]
+
+
+@pytest.mark.parametrize("norm_type,causal,dilation", BWD_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)])
+def test_backward_kernels_match_plain(dev, norm_type, causal, dilation, dtype, tol):
+    """K2 save mode, KB1, KW (both forms), KB2 and KB3 each against its
+    plain version on the same inputs; partials compared after their sum."""
+    d = _bwd_inputs(dev, dtype, norm_type, causal, dilation)
+    K = d["K"]
+    red = 1 if norm_type == "gLN" else 2
+    ek, s2k, ck = tcn_block.tcn_dwconv(d["y1"], d["s1"], d["a1"], d["g1"], d["b1"], d["w"],
+                                      d["a2"], norm_type, dilation, causal, K, save=True)
+    assert _rel_max(ck, d["c"]) <= tol
+    assert _rel_max(s2k.sum(red), d["s2"].sum(red)) <= tol
+    out_wt = d["out_w"].t().contiguous()
+    args = (d["g"], out_wt, d["c"], d["s2"], d["a2"], d["g2"], norm_type, K)
+    dzk, colk, gs2k = tbb.tcn_bwd_dz(*args)
+    dzp, colp, gs2p = tbb.bwd_dz_plain(*args)
+    assert _rel_max(dzk, dzp) <= tol
+    assert _rel_max(colk.sum(0), colp.sum(0)) <= tol
+    assert _rel_max(gs2k.sum(red), gs2p.sum(red)) <= tol
+    z = (d["s2"], d["a2"], d["g2"], d["b2"], norm_type)
+    assert _rel_max(tbb.tcn_wgrad(d["c"], d["g"], K, z).sum(0),
+                    tbb.wgrad_plain(d["c"], d["g"], K, z).sum(0)) <= tol
+    args = (d["y1"], d["c"], dzp, d["s1"], d["s2"], gs2p, d["a1"], d["g1"], d["b1"], d["w"],
+            d["a2"], d["g2"], norm_type, dilation, causal, K)
+    dbk, chk, gs1k, da2k = tbb.tcn_bwd_dwconv(*args)
+    dbp, chp, gs1p, da2p = tbb.bwd_dwconv_plain(*args)
+    assert _rel_max(dbk, dbp) <= tol
+    assert _rel_max(chk.sum(0), chp.sum(0)) <= tol
+    assert _rel_max(gs1k.sum(red), gs1p.sum(red)) <= tol
+    assert _rel_max(da2k.sum(), da2p.sum()) <= tol
+    args = (dbp, d["y1"], d["in_w"].t().contiguous(), d["g"], d["s1"], gs1p, d["a1"], d["g1"],
+            norm_type, K)
+    dxk, dy1k, da1k = tbb.tcn_bwd_dx(*args)
+    dxp, dy1p, da1p = tbb.bwd_dx_plain(*args)
+    assert _rel_max(dxk, dxp) <= tol and torch.all(dxk[:, K:] == 0)
+    assert _rel_max(dy1k, dy1p) <= tol
+    assert _rel_max(da1k.sum(), da1p.sum()) <= tol
+    assert _rel_max(tbb.tcn_wgrad(d["x"], dy1p, K).sum(0),
+                    tbb.wgrad_plain(d["x"], dy1p, K).sum(0)) <= tol
+
+
+def _op_grads(op, x, params, g, *static, plain):
+    x = x.clone().requires_grad_(True)
+    ps = [p.clone().requires_grad_(True) for p in params]
+    out = op(x, *ps, *static, plain=plain)
+    grads = torch.autograd.grad(out, [x] + ps, g)
+    return out.detach(), grads
+
+
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_training_ops_match_plain(dev, norm_type, causal, dtype, tol):
+    """whole_tcn_train, whole_block_train and whole_block_hybrid: output and
+    the eleven gradients (x and ten parameters) of the kernel run against
+    the plain run, relative L2."""
+    X, K, Kp = 2, 300, 384
+    args = _blocks(2 * X, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, Kp, 128), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(dtype)
+    g = torch.randn((2, Kp, 128), generator=gen, device=dev).to(dtype)
+    ops = [(whole_tcn_train, args, (norm_type, causal, X, K))]
+    one = [a[0] for a in args]
+    for op in (whole_block_train, whole_block_hybrid):
+        ops.append((op, one, (norm_type, 4, causal, K)))
+    tcn_block.reset_counts()
+    tbb.reset_counts()
+    for op, params, static in ops:
+        got, gk = _op_grads(op, x, params, g, *static, plain=False)
+        want, gp = _op_grads(op, x, params, g, *static, plain=True)
+        assert _rel_l2(got, want) <= tol, op.__name__
+        for i, (a, b) in enumerate(zip(gk, gp)):
+            assert _rel_l2(a, b) <= tol, (op.__name__, i)
+    counts = tbb.counts()
+    assert counts["tcn_bwd_dz"] == 2 * X + 1 and counts["tcn_wgrad_in"] == 2 * X + 1
+
+
+def test_backward_repeats_bit_for_bit(dev):
+    """Partials reduce in a fixed order, no float atomics: two backward
+    runs give identical bytes."""
+    X, K, Kp = 2, 300, 384
+    args = _blocks(2 * X, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, Kp, 128), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(torch.bfloat16)
+    g = torch.randn((2, Kp, 128), generator=gen, device=dev).to(torch.bfloat16)
+    a = _op_grads(whole_tcn_train, x, args, g, "gLN", False, X, K, plain=False)[1]
+    b = _op_grads(whole_tcn_train, x, args, g, "gLN", False, X, K, plain=False)[1]
+    assert all(torch.equal(u, v) for u, v in zip(a, b))

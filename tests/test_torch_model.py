@@ -62,7 +62,7 @@ def test_kernel_forms_on_cpu_match_jax_kernels(norm_type, causal, form):
     want, _ = convtasnet_tpu.forward(params, state, jk, jax.numpy.asarray(mix))
     cfg = ConvTasNetConfig(use_kernels=form, norm_type=norm_type, causal=causal,
                            **SMALL)
-    assert cfg.kernel_form == ("whole_tcn" if form == "auto" else "whole_block")
+    assert cfg.kernel_form(device="cpu") == ("whole_tcn" if form == "auto" else "whole_block")
     tcn_block.reset_counts()
     got, _ = tm.forward(tp, ts, cfg, torch.from_numpy(mix))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -71,7 +71,7 @@ def test_kernel_forms_on_cpu_match_jax_kernels(norm_type, causal, form):
 
 def test_bn_always_eager():
     cfg = ConvTasNetConfig(use_kernels="auto", norm_type="BN", **SMALL)
-    assert cfg.kernel_form == "eager"
+    assert cfg.kernel_form() == "eager"
 
 
 def test_module_wraps_functional_forward():
