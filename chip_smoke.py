@@ -8,7 +8,10 @@
    at the paper widths (B=256, H=512, P=3) and the main path's shapes
    (batch 8, K=3199 frames, padded to 3200), for every dilation 1..128,
    gLN and cLN, causal and non-causal, in f32 and in bf16, then the
-   32-block chains of both forms;
+   32-block chains of both forms; then K3 (fold and unfold, into a fresh
+   tensor and in place) and KB3 at the test width (B=128, H=256, batch 3,
+   K_pad=384) at every tile plan of the bf16 wgmma kernels, with rows >= K
+   exact zeros and two launches giving equal bytes;
 4. training kernel phase: holds K2's save mode and the backward kernels
    (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, KB2 tcn_bwd_dwconv, KB3
    tcn_bwd_dx) against their plain versions at the training shapes (batch
@@ -32,10 +35,16 @@
    eager autograd step in f32 and bf16;
 7. times the forward at batch 8 and batch 1 (4 s at 8 kHz), the train
    step at batch 5 x 4 s, each kernel per launch beside its plain
-   version, one PyTorch call where there is one, and its roofline bound,
-   and the backward of each training op beside its plain version;
-8. prints the card again, a {"kernels": [...]} line and, last,
-   {"ok": true, "device": {...}}.
+   version, one PyTorch call where there is one (torch.matmul of a GEMM
+   kernel's product; F.conv1d / F.conv_transpose1d with groups=H of the
+   depthwise kernels, cuDNN with TF32 off), and its roofline bound, and the
+   backward of each training op beside its plain version. `ms`, `plain_ms`
+   and `library_ms` are device time per call from torch.profiler (the
+   kernels' own time: a wrapper's host time can exceed it), `event_ms` the
+   CUDA-event time per call of back-to-back calls, `host_us` the host's
+   enqueue time per call;
+8. prints the card again, a {"kernels": [...]} line (each kernel with its
+   `design`) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It imports nothing
 of JAX; without a CUDA device, or without the package beside it, it fails.
@@ -53,6 +62,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # H100 SXM data-sheet peaks (dense), for the roofline bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
@@ -91,6 +101,11 @@ WHOLE_BLOCK = "convtasnet_tpu/ops/pallas/fused_whole_block.py:57"
 SOURCE_BWD = "convtasnet_torch/csrc/tcn_block_bwd.cu"
 BWD_BLOCK = "convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py:64"
 GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "dout_w")
+# How each kernel is built (bf16, the main path's type).
+DESIGN = {"tcn_in_gemm": "wmma", "tcn_dwconv": "simt", "tcn_out_gemm_fold": "wgmma+tma",
+          "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": "simt", "tcn_bwd_dz": "wmma",
+          "tcn_wgrad_out": "wmma", "tcn_bwd_dwconv": "simt", "tcn_bwd_dx": "wgmma+tma",
+          "tcn_wgrad_in": "wmma"}
 TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
                  "tcn_bwd_dx", "tcn_wgrad_in")
 
@@ -117,6 +132,34 @@ def cuda_ms(fn, iters=20, warm=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warm=3) -> float:
+    """Device time per call: the device time of every kernel `fn`
+    launches, summed by torch.profiler over `iters` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
+def host_us(fn, iters=20) -> float:
+    """Host time per call to enqueue `fn` (no synchronisation inside)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def forward_ms(fn, iters=20, warm=3):
@@ -173,6 +216,78 @@ def reset_all_counts():
     from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
     tb.reset_counts()
     tbb.reset_counts()
+
+
+def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
+    """K3 (fold and unfold, fresh output and in place) and KB3 at the test
+    width against their plain versions, at every tile plan of the bf16
+    wgmma kernels (the real SM count, and one SM, which makes gemm_plan
+    take 128-row tiles); rows >= K exact zeros; two launches equal bytes."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+
+    chk = Checks("test-width K3 / KB3 phase")
+    log(f"test-width K3 / KB3 phase (B={B}, H={H}, M={M}, K_pad={Kp}):")
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    in_w, out_w = rnd(B, H, scale=0.1), rnd(H, B, scale=0.1)
+    a1, a2 = torch.full((1,), 0.25, device=dev), torch.full((1,), 0.25, device=dev)
+    g1, b1, g2, b2 = rnd(H, scale=0.1, shift=1.0), rnd(H, scale=0.1), rnd(H, scale=0.1, shift=1.0), rnd(H, scale=0.1)
+    w = rnd(3, H, scale=0.3)
+    x32 = rnd(M, Kp, B)
+    x32[:, K:] = 0
+    g32 = rnd(M, Kp, B)
+    real_sms = tb._sm_count
+    try:
+        for one_sm in (False, True):
+            sms = (lambda index: 1) if one_sm else real_sms
+            tb._sm_count = tbb._sm_count = sms
+            for dt in (torch.float32, torch.bfloat16):
+                tol = TOL_F32 if dt == torch.float32 else TOL_BF16
+                x, g = x32.to(dt), g32.to(dt)
+                for norm in ("gLN", "cLN"):
+                    for causal in (False, True):
+                        what = (f"{'f32' if dt == torch.float32 else 'bf16'} {norm} causal={causal}"
+                                f" plan={tb.gemm_plan(M * Kp, B, H, sms(0))}")
+                        y1, s1 = tb.in_gemm_plain(x, in_w.to(dt), a1, norm)
+                        e, s2, c = tb.dwconv_plain(y1, s1, a1, g1, b1, w, a2, norm, 2, causal, K,
+                                                   save=True)
+                        for fold in (True, False):
+                            wm, va, vb = (tb.fold_weights(out_w, g2, b2, dt) if fold
+                                          else (out_w.to(dt), g2, b2))
+                            args = (e, s2, x, wm, va, vb, norm, K, fold)
+                            want = tb.out_gemm_plain(*args)
+                            got = tb.tcn_out_gemm(*args)
+                            xi = x.clone()
+                            inpl = tb.tcn_out_gemm(e, s2, xi, wm, va, vb, norm, K, fold, out=xi)
+                            form = "fold" if fold else "unfold"
+                            chk(f"K3 {form} {what}", rel_max(got, want), tol)
+                            chk(f"K3 {form} {what} pad rows zero", float(got[:, K:].abs().max()), 0.0)
+                            chk(f"K3 {form} {what} in place == fresh",
+                                float(not torch.equal(inpl, got)), 0.0)
+                            chk(f"K3 {form} {what} repeat",
+                                float(not torch.equal(tb.tcn_out_gemm(*args), got)), 0.0)
+                        dz, _, gs2 = tbb.bwd_dz_plain(g, out_w.to(dt).t().contiguous(), c, s2, a2,
+                                                      g2, norm, K)
+                        db, _, gs1, _ = tbb.bwd_dwconv_plain(y1, c, dz, s1, s2, gs2, a1, g1, b1, w,
+                                                             a2, g2, norm, 2, causal, K)
+                        xargs = (db, y1, in_w.to(dt).t().contiguous(), g, s1, gs1, a1, g1, norm, K)
+                        dxk, dy1k, da1k = tbb.tcn_bwd_dx(*xargs)
+                        dxp, dy1p, da1p = tbb.bwd_dx_plain(*xargs)
+                        chk(f"KB3 {what} dx", rel_max(dxk, dxp), tol)
+                        chk(f"KB3 {what} dx pad rows zero", float(dxk[:, K:].abs().max()), 0.0)
+                        chk(f"KB3 {what} dy1", rel_max(dy1k, dy1p), tol)
+                        chk(f"KB3 {what} d_alpha1", rel_max(da1k.sum(), da1p.sum()),
+                            max(tol, TOL_ALPHA_F32))
+                        again = tbb.tcn_bwd_dx(*xargs)
+                        chk(f"KB3 {what} repeat", float(sum(not torch.equal(u, v) for u, v in
+                                                            zip((dxk, dy1k, da1k), again))), 0.0)
+    finally:
+        tb._sm_count = tbb._sm_count = real_sms
+    torch.cuda.synchronize()
+    chk.done()
 
 
 def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
@@ -445,6 +560,18 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     _, dy1, _ = tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
     z = (s2, a2, g2, b2, norm)
     gemm = 2.0 * rows * B * H
+    # The depthwise conv alone as one cuDNN call, [M, H, K_pad] layout made
+    # outside the timed region: F.conv1d for K2's save mode, its transpose
+    # for KB2 (values do not matter to the time).
+    y1_t, dz_t = y1.transpose(1, 2).contiguous(), dz.transpose(1, 2).contiguous()
+    w_t = w.t().contiguous().unsqueeze(1).to(dt)
+
+    def conv(d, transpose=False):
+        pad = (P - 1) * d if cfg.causal else (P - 1) * d // 2
+        if transpose:
+            F.conv_transpose1d(dz_t, w_t, groups=H, dilation=d, padding=pad)
+        else:
+            F.conv1d(y1_t, w_t, groups=H, dilation=d, padding=pad)
 
     def per_dilation(fn, **kw):
         def run():
@@ -463,7 +590,7 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     return {
         "tcn_dwconv_save": dict(
             source=SOURCE, replaces=WHOLE_TCN, kernel=per_dilation(dws),
-            plain=per_dilation(dws, plain=True), library=None, per=cfg.X,
+            plain=per_dilation(dws, plain=True), library=per_dilation(conv), per=cfg.X,
             bytes=3 * rows * H * it + (s1.numel() + s2.numel()) * 4 + (P + 2) * H * 4,
             flops=rows * H * (2.0 * P + 12)),
         "tcn_bwd_dz": dict(
@@ -481,7 +608,8 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             bytes=rows * (B + H) * it + H * B * 4, flops=gemm, per=1),
         "tcn_bwd_dwconv": dict(
             source=SOURCE_BWD, replaces=BWD_BLOCK, kernel=per_dilation(kb2),
-            plain=per_dilation(kb2, plain=True), library=None, per=cfg.X,
+            plain=per_dilation(kb2, plain=True), library=per_dilation(conv, transpose=True),
+            per=cfg.X,
             bytes=4 * rows * H * it + (s1.numel() + s2.numel() + gs2.numel()) * 4
             + (2 * P + 4) * H * 4, flops=rows * H * (4.0 * P + 30)),
         "tcn_bwd_dx": dict(
@@ -653,6 +781,8 @@ def main() -> int:
     torch.cuda.synchronize()
     chk.done()
 
+    gemm_width_phase(dev)
+
     # ---- training kernel phase ---------------------------------------------
     train_errs = train_kernel_phase(blocks, stacked, cfg, dev)
 
@@ -773,6 +903,17 @@ def main() -> int:
                    blocks["dw_w"][nb], a2, norm, 2 ** xi, cfg.causal, K)
         return run
 
+    # K2's conv alone: one cuDNN depthwise F.conv1d per dilation on a
+    # [M, H, K_pad] copy made outside the timed region.
+    y1_t = y1.transpose(1, 2).contiguous()
+    w_t = blocks["dw_w"][nb].t().contiguous().unsqueeze(1).to(dt)
+
+    def conv_all():
+        for xi in range(cfg.X):
+            d = 2 ** xi
+            F.conv1d(y1_t, w_t, groups=H, dilation=d,
+                     padding=(P - 1) * d if cfg.causal else (P - 1) * d // 2)
+
     gemm_flops = 2.0 * rows * B * H
     specs = {
         "tcn_in_gemm": dict(
@@ -784,7 +925,7 @@ def main() -> int:
             flops=gemm_flops, per=1),
         "tcn_dwconv": dict(
             replaces=WHOLE_TCN,
-            kernel=dw_all(tb.tcn_dwconv), plain=dw_all(tb.dwconv_plain), library=None,
+            kernel=dw_all(tb.tcn_dwconv), plain=dw_all(tb.dwconv_plain), library=conv_all,
             bytes=(2 * rows * H * it + s1.numel() * 4 + s2.numel() * 4 + (P + 2) * H * 4),
             flops=rows * H * (2.0 * P + 12), per=cfg.X),
         "tcn_out_gemm_fold": dict(
@@ -806,45 +947,45 @@ def main() -> int:
     }
     path_of = {"tcn_in_gemm": "auto", "tcn_dwconv": "auto",
                "tcn_out_gemm_fold": "auto", "tcn_out_gemm_unfold": "block"}
-    kernels = []
-    for name, s in specs.items():
-        ms = cuda_ms(s["kernel"]) / s["per"]
-        plain_ms = cuda_ms(s["plain"]) / s["per"]
-        lib_ms = cuda_ms(s["library"]) if s["library"] else None
+    def measure(s):
+        """Device, event and host times of a spec, its plain version's and
+        library call's device times, and its bound (all per launch)."""
+        per = s["per"]
         t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = s["flops"] / PEAK_FLOPS[dt] * 1e3
-        bound = max(t_bytes, t_ops)
+        return {
+            "ms": device_ms(s["kernel"]) / per, "plain_ms": device_ms(s["plain"]) / per,
+            "library_ms": device_ms(s["library"]) / per if s["library"] else None,
+            "event_ms": cuda_ms(s["kernel"]) / per, "host_us": host_us(s["kernel"]) / per,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+
+    def report(name, t, shape):
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        log(f"  {name} ({DESIGN[name]}): {t['ms']:.4f} ms/launch on the device (plain "
+            f"{t['plain_ms']:.4f}, library {lib}, bound {t['bound_ms']:.4f} by {t['bound_by']}; "
+            f"event {t['event_ms']:.4f} ms, host {t['host_us']:.1f} us per call) at {shape}, bf16")
+
+    kernels = []
+    for name, s in specs.items():
+        t = measure(s)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE, "design": DESIGN[name],
             "replaces": s["replaces"],
             "launches": path_counts[path_of[name]][name],
             "path": f"separate --use_kernels {path_of[name]}",
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
+            "max_abs_err": errs[name], **t,
         })
-        log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f}, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bound {bound:.4f} "
-            f"by {kernels[-1]['bound_by']}) at M={M}, K_pad={Kp}, B={B}, H={H}, bf16")
+        report(name, t, f"M={M}, K_pad={Kp}, B={B}, H={H}")
     M5, rows5 = 5, 5 * Kp
     for name, s in train_kernel_specs(blocks, cfg, dev, M=M5, K=K).items():
-        ms = cuda_ms(s["kernel"]) / s["per"]
-        plain_ms = cuda_ms(s["plain"]) / s["per"]
-        lib_ms = cuda_ms(s["library"]) if s["library"] else None
-        t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = s["flops"] / PEAK_FLOPS[dt] * 1e3
-        bound = max(t_bytes, t_ops)
+        t = measure(s)
         kernels.append({
-            "name": name, "route": "cuda", "source": s["source"], "replaces": s["replaces"],
-            "launches": train_counts[name], "path": "train --use_kernels hybrid",
-            "max_abs_err": train_errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
+            "name": name, "route": "cuda", "source": s["source"], "design": DESIGN[name],
+            "replaces": s["replaces"], "launches": train_counts[name],
+            "path": "train --use_kernels hybrid", "max_abs_err": train_errs[name], **t,
         })
-        log(f"  {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f}, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bound {bound:.4f} "
-            f"by {kernels[-1]['bound_by']}) at M={M5}, K_pad={Kp} ({rows5} rows), "
-            f"B={B}, H={H}, bf16")
+        report(name, t, f"M={M5}, K_pad={Kp} ({rows5} rows), B={B}, H={H}")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")

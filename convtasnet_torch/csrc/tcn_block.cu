@@ -28,13 +28,17 @@
 // Bound on the H100 at the paper config, batch 8 (25,600 rows): every
 // kernel is bound by device-memory bytes (K1 39 MB, K2 52 MB, K3 52 MB per
 // block at 3.35 TB/s, against 6.7 GFLOP for each GEMM at 989 TFLOP/s).
-// This first version is simple rather than fast: the GEMMs are plain
-// shared-memory tiles with WMMA (mma.sync) for bf16 and SIMT FMA for f32,
-// no cp.async / TMA pipeline, and K2 reads each y1 row P times through L1.
-// Making them reach the bound (wgmma, TMA, fusing K2 into K3) is later work.
+// K3 in bf16 (both forms) runs on the TMA + wgmma pipeline of
+// tcn_gemm_sm90.cuh: the A stream read once per row tile, a ring of TMA
+// loads in flight, the epilogue from the accumulator registers. K1, and K3
+// in f32 (SIMT FMA, to keep f32 exact where TF32 would not be), are still
+// plain shared-memory tiles (WMMA / SIMT, no pipeline); K2 reads each y1
+// row P times through L1.
 #include <cstdint>
+#include <type_traits>
 
 #include "tcn_block.cuh"
+#include "tcn_gemm_sm90.cuh"
 
 namespace tcn {
 
@@ -55,9 +59,12 @@ struct GemmArgs {
 enum Mode { IN_GEMM = 0, OUT_FOLD = 1, OUT_UNFOLD = 2 };
 
 // Grid (rows / BM, ncols / BN), GEMM_THREADS threads. kpad % BM == 0, so a
-// CTA's rows belong to one batch item.
+// CTA's rows belong to one batch item. K1 in both types; K3 in f32 only
+// (bf16 K3 is hgemm_kernel).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
+  static_assert(MODE == IN_GEMM || std::is_same<T, float>::value,
+                "bf16 K3 runs on the wgmma pipeline (tcn_gemm_sm90.cuh)");
   using Tl = Tiles<T>;
   constexpr int VEC = Tl::VEC;
   __shared__ __align__(128) unsigned char smem[Tl::BYTES];
@@ -350,12 +357,33 @@ extern "C" int tcn_dwconv(int device, int dtype, const void* y1, const float* st
   return cudaGetLastError();
 }
 
+// bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;
+// f32 ignores them.
 extern "C" int tcn_out_gemm(int device, int dtype, int fold, const void* e,
                             const float* stats2, int n2, const void* wmat,
                             const float* vec_a, const float* vec_b, const void* res,
-                            void* out, int rows,
-                            int kpad, int k_valid, int H, int B, int gln, void* stream) {
+                            void* out, int rows, int kpad, int k_valid, int H, int B,
+                            int gln, int bm, int bn, void* stream) {
   cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype) {
+    HMaps m;
+    if (!hop::tensor_map(&m.a, e, rows, H, bm) || !hop::tensor_map(&m.w, wmat, H, B, 64) ||
+        !hop::tensor_map(&m.res, res, rows, B, 64) || !hop::tensor_map(&m.out, out, rows, B, 64))
+      return cudaErrorInvalidValue;
+    m.a2 = m.dy1 = m.a;
+    HArgs h{};
+    h.stats = stats2;
+    h.n_stats = n2;
+    h.vec_a = vec_a;
+    h.vec_b = vec_b;
+    h.kpad = kpad;
+    h.k_valid = k_valid;
+    h.kdim = H;
+    h.ncols = B;
+    h.gln = gln;
+    return fold ? hgemm<H_FOLD>(m, h, rows, bm, bn, s) : hgemm<H_UNFOLD>(m, h, rows, bm, bn, s);
+  }
   GemmArgs g{};
   g.A = e;
   g.W = wmat;
@@ -370,8 +398,5 @@ extern "C" int tcn_out_gemm(int device, int dtype, int fold, const void* e,
   g.kdim = H;
   g.ncols = B;
   g.gln = gln;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fold)
-    return dtype ? launch_gemm<bf16, OUT_FOLD>(g, rows, s) : launch_gemm<float, OUT_FOLD>(g, rows, s);
-  return dtype ? launch_gemm<bf16, OUT_UNFOLD>(g, rows, s) : launch_gemm<float, OUT_UNFOLD>(g, rows, s);
+  return fold ? launch_gemm<float, OUT_FOLD>(g, rows, s) : launch_gemm<float, OUT_UNFOLD>(g, rows, s);
 }

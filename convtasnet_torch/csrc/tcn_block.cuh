@@ -40,6 +40,20 @@ __device__ __forceinline__ float prelu(float v, float alpha) {
   return v >= 0.f ? v : alpha * v;
 }
 
+__device__ __forceinline__ float dprelu(float v, float alpha) {
+  return v >= 0.f ? 1.f : alpha;
+}
+
+// Sum of n (a, b) pairs in index order (per-row partials).
+__device__ __forceinline__ float2 sum_pairs(const float* p, int n) {
+  float s = 0.f, ss = 0.f;
+  for (int i = 0; i < n; ++i) {
+    s += p[2 * i];
+    ss += p[2 * i + 1];
+  }
+  return make_float2(s, ss);
+}
+
 // Sum of (a, b) over the CTA in a fixed order (xor-shuffle tree inside each
 // warp, then warp totals in index order), so results repeat bit for bit.
 // `red` holds one float2 per warp. The total is returned to every thread.

@@ -22,9 +22,9 @@
 //                       (b recomputed from y1), dg1, db1, d_alpha2 and of the
 //                       norm1 backward sums
 //   KB3 tcn_bwd_dx      da and dy1 = round(da*PReLU1'(y1)) formed in the
-//                       A-operand load (the blockIdx.y == 0 CTAs store dy1
-//                       and the d_alpha1 partials), dx = round(round(dy1 @
-//                       in_w^T) + g), rows >= K exactly zero
+//                       A-operand prologue (stored, with the d_alpha1
+//                       partials), dx = round(round(dy1 @ in_w^T) + g), rows
+//                       >= K exactly zero
 //   KW  tcn_wgrad       din_w = x^T dy1, split over row chunks
 //
 // Replaces the TPU kernels convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py
@@ -47,31 +47,20 @@
 // Bound on the H100 at the paper config, batch 5 (16,000 rows): every
 // launch is bound by device-memory bytes (KB1 ~41 MB, KB2 ~66 MB, KB3
 // ~57 MB at 3.35 TB/s, against 8.4 GFLOP per GEMM pair at 989 TFLOP/s).
-// This first version is simple rather than fast: the same shared-memory
-// WMMA / SIMT tiles as the forward, no cp.async / TMA pipeline, and KB2
-// recomputes each halo row of dc and b P times through L1.
+// KB3 in bf16 runs on the TMA + wgmma pipeline of tcn_gemm_sm90.cuh (one
+// CTA covers all B columns of its rows, so dy1 is formed once per row).
+// KB1 and KW (WMMA in bf16, SIMT in f32) and KB3 in f32 (SIMT) keep the
+// shared-memory tiles of the forward, with no pipeline; KB2 recomputes each
+// halo row of dc and b P times through L1.
 #include <cstdint>
 
 #include "tcn_block.cuh"
+#include "tcn_gemm_sm90.cuh"
 
 namespace tcn {
 
 constexpr int MAXP = 8;           // depthwise taps held in registers by KB2
 constexpr int MAX_CHUNK = 1024;   // rows per split of tcn_wgrad
-
-__device__ __forceinline__ float dprelu(float v, float alpha) {
-  return v >= 0.f ? 1.f : alpha;
-}
-
-// Sum of n (a, b) pairs in index order (per-row partials).
-__device__ __forceinline__ float2 sum_pairs(const float* p, int n) {
-  float s = 0.f, ss = 0.f;
-  for (int i = 0; i < n; ++i) {
-    s += p[2 * i];
-    ss += p[2 * i + 1];
-  }
-  return make_float2(s, ss);
-}
 
 // ---------------------------------------------------------------------------
 // KB1: dz = round(g @ out_w^T) with the norm2-backward partials.
@@ -499,8 +488,9 @@ __global__ void __launch_bounds__(DW_THREADS) bwd_dwconv_kernel(DwbArgs g) {
 }
 
 // ---------------------------------------------------------------------------
-// KB3: dx = round(round(dy1 @ in_w^T) + g), dy1 formed in the A load.
-// Grid (rows / BM, B / BN), GEMM_THREADS threads.
+// KB3 in f32: dx = round(round(dy1 @ in_w^T) + g), dy1 formed in the A
+// load. Grid (rows / BM, B / BN), GEMM_THREADS threads (bf16 KB3 is
+// hgemm_kernel in H_DX mode).
 // ---------------------------------------------------------------------------
 struct DxArgs {
   const void* db;        // [rows, H]
@@ -519,8 +509,8 @@ struct DxArgs {
   int kpad, k_valid, B, H, gln;
 };
 
-template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS) bwd_dx_kernel(DxArgs g) {
+  using T = float;
   using Tl = Tiles<T>;
   constexpr int VEC = Tl::VEC;
   __shared__ __align__(128) unsigned char smem[Tl::BYTES];
@@ -680,19 +670,38 @@ extern "C" int tcn_bwd_dwconv(int device, int dtype, const void* y1, const void*
   return cudaGetLastError();
 }
 
+// bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;
+// da1part holds rows / bm partials (rows / BM in f32).
 extern "C" int tcn_bwd_dx(int device, int dtype, const void* db, const void* y1,
                           const void* wt, const void* g, const float* stats1, int n1,
                           const float* gs1, int ng1, const float* alpha1, const float* g1,
                           void* dx, void* dy1, float* da1part, int rows, int kpad,
-                          int k_valid, int B, int H, int gln, void* stream) {
+                          int k_valid, int B, int H, int gln, int bm, int bn, void* stream) {
   cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype) {
+    HMaps m;
+    if (!hop::tensor_map(&m.a, db, rows, H, bm) || !hop::tensor_map(&m.a2, y1, rows, H, bm) ||
+        !hop::tensor_map(&m.w, wt, H, B, 64) || !hop::tensor_map(&m.res, g, rows, B, 64) ||
+        !hop::tensor_map(&m.out, dx, rows, B, 64) || !hop::tensor_map(&m.dy1, dy1, rows, H, 64))
+      return cudaErrorInvalidValue;
+    HArgs h{};
+    h.stats = stats1;
+    h.n_stats = n1;
+    h.gs = gs1;
+    h.n_gs = ng1;
+    h.alpha = alpha1;
+    h.vec_a = g1;
+    h.da1part = da1part;
+    h.kpad = kpad;
+    h.k_valid = k_valid;
+    h.kdim = H;
+    h.ncols = B;
+    h.gln = gln;
+    return hgemm<H_DX>(m, h, rows, bm, bn, s);
+  }
   DxArgs a{db, y1, wt, g, stats1, n1, gs1, ng1, alpha1, g1, dx, dy1, da1part,
            kpad, k_valid, B, H, gln};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(rows / BM, B / BN);
-  if (dtype)
-    bwd_dx_kernel<bf16><<<grid, GEMM_THREADS, 0, s>>>(a);
-  else
-    bwd_dx_kernel<float><<<grid, GEMM_THREADS, 0, s>>>(a);
+  bwd_dx_kernel<<<dim3(rows / BM, B / BN), GEMM_THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }

@@ -11,7 +11,9 @@ One temporal block runs as
                    the caller passes out=x, with
                    norm2 folded into the product (fold=True, the whole-TCN
                    form) or applied to the A operand (fold=False, the
-                   whole-block form); rows >= K stay exactly zero.
+                   whole-block form); rows >= K stay exactly zero. In bf16
+                   it runs on the TMA + wgmma pipeline
+                   (csrc/tcn_gemm_sm90.cuh), tiled by `gemm_plan`.
 
 Tensors are [M, K_pad, ch] with K_pad a multiple of 128 and rows >= K zero.
 The norm statistics travel between the kernels as (sum, sum of squares)
@@ -26,6 +28,7 @@ raises. Each wrapper counts its launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +40,10 @@ from . import _build
 # Tile sizes of csrc/tcn_block.cuh.
 BM, BN, BK, DW_ROWS = 64, 128, 32, 32
 ROW_ALIGN = 128  # K_pad multiple (the JAX package pads to 128 the same way)
+# The bf16 wgmma pipeline (csrc/tcn_gemm_sm90.cuh): 64 rows per consumer
+# warpgroup, at most two; 128 or 256 output columns; f32 vectors of at most
+# 2 * 1024 floats staged per CTA.
+GEMM_MAX_H = 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -45,10 +52,11 @@ _SIGNATURES = {
     "tcn_dwconv": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _I, _I, _P],
+                     _I, _I, _I, _I, _I, _P],
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("tcn_block")
     for fn, args in _SIGNATURES.items():
@@ -80,6 +88,43 @@ def _check_widths(Kp: int, B: int, H: int, dt: torch.dtype) -> None:
     _require(Kp % ROW_ALIGN == 0, f"K_pad={Kp} is not a multiple of {ROW_ALIGN}")
     _require(B % BN == 0 and H % BN == 0,
              f"B={B} and H={H} must be multiples of {BN} for the kernels")
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(rows: int, ncols: int, kdim: int, sms: int,
+              split: bool = True) -> Tuple[int, int]:
+    """(rows, columns) per CTA of the bf16 wgmma kernels (K3, KB3) for a
+    [rows, kdim] @ [kdim, ncols] product on a card with `sms` SMs.
+
+    A CTA covers all columns when ncols is 128 or 256 (a multiple of 256:
+    256 of them), so the A stream is read once. Of 128 or 64 rows, and, with
+    `split`, 128 columns at 64 rows, the plan takes the tile whose waves
+    (CTAs over SMs, rounded up) times bytes per CTA (A tile, residual and
+    output tiles) is least, the first of equals. At the paper widths: 200
+    row tiles of 128 at batch 8, 125 at batch 5; at batch 1 (3,200 rows)
+    100 CTAs of 64 x 128, where full-width tiles would leave 82 of 132 SMs
+    idle. rows is a multiple of 128 (K_pad is)."""
+    _require(ncols % 128 == 0, f"{ncols} output columns are not a multiple of 128")
+    _require(rows > 0 and rows % ROW_ALIGN == 0, f"{rows} rows are not a multiple of {ROW_ALIGN}")
+    bn = 256 if ncols % 256 == 0 else 128
+    cands = [(128, bn), (64, bn)] + ([(64, 128)] if split and bn > 128 else [])
+
+    def cost(tile):
+        bm, bn_ = tile
+        ctas = rows // bm * (ncols // bn_)
+        return -(-ctas // sms) * bm * (kdim + 2 * bn_)
+
+    return min(cands, key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_gemm_h(H: int, dt: torch.dtype) -> None:
+    _require(dt != torch.bfloat16 or H <= GEMM_MAX_H,
+             f"H={H} exceeds the bf16 GEMM kernels' {GEMM_MAX_H}")
 
 
 def _prelu_f32(v: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -299,6 +344,7 @@ def tcn_out_gemm(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k, fold,
     nv = B if fold else H
     _require(vec_a.shape == (nv,) and vec_b.shape == (nv,),
              "norm2 vectors have the wrong length")
+    _check_gemm_h(H, dt)
     gln = norm_type == "gLN"
     _check_cuda(e, res, out, wmat, dtype=dt)
     _require(out.shape == res.shape, "out does not match the residual")
@@ -308,11 +354,11 @@ def tcn_out_gemm(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k, fold,
     n2 = stats2.shape[1] if gln else stats2.shape[2]
     _require(stats2.shape[0] == M and (gln or stats2.shape[1] == Kp),
              "stats2 does not match e")
+    bm, bn = gemm_plan(M * Kp, B, H, _sm_count(e.device.index)) if dt == torch.bfloat16 else (0, 0)
     rc = _lib().tcn_out_gemm(e.device.index, _DTYPES[dt], int(fold), e.data_ptr(),
                              stats2.data_ptr(), n2, wmat.data_ptr(), vec_a.data_ptr(),
                              vec_b.data_ptr(), res.data_ptr(), out.data_ptr(),
-                             M * Kp, Kp, valid_k,
-                             H, B, int(gln), _stream(e))
+                             M * Kp, Kp, valid_k, H, B, int(gln), bm, bn, _stream(e))
     _build.check(rc, "tcn_out_gemm")
     if fold:
         tcn_out_gemm.launches_fold += 1

@@ -13,7 +13,9 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
                        of the norm1 backward sums;
   KB3 tcn_bwd_dx:      da, dy1 = round(da * PReLU1'(y1)), dx = round(round(
                        dy1 @ in_w^T) + g) with rows >= K zero, d_alpha1
-                       partials;
+                       partials; in bf16 on the TMA + wgmma pipeline
+                       (csrc/tcn_gemm_sm90.cuh), tiled by
+                       tcn_block.gemm_plan without a column split;
   KW  tcn_wgrad:       din_w = x^T dy1;
 
 and `block_bwd` sums the f32 partials over their first axis. Rows >= K
@@ -30,14 +32,15 @@ plain version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .tcn_block import (_DTYPES, BM, BN, DW_ROWS, _check_cuda, _check_widths,
-                        _moments, _prelu_f32, _require, _stream)
+from .tcn_block import (_DTYPES, BM, BN, DW_ROWS, _check_cuda, _check_gemm_h, _check_widths,
+                        _moments, _prelu_f32, _require, _sm_count, _stream, gemm_plan)
 
 MAXP = 8            # depthwise taps KB2 holds in registers
 MAX_SPAN = 1024     # KB2's shared-memory windows: (32 + span) * 24 bytes
@@ -52,10 +55,11 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
-                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("tcn_block_bwd")
     for fn, args in _SIGNATURES.items():
@@ -359,6 +363,7 @@ def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
     _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
     _require(y1.shape == db.shape and in_wt.shape == (H, B) and g.shape == (M, Kp, B)
              and g1.shape == (H,), "KB3 operand shapes do not match")
+    _check_gemm_h(H, dt)
     gln = norm_type == "gLN"
     alpha1 = alpha1.reshape(1)
     _check_cuda(db, y1, in_wt, g, dtype=dt)
@@ -366,14 +371,17 @@ def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
     _check_stats(stats1, M, Kp, gln, "stats1")
     _check_stats(gs1, M, Kp, gln, "KB2 partials")
     _check_params(alpha1, g1)
+    # bf16: one CTA per row tile covers every column (dy1 formed once).
+    bm, bn = (gemm_plan(M * Kp, B, H, _sm_count(db.device.index), split=False)
+              if dt == torch.bfloat16 else (BM, BN))
     dx = torch.empty((M, Kp, B), dtype=dt, device=db.device)
     dy1 = torch.empty_like(db)
-    da1part = torch.empty((M * Kp // BM,), dtype=torch.float32, device=db.device)
+    da1part = torch.empty((M * Kp // bm,), dtype=torch.float32, device=db.device)
     rc = _lib().tcn_bwd_dx(db.device.index, _DTYPES[dt], db.data_ptr(), y1.data_ptr(),
                            in_wt.data_ptr(), g.data_ptr(), stats1.data_ptr(),
                            _n_parts(stats1, gln), gs1.data_ptr(), _n_parts(gs1, gln),
                            alpha1.data_ptr(), g1.data_ptr(), dx.data_ptr(), dy1.data_ptr(),
-                           da1part.data_ptr(), M * Kp, Kp, valid_k, B, H, int(gln),
+                           da1part.data_ptr(), M * Kp, Kp, valid_k, B, H, int(gln), bm, bn,
                            _stream(db))
     _build.check(rc, "tcn_bwd_dx")
     _LAUNCHES["tcn_bwd_dx"] += 1

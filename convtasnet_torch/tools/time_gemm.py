@@ -1,0 +1,118 @@
+"""Device time of the bf16 wgmma kernels K3 (tcn_out_gemm, fold and unfold)
+and KB3 (tcn_bwd_dx) at the paper widths, for each tile plan, on one CUDA
+device.
+
+    python -m convtasnet_torch.tools.time_gemm --batch 8 5 1
+
+For each batch (4 s at 8 kHz: K = 3199 frames, padded to 3200) and each
+plan (`auto`: gemm_plan for the card's SM count; `128`: 128-row tiles,
+what gemm_plan picks for a card of one SM; `64`: the smallest tiles, what
+it picks when every tile fits one wave) prints one JSON line: the plan,
+each kernel's device time per launch from torch.profiler, the host time
+per wrapper call, and torch.matmul of the same product (device time).
+Inputs are random from a seed: the time does not depend on their values.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from ..ops.kernels import tcn_block as tb
+from ..ops.kernels import tcn_block_bwd as tbb
+
+B, H, K, KP = 256, 512, 3199, 3200
+PLAN_SMS = {"128": 1, "64": 10 ** 6}
+
+
+def device_ms(fn, iters: int = 30) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
+def host_us(fn, iters: int = 100) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def run(batch: int, plan: str) -> dict:
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(batch)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    e, db, y1 = (rnd(batch, KP, H).to(dt) for _ in range(3))
+    x, g = rnd(batch, KP, B), rnd(batch, KP, B).to(dt)
+    x[:, K:] = 0
+    x = x.to(dt)
+    out_w, g2, b2 = rnd(H, B, scale=0.05), rnd(H, scale=0.1) + 1, rnd(H, scale=0.1)
+    wp, ga, gb = tb.fold_weights(out_w, g2, b2, dt)
+    ow = out_w.to(dt)
+    in_wt = rnd(H, B, scale=0.05).to(dt)
+    a1, g1 = torch.full((1,), 0.25, device=dev), rnd(H, scale=0.1) + 1
+    # gLN partials of a plausible scale: one (sum, sum of squares) pair per item
+    n = float(K * H)
+    stats = torch.stack([rnd(batch, 1, scale=0.01 * n), (1 + rnd(batch, 1).abs()) * n], -1)
+    gs1 = rnd(batch, 1, 2, scale=10.0)
+    out = torch.empty_like(x)
+    real = tb._sm_count
+    sms = PLAN_SMS.get(plan)
+    if sms is not None:
+        tb._sm_count = tbb._sm_count = lambda index: sms
+    try:
+        rows = batch * KP
+        runs = {
+            "tcn_out_gemm_fold": lambda: tb.tcn_out_gemm(e, stats, x, wp, ga, gb, "gLN", K, True, out),
+            "tcn_out_gemm_unfold": lambda: tb.tcn_out_gemm(e, stats, x, ow, g2, b2, "gLN", K, False,
+                                                           out),
+            "tcn_bwd_dx": lambda: tbb.tcn_bwd_dx(db, y1, in_wt, g, stats, gs1, a1, g1, "gLN", K),
+        }
+        res = {"device": torch.cuda.get_device_name(dev), "batch": batch, "plan": plan,
+               "k3_tile": tb.gemm_plan(rows, B, H, tb._sm_count(dev.index)),
+               "kb3_tile": tb.gemm_plan(rows, B, H, tb._sm_count(dev.index), split=False)}
+        for name, fn in runs.items():
+            res[f"{name}_ms"] = device_ms(fn)
+            res[f"{name}_host_us"] = host_us(fn)
+        res["matmul_ms"] = device_ms(lambda: torch.matmul(e.view(rows, H), ow))
+    finally:
+        tb._sm_count = tbb._sm_count = real
+    return res
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("Time the bf16 wgmma kernels K3 and KB3 on the GPU")
+    p.add_argument("--batch", type=int, nargs="+", default=[8, 5, 1])
+    p.add_argument("--plans", nargs="+", default=["auto", "128", "64"],
+                   choices=["auto", "128", "64"])
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("time_gemm: no CUDA device")
+    out = []
+    for batch in args.batch:
+        for plan in args.plans:
+            res = run(batch, plan)
+            print(json.dumps(res), flush=True)
+            out.append(res)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -216,3 +216,84 @@ def test_backward_repeats_bit_for_bit(dev):
     a = _op_grads(whole_tcn_train, x, args, g, "gLN", False, X, K, plain=False)[1]
     b = _op_grads(whole_tcn_train, x, args, g, "gLN", False, X, K, plain=False)[1]
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# K3 and KB3 on the wgmma pipeline (bf16) and the SIMT tiles (f32), at every
+# tile plan: a card of one SM makes gemm_plan take 128-row tiles, the real
+# card's SM count 64-row tiles (and 128 columns for K3) at these row counts.
+# ---------------------------------------------------------------------------
+
+GEMM_WIDTHS = [(128, 256), (128, 512), (256, 256), (256, 512)]
+GEMM_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)]
+
+
+def _plan_sms(monkeypatch, one_sm):
+    if one_sm:
+        monkeypatch.setattr(tcn_block, "_sm_count", lambda index: 1)
+        monkeypatch.setattr(tbb, "_sm_count", lambda index: 1)
+
+
+def _k3_inputs(dev, dtype, B, H, norm_type, causal, M=3, Kp=384, K=300):
+    """e and its norm2 partials from the plain K1 and K2, the residual x."""
+    in_w, a1, g1, b1, w, a2, g2, b2, out_w = [a[0] for a in _blocks(1, B=B, H=H, device=dev)]
+    gen = torch.Generator(device=dev).manual_seed(B + H)
+    x = torch.randn((M, Kp, B), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(dtype)
+    y1, s1 = tcn_block.in_gemm_plain(x, in_w.to(dtype), a1, norm_type)
+    e, s2 = tcn_block.dwconv_plain(y1, s1, a1, g1, b1, w, a2, norm_type, 2, causal, K)
+    return x, e, s2, g2, b2, out_w, K
+
+
+@pytest.mark.parametrize("one_sm", [False, True])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("gLN", True), ("cLN", False),
+                                              ("cLN", True)])
+@pytest.mark.parametrize("B,H", GEMM_WIDTHS)
+@pytest.mark.parametrize("dtype,tol", GEMM_DTYPES)
+def test_out_gemm_matches_plain(dev, monkeypatch, one_sm, norm_type, causal, B, H, dtype, tol):
+    """K3 fold and unfold, into a fresh tensor and in place, against the
+    plain version; rows >= K exact zeros; two launches give equal bytes."""
+    _plan_sms(monkeypatch, one_sm)
+    x, e, s2, g2, b2, out_w, K = _k3_inputs(dev, dtype, B, H, norm_type, causal)
+    for fold in (True, False):
+        if fold:
+            wmat, va, vb = tcn_block.fold_weights(out_w, g2, b2, dtype)
+        else:
+            wmat, va, vb = out_w.to(dtype), g2, b2
+        args = (e, s2, x, wmat, va, vb, norm_type, K, fold)
+        want = tcn_block.out_gemm_plain(*args)
+        got = tcn_block.tcn_out_gemm(*args)
+        assert _rel_max(got, want) <= tol, fold
+        assert torch.all(got[:, K:] == 0)
+        assert torch.equal(tcn_block.tcn_out_gemm(*args), got)
+        xi = x.clone()
+        inplace = tcn_block.tcn_out_gemm(e, s2, xi, wmat, va, vb, norm_type, K, fold, out=xi)
+        assert inplace.data_ptr() == xi.data_ptr() and torch.equal(inplace, got)
+
+
+@pytest.mark.parametrize("one_sm", [False, True])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("gLN", True), ("cLN", False),
+                                              ("cLN", True)])
+@pytest.mark.parametrize("B,H", GEMM_WIDTHS)
+@pytest.mark.parametrize("dtype,tol", GEMM_DTYPES)
+def test_bwd_dx_matches_plain(dev, monkeypatch, one_sm, norm_type, causal, B, H, dtype, tol):
+    """KB3 against its plain version: dx (rows >= K exact zeros), dy1 and
+    the d_alpha1 partials; two launches give equal bytes."""
+    _plan_sms(monkeypatch, one_sm)
+    d = _bwd_inputs(dev, dtype, norm_type, causal, 2, M=3, B=B, H=H)
+    K = d["K"]
+    dz, _, gs2 = tbb.bwd_dz_plain(d["g"], d["out_w"].t().contiguous(), d["c"], d["s2"],
+                                  d["a2"], d["g2"], norm_type, K)
+    db, _, gs1, _ = tbb.bwd_dwconv_plain(d["y1"], d["c"], dz, d["s1"], d["s2"], gs2, d["a1"],
+                                         d["g1"], d["b1"], d["w"], d["a2"], d["g2"], norm_type,
+                                         2, causal, K)
+    args = (db, d["y1"], d["in_w"].t().contiguous(), d["g"], d["s1"], gs1, d["a1"], d["g1"],
+            norm_type, K)
+    dxk, dy1k, da1k = tbb.tcn_bwd_dx(*args)
+    dxp, dy1p, da1p = tbb.bwd_dx_plain(*args)
+    assert _rel_max(dxk, dxp) <= tol and torch.all(dxk[:, K:] == 0)
+    assert _rel_max(dy1k, dy1p) <= tol
+    assert _rel_max(da1k.sum(), da1p.sum()) <= max(tol, 2e-3)
+    again = tbb.tcn_bwd_dx(*args)
+    assert all(torch.equal(u, v) for u, v in zip((dxk, dy1k, da1k), again))
