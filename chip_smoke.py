@@ -13,8 +13,9 @@
    K_pad=384) at every tile plan of the bf16 wgmma kernels, with rows >= K
    exact zeros and two launches giving equal bytes;
 4. training kernel phase: holds K2's save mode and the backward kernels
-   (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, KB2 tcn_bwd_dwconv, KB3
-   tcn_bwd_dx) against their plain versions at the training shapes (batch
+   (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, also with NaN in the rows
+   >= K of its second operand, KB2 tcn_bwd_dwconv, KB3 tcn_bwd_dx) against
+   their plain versions at the training shapes (batch
    5 x 4 s, K=3199 padded to 3200), every dilation, gLN and cLN, causal
    and not, f32 and bf16; then the 32-block save-form chain and its
    backward (whole_tcn_bwd), the per-block recompute and hybrid
@@ -38,7 +39,9 @@
    version, one PyTorch call where there is one (torch.matmul of a GEMM
    kernel's product; F.conv1d / F.conv_transpose1d with groups=H of the
    depthwise kernels, cuDNN with TF32 off), and its roofline bound, and the
-   backward of each training op beside its plain version. `ms`, `plain_ms`
+   backward of each training op beside its plain version; KW's launch plan
+   and its Stage A time (the same splits, one partial per CTA) beside the
+   plan's (Stage B: partials summed inside clusters). `ms`, `plain_ms`
    and `library_ms` are device time per call from torch.profiler (the
    kernels' own time: a wrapper's host time can exceed it), `event_ms` the
    CUDA-event time per call of back-to-back calls, `host_us` the host's
@@ -99,13 +102,14 @@ SOURCE = "convtasnet_torch/csrc/tcn_block.cu"
 WHOLE_TCN = "convtasnet_tpu/ops/pallas/whole_tcn.py:55"
 WHOLE_BLOCK = "convtasnet_tpu/ops/pallas/fused_whole_block.py:57"
 SOURCE_BWD = "convtasnet_torch/csrc/tcn_block_bwd.cu"
+SOURCE_KW = "convtasnet_torch/csrc/tcn_wgrad_sm90.cuh"
 BWD_BLOCK = "convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py:64"
 GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "dout_w")
 # How each kernel is built (bf16, the main path's type).
 DESIGN = {"tcn_in_gemm": "wmma", "tcn_dwconv": "simt", "tcn_out_gemm_fold": "wgmma+tma",
           "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": "simt", "tcn_bwd_dz": "wmma",
-          "tcn_wgrad_out": "wmma", "tcn_bwd_dwconv": "simt", "tcn_bwd_dx": "wgmma+tma",
-          "tcn_wgrad_in": "wmma"}
+          "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": "simt", "tcn_bwd_dx": "wgmma+tma",
+          "tcn_wgrad_in": "wgmma+tma"}
 TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
                  "tcn_bwd_dx", "tcn_wgrad_in")
 
@@ -290,6 +294,13 @@ def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
     chk.done()
 
 
+def nan_pad(t, K):
+    """A copy of t with its rows >= K (per item) set to NaN."""
+    t = t.clone()
+    t[:, K:] = float("nan")
+    return t
+
+
 def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
     """Training kernels against their plain versions; returns the bf16
     max |kernel - plain| of each."""
@@ -346,6 +357,8 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                         z = (s2, a2, g2, b2, norm)
                         wk, wp = tbb.tcn_wgrad(c, g, K, z).sum(0), tbb.wgrad_plain(c, g, K, z).sum(0)
                         chk(f"KW {what} dout_w", rel_max(wk, wp), tol)
+                        chk(f"KW {what} dout_w, g's rows >= K NaN",
+                            rel_max(tbb.tcn_wgrad(c, nan_pad(g, K), K, z).sum(0), wp), tol)
                         err("tcn_wgrad_out", wk, wp, dt)
                     bargs = (y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, d, causal, K)
                     dbk, chpk, gs1k, da2k = tbb.tcn_bwd_dwconv(*bargs)
@@ -368,6 +381,10 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                         err("tcn_bwd_dx", dxk, dx, dt)
                         wk, wp = tbb.tcn_wgrad(x, dy1, K).sum(0), tbb.wgrad_plain(x, dy1, K).sum(0)
                         chk(f"KW {what} din_w", rel_max(wk, wp), tol)
+                        chk(f"KW {what} din_w, dy1's rows >= K NaN",
+                            rel_max(tbb.tcn_wgrad(x, nan_pad(dy1, K), K).sum(0), wp), tol)
+                        chk(f"KW {what} repeat", float(not torch.equal(
+                            tbb.tcn_wgrad(x, dy1, K), tbb.tcn_wgrad(x, dy1, K))), 0.0)
                         err("tcn_wgrad_in", wk, wp, dt)
         # The 32-block chain: save-form forward and the backward of every block.
         ctol = TOL_F32 if dt == torch.float32 else TOL_BWD_CHAIN_BF16
@@ -560,6 +577,12 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     _, dy1, _ = tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
     z = (s2, a2, g2, b2, norm)
     gemm = 2.0 * rows * B * H
+    # KW's launch plans (Stage B: split partials summed inside clusters) and
+    # Stage A of the same splits, one partial per CTA.
+    plan_z, plan_in = tbb.wgrad_launch_plan(c, g, z), tbb.wgrad_launch_plan(x, dy1)
+    log(f"KW plan at M={M} ({rows} rows): dout_w {tuple(plan_z)}, din_w {tuple(plan_in)} "
+        "(splits, cluster, bn, tiles, partials); resident clusters (size, count) "
+        f"{tbb._max_clusters(x.device.index, B)}")
     # The depthwise conv alone as one cuDNN call, [M, H, K_pad] layout made
     # outside the timed region: F.conv1d for K2's save mode, its transpose
     # for KB2 (values do not matter to the time).
@@ -601,9 +624,10 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             bytes=(rows * B + B * H + 2 * rows * H) * it + s2.numel() * 4 + 2 * H * 4,
             flops=gemm, per=1),
         "tcn_wgrad_out": dict(
-            source=SOURCE_BWD, replaces=BWD_BLOCK,
+            source=SOURCE_KW, replaces=BWD_BLOCK,
             kernel=lambda: tbb.tcn_wgrad(c, g, K, z).sum(0),
             plain=lambda: tbb.wgrad_plain(c, g, K, z).sum(0),
+            stage_a=lambda: tbb.tcn_wgrad(c, g, K, z, plan=(plan_z.splits, 1)).sum(0),
             library=lambda: torch.matmul(c.view(rows, H).t(), g.view(rows, B)),
             bytes=rows * (B + H) * it + H * B * 4, flops=gemm, per=1),
         "tcn_bwd_dwconv": dict(
@@ -620,9 +644,10 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             bytes=(3 * rows * H + 2 * rows * B + H * B) * it + (s1.numel() + gs1.numel()) * 4,
             flops=gemm, per=1),
         "tcn_wgrad_in": dict(
-            source=SOURCE_BWD, replaces=BWD_BLOCK,
+            source=SOURCE_KW, replaces=BWD_BLOCK,
             kernel=lambda: tbb.tcn_wgrad(x, dy1, K).sum(0),
             plain=lambda: tbb.wgrad_plain(x, dy1, K).sum(0),
+            stage_a=lambda: tbb.tcn_wgrad(x, dy1, K, plan=(plan_in.splits, 1)).sum(0),
             library=lambda: torch.matmul(x.view(rows, B).t(), dy1.view(rows, H)),
             bytes=rows * (B + H) * it + B * H * 4, flops=gemm, per=1),
     }
@@ -980,6 +1005,11 @@ def main() -> int:
     M5, rows5 = 5, 5 * Kp
     for name, s in train_kernel_specs(blocks, cfg, dev, M=M5, K=K).items():
         t = measure(s)
+        if "stage_a" in s:
+            # the same splits with one partial per CTA (no cluster sums)
+            t["stage_a_ms"] = device_ms(s["stage_a"])
+            log(f"  {name}: Stage A {t['stage_a_ms']:.4f} ms, Stage B {t['ms']:.4f} ms per "
+                "tcn_wgrad(...).sum(0) call")
         kernels.append({
             "name": name, "route": "cuda", "source": s["source"], "design": DESIGN[name],
             "replaces": s["replaces"], "launches": train_counts[name],

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the TMA + wgmma GEMM pipeline shared by
-// K3 tcn_out_gemm (tcn_block.cu) and KB3 tcn_bwd_dx (tcn_block_bwd.cu):
-// mbarriers, TMA loads and stores (cp.async.bulk.tensor), wgmma with A from
-// shared memory (SS) or registers (RS), ldmatrix / stmatrix on 128-byte
-// swizzled tiles, and the host-side tensor maps. Raw PTX only: no CUTLASS
-// header, so a build stays a matter of seconds.
+// Hopper (sm_90a) building blocks of the TMA + wgmma GEMM pipelines of
+// K3 tcn_out_gemm (tcn_block.cu), KB3 tcn_bwd_dx and KW tcn_wgrad
+// (tcn_block_bwd.cu): mbarriers, TMA loads and stores (cp.async.bulk.tensor),
+// wgmma with A from shared memory (SS, K- or MN-major) or registers (RS),
+// ldmatrix / stmatrix on 128-byte swizzled tiles, cluster barriers and
+// distributed shared memory, and the host-side tensor maps. Raw PTX only:
+// no CUTLASS header, so a build stays a matter of seconds.
 //
 // Shared-memory tile layout (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // for a box of 64 bf16 columns): row r of a box lies at r * 128 bytes, and
@@ -101,6 +102,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr)
                : "memory");
 }
+// Transposing form: from an MN-major tile, the K-major register fragment.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
 __device__ __forceinline__ void stsm_x4(uint32_t addr, const uint32_t (&r)[4]) {
   asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
                "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
@@ -126,6 +134,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// Waits until at most one committed wgmma group is still in flight.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
@@ -150,8 +162,40 @@ __device__ __forceinline__ uint64_t desc_a(uint32_t box, int kk) {
 __device__ __forceinline__ uint64_t desc_b(uint32_t box, int kk) {
   return make_desc(box + 2048 * kk, BOX_BYTES, 1024);
 }
+// A, MN-major (M contiguous, the wgmma transpose bit set): a [64 k, 64 m]
+// box read as B is above; one box covers wgmma's 64 rows of M.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t box, int kk) { return desc_b(box, kk); }
 
-// D[64, N] += A[64, 16] @ B[16, N], f32 accumulators, B transposed (MN-major).
+// ---- clusters ---------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// Every thread of every CTA of the cluster arrives (release), then waits
+// for all of them (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
+}
+// The address of `addr` (a shared::cta address) in the shared memory of the
+// cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// D[64, N] += A[64, 16] @ B[16, N], f32 accumulators, B transposed (MN-major);
+// TA = 1: A transposed too (MN-major, M contiguous), read with desc_mn.
+template <int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -160,7 +204,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -170,7 +214,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
@@ -194,6 +238,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -206,7 +251,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -224,7 +269,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
@@ -265,6 +310,9 @@ template <> struct Wgmma<128> {
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
     wgmma_ss_n128(d, a, b);
   }
+  static __device__ __forceinline__ void ss_ta(float (&d)[64], uint64_t a, uint64_t b) {
+    wgmma_ss_n128<1>(d, a, b);
+  }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
     wgmma_rs_n128(d, a, b);
   }
@@ -272,6 +320,9 @@ template <> struct Wgmma<128> {
 template <> struct Wgmma<256> {
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b) {
     wgmma_ss_n256(d, a, b);
+  }
+  static __device__ __forceinline__ void ss_ta(float (&d)[128], uint64_t a, uint64_t b) {
+    wgmma_ss_n256<1>(d, a, b);
   }
   static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
     wgmma_rs_n256(d, a, b);

@@ -13,7 +13,7 @@
 //                       the norm2 backward sums sum dz*g2 and sum dz*g2*ehat
 //                       (per item for gLN, per row for cLN)
 //   KW  tcn_wgrad (z)   dout_w = z^T g, z = round(g2*ehat + b2) formed from
-//                       c in the A-operand load; split over row chunks
+//                       c; split over ranges of rows
 //   KB2 tcn_bwd_dwconv  de = round(inv2*(dz*g2 - mean(dz*g2)
 //                       - ehat*mean(dz*g2*ehat))), dc = round(de*PReLU2'(c))
 //                       (recomputed for the conv halo rows), the depthwise
@@ -25,7 +25,7 @@
 //                       A-operand prologue (stored, with the d_alpha1
 //                       partials), dx = round(round(dy1 @ in_w^T) + g), rows
 //                       >= K exactly zero
-//   KW  tcn_wgrad       din_w = x^T dy1, split over row chunks
+//   KW  tcn_wgrad       din_w = x^T dy1, split over ranges of rows
 //
 // Replaces the TPU kernels convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py
 // (_bwd_block_kernel, :64) and ops/pallas/whole_block_vjp.py (_bwd_kernel,
@@ -48,14 +48,18 @@
 // launch is bound by device-memory bytes (KB1 ~41 MB, KB2 ~66 MB, KB3
 // ~57 MB at 3.35 TB/s, against 8.4 GFLOP per GEMM pair at 989 TFLOP/s).
 // KB3 in bf16 runs on the TMA + wgmma pipeline of tcn_gemm_sm90.cuh (one
-// CTA covers all B columns of its rows, so dy1 is formed once per row).
-// KB1 and KW (WMMA in bf16, SIMT in f32) and KB3 in f32 (SIMT) keep the
-// shared-memory tiles of the forward, with no pipeline; KB2 recomputes each
-// halo row of dc and b P times through L1.
+// CTA covers all B columns of its rows, so dy1 is formed once per row), KW
+// in bf16 on its own TMA + wgmma kernel (tcn_wgrad_sm90.cuh: reduction over
+// the rows, split partials summed inside a cluster). KB1 (WMMA in bf16,
+// SIMT in f32) and KB3 and KW in f32 (SIMT) keep the shared-memory tiles of
+// the forward, with no pipeline; KB2 recomputes each halo row of dc and b
+// P times through L1.
 #include <cstdint>
+#include <type_traits>
 
 #include "tcn_block.cuh"
 #include "tcn_gemm_sm90.cuh"
+#include "tcn_wgrad_sm90.cuh"
 
 namespace tcn {
 
@@ -200,7 +204,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) bwd_dz_kernel(DzArgs g) {
 }
 
 // ---------------------------------------------------------------------------
-// KW: part[split] = A^T @ Bm over one chunk of rows, f32.
+// KW in f32: part[split] = A^T @ Bm over one chunk of rows (bf16 KW is
+// wgrad_sm90_kernel, tcn_wgrad_sm90.cuh).
 // Grid (n1 / BM, n2 / BN, rows / chunk), GEMM_THREADS threads; chunk is a
 // multiple of BK that divides kpad, so a chunk lies in one batch item.
 // ZMODE: A is the saved c and the operand is z = round(g2*ehat + b2).
@@ -220,6 +225,7 @@ struct WgArgs {
 
 template <typename T, bool ZMODE>
 __global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WgArgs g) {
+  static_assert(std::is_same<T, float>::value, "bf16 KW runs on wgrad_sm90_kernel");
   using Tl = Tiles<T>;
   constexpr int VEC = Tl::VEC;
   __shared__ __align__(128) unsigned char smem[Tl::BYTES];
@@ -625,26 +631,44 @@ extern "C" int tcn_bwd_dz(int device, int dtype, const void* g, const void* wt,
   return cudaGetLastError();
 }
 
+// bf16: `splits` ranges of 64-row slices in clusters of `cluster` CTAs
+// (tcn_block_bwd.wgrad_plan), part [splits / cluster, n1, n2]; f32: `splits`
+// is the chunk of rows per split, part [rows / chunk, n1, n2].
 extern "C" int tcn_wgrad(int device, int dtype, int zmode, const void* A, const void* Bm,
                          float* part, const float* stats2, int n2s, const float* alpha2,
                          const float* g2, const float* b2, int rows, int kpad, int k_valid,
-                         int n1, int n2, int chunk, int gln, void* stream) {
+                         int n1, int n2, int splits, int cluster, int gln, void* stream) {
   cudaSetDevice(device);
-  WgArgs a{A, Bm, part, stats2, n2s, alpha2, g2, b2, kpad, k_valid, n1, n2, chunk, gln};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(n1 / BM, n2 / BN, rows / chunk);
-  if (zmode) {
-    if (dtype)
-      wgrad_kernel<bf16, true><<<grid, GEMM_THREADS, 0, s>>>(a);
-    else
-      wgrad_kernel<float, true><<<grid, GEMM_THREADS, 0, s>>>(a);
-  } else {
-    if (dtype)
-      wgrad_kernel<bf16, false><<<grid, GEMM_THREADS, 0, s>>>(a);
-    else
-      wgrad_kernel<float, false><<<grid, GEMM_THREADS, 0, s>>>(a);
+  if (dtype) {
+    // z form: M side c, N side g; din form: M side dy1 (= Bm), N side x.
+    const void* mside = zmode ? A : Bm;
+    const void* nside = zmode ? Bm : A;
+    WArgs w{part, stats2, n2s, alpha2, g2, b2, kpad, k_valid, zmode ? n1 : n2, zmode ? n2 : n1,
+            rows / 64, splits, cluster, gln};
+    WMaps m;
+    if (!hop::tensor_map(&m.m, mside, rows, w.m_cols, 64) ||
+        !hop::tensor_map(&m.n, nside, rows, w.n_cols, 64))
+      return cudaErrorInvalidValue;
+    return wgrad_sm90(m, w, rows, zmode != 0, s);
   }
+  WgArgs a{A, Bm, part, stats2, n2s, alpha2, g2, b2, kpad, k_valid, n1, n2, splits, gln};
+  dim3 grid(n1 / BM, n2 / BN, rows / splits);
+  if (zmode)
+    wgrad_kernel<float, true><<<grid, GEMM_THREADS, 0, s>>>(a);
+  else
+    wgrad_kernel<float, false><<<grid, GEMM_THREADS, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+// Clusters of `cluster` CTAs of bf16 KW that can be resident at once, for
+// N-side width n_cols; -1 if the query fails.
+extern "C" int tcn_wgrad_max_clusters(int device, int n_cols, int cluster) {
+  cudaSetDevice(device);
+  int n = -1;
+  const cudaError_t e = wgrad_bn(n_cols) == 256 ? wgrad_max_clusters<256>(cluster, &n)
+                                                : wgrad_max_clusters<128>(cluster, &n);
+  return e == cudaSuccess ? n : -1;
 }
 
 extern "C" int tcn_bwd_dwconv(int device, int dtype, const void* y1, const void* c,

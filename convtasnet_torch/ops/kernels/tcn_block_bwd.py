@@ -16,7 +16,10 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
                        partials; in bf16 on the TMA + wgmma pipeline
                        (csrc/tcn_gemm_sm90.cuh), tiled by
                        tcn_block.gemm_plan without a column split;
-  KW  tcn_wgrad:       din_w = x^T dy1;
+  KW  tcn_wgrad:       din_w = x^T dy1; in bf16 both KW forms run on a
+                       TMA + wgmma kernel (csrc/tcn_wgrad_sm90.cuh) whose
+                       row splits (`wgrad_plan`) are summed in a fixed
+                       order inside clusters of CTAs;
 
 and `block_bwd` sums the f32 partials over their first axis. Rows >= K
 of g are ignored. The partial layouts follow tcn_block.py: gLN [M, n, 2]
@@ -33,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +53,8 @@ _SIGNATURES = {
     "tcn_bwd_dz": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _P],
     "tcn_wgrad": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _P],
+                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_wgrad_max_clusters": [_I, _I, _I],
     "tcn_bwd_dwconv": [_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -191,16 +195,117 @@ def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
 # ---------------------------------------------------------------------------
 
 def wgrad_chunk(Kp: int) -> int:
-    """Rows per split: 128 * q for the largest q <= 8 dividing K_pad / 128,
-    so a chunk lies in one batch item."""
+    """Rows per split of the f32 kernel: 128 * q for the largest q <= 8
+    dividing K_pad / 128, so a chunk lies in one batch item."""
     n = Kp // 128
     return 128 * max(q for q in range(1, 9) if n % q == 0)
 
 
+WGRAD_SLICE = 64            # rows per pipeline stage of the bf16 kernel
+WGRAD_MIN_SLICES = 4        # slices per split at least, so small inputs split less
+WGRAD_CLUSTERS = (1, 2, 4, 8)
+# A partial costs about a quarter of a slice: 0.5 MB of f32 written and
+# summed back at the paper widths (H100 runs of tools/time_gemm.py).
+WGRAD_PART_COST = 0.25
+
+
+class WgradPlan(NamedTuple):
+    """Launch plan of bf16 KW: `splits` contiguous ranges of 64-row slices
+    per output tile, summed inside clusters of `cluster` CTAs, so the
+    kernel returns `parts` = splits / cluster partials; `tiles` output tiles
+    of 128 M-side by `bn` N-side columns."""
+    splits: int
+    cluster: int
+    bn: int
+    tiles: int
+    parts: int
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(rows: int, kpad: int, m_cols: int, n_cols: int, sms: int,
+               max_clusters: Optional[Tuple[Tuple[int, int], ...]] = None) -> WgradPlan:
+    """Plan of the bf16 KW kernel for a [rows, m_cols]^T @ [rows, n_cols]
+    product (m_cols: wgmma's M side, c in the z form and dy1 in the din
+    form) on a card with `sms` SMs, one CTA per SM.
+
+    For each cluster size the splits are as many as one wave holds
+    (sms // tiles, and no more clusters than are resident at once:
+    `max_clusters`, ((size, clusters), ...) from the card, None: sms //
+    size), but at least WGRAD_MIN_SLICES slices each, rounded down to a
+    multiple of the size. The plan takes the size of least cost, the longest
+    split in slices plus WGRAD_PART_COST per partial, then the larger
+    cluster. At the paper widths (4 tiles) on an H100 (clusters of 2, 4, 8:
+    66, 30, 15 resident): batch 8 and 5 take 28 splits in clusters of 4 (7
+    partials), batch 1 12 splits in clusters of 4 (3 partials); a card of
+    one SM one split."""
+    _require(kpad > 0 and kpad % WGRAD_SLICE == 0,
+             f"K_pad={kpad} is not a multiple of {WGRAD_SLICE}")
+    _require(rows > 0 and rows % kpad == 0, f"{rows} rows are not whole items of {kpad}")
+    _require(m_cols > 0 and n_cols > 0 and m_cols % 128 == 0 and n_cols % 128 == 0,
+             f"KW widths {m_cols}, {n_cols} are not multiples of 128")
+    _require(sms > 0, "no SMs")
+    bn = 256 if n_cols % 256 == 0 else 128
+    tiles = (m_cols // 128) * (n_cols // bn)
+    slices = rows // WGRAD_SLICE
+    top = max(1, min(sms // tiles, slices // WGRAD_MIN_SLICES))
+    limit = dict(max_clusters or ())
+    best = None
+    for cs in WGRAD_CLUSTERS:
+        # all tiles x splits / cs clusters resident at once
+        cap = top if cs == 1 else min(top, limit.get(cs, sms // cs) * cs // tiles)
+        splits = cap // cs * cs
+        if splits < cs:
+            continue
+        key = (-(-slices // splits) + WGRAD_PART_COST * (splits // cs), -cs)
+        if best is None or key < best[0]:
+            best = (key, splits, cs)
+    _, splits, cs = best
+    return WgradPlan(splits, cs, bn, tiles, splits // cs)
+
+
+def wgrad_split_rows(rows: int, splits: int):
+    """The [first, last) rows of each split, as the kernel cuts them: split
+    s takes slices [s * T // splits, (s + 1) * T // splits) of the T =
+    rows / 64 slices."""
+    t = rows // WGRAD_SLICE
+    return [(s * t // splits * WGRAD_SLICE, (s + 1) * t // splits * WGRAD_SLICE)
+            for s in range(splits)]
+
+
+def _check_wgrad_plan(splits: int, cluster: int, rows: int) -> None:
+    _require(cluster in WGRAD_CLUSTERS and splits % cluster == 0
+             and 0 < splits <= rows // WGRAD_SLICE,
+             f"KW plan of {splits} splits in clusters of {cluster} does not tile {rows} rows")
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, n_cols: int) -> Tuple[Tuple[int, int], ...]:
+    """((cluster size, clusters resident at once), ...) of bf16 KW on the card."""
+    return tuple((cs, _lib().tcn_wgrad_max_clusters(index, n_cols, cs))
+                 for cs in WGRAD_CLUSTERS[1:])
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(index: int, rows: int, kpad: int, m_cols: int, n_cols: int,
+               sms: int) -> WgradPlan:
+    return wgrad_plan(rows, kpad, m_cols, n_cols, sms, _max_clusters(index, n_cols))
+
+
+def wgrad_launch_plan(A, Bm, z=None) -> WgradPlan:
+    """The plan `tcn_wgrad` takes for these bf16 CUDA operands (cached per
+    shape and card: the wrapper's host time is on the train step's path)."""
+    M, Kp, n1 = A.shape
+    n2 = Bm.shape[2]
+    mc, nc = (n1, n2) if z is not None else (n2, n1)
+    idx = A.device.index
+    return _card_plan(idx, M * Kp, Kp, mc, nc, _sm_count(idx))
+
+
 def wgrad_plain(A, Bm, valid_k, z=None):
     """Plain version of KW: [1, n1, n2] = A^T @ Bm over the rows < valid_k
-    of each item. z = (stats2, alpha2, g2, b2, norm_type) makes the A
-    operand round(g2 * ehat + b2) with ehat from A = c (dout_w)."""
+    of each item (Bm's other rows are read as zero, whatever they hold).
+    z = (stats2, alpha2, g2, b2, norm_type) makes the A operand
+    round(g2 * ehat + b2) with ehat from A = c (dout_w)."""
     M, Kp, n1 = A.shape
     dt = A.dtype
     rows = _rows(Kp, valid_k, A.device)
@@ -213,9 +318,11 @@ def wgrad_plain(A, Bm, valid_k, z=None):
     return torch.matmul(A.float().reshape(-1, n1).t(), Bm.float().reshape(M * Kp, -1))[None]
 
 
-def tcn_wgrad(A, Bm, valid_k, z=None):
-    """KW. Returns f32 partials [n_split, n1, n2]; their sum over axis 0 is
-    the weight gradient."""
+def tcn_wgrad(A, Bm, valid_k, z=None, plan=None):
+    """KW. Returns f32 partials [n_part, n1, n2]; their sum over axis 0 is
+    the weight gradient. bf16 takes `plan`, a WgradPlan or (splits,
+    cluster) (default `wgrad_launch_plan`), and returns splits / cluster
+    partials; f32 one per `wgrad_chunk` rows."""
     if A.device.type == "cpu":
         return wgrad_plain(A, Bm, valid_k, z)
     M, Kp, n1 = A.shape
@@ -224,9 +331,16 @@ def tcn_wgrad(A, Bm, valid_k, z=None):
     _check_widths(Kp, n1, n2, dt)
     _require(Bm.shape[:2] == (M, Kp), "KW operands must have the same rows")
     _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
+    if plan is not None:
+        _check_wgrad_plan(*plan[:2], M * Kp)
     _check_cuda(A, Bm, dtype=dt)
-    chunk = wgrad_chunk(Kp)
-    part = torch.empty((M * Kp // chunk, n1, n2), dtype=torch.float32, device=A.device)
+    if dt == torch.bfloat16:
+        splits, cluster = (plan or wgrad_launch_plan(A, Bm, z))[:2]
+        n_part = splits // cluster
+    else:
+        splits, cluster = wgrad_chunk(Kp), 1
+        n_part = M * Kp // splits
+    part = torch.empty((n_part, n1, n2), dtype=torch.float32, device=A.device)
     stats2 = alpha2 = g2 = b2 = None
     gln, n2s = 0, 0
     if z is not None:
@@ -240,8 +354,8 @@ def tcn_wgrad(A, Bm, valid_k, z=None):
         n2s = _n_parts(stats2, gln)
     rc = _lib().tcn_wgrad(A.device.index, _DTYPES[dt], int(z is not None), A.data_ptr(),
                           Bm.data_ptr(), part.data_ptr(), _ptr(stats2), n2s, _ptr(alpha2),
-                          _ptr(g2), _ptr(b2), M * Kp, Kp, valid_k, n1, n2, chunk, gln,
-                          _stream(A))
+                          _ptr(g2), _ptr(b2), M * Kp, Kp, valid_k, n1, n2, splits, cluster,
+                          gln, _stream(A))
     _build.check(rc, "tcn_wgrad")
     _LAUNCHES["tcn_wgrad_out" if z is not None else "tcn_wgrad_in"] += 1
     return part

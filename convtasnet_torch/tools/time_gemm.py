@@ -1,8 +1,9 @@
-"""Device time of the bf16 wgmma kernels K3 (tcn_out_gemm, fold and unfold)
-and KB3 (tcn_bwd_dx) at the paper widths, for each tile plan, on one CUDA
-device.
+"""Device time of the bf16 wgmma kernels K3 (tcn_out_gemm, fold and unfold),
+KB3 (tcn_bwd_dx) and KW (tcn_wgrad, both forms) at the paper widths, for
+each launch plan, on one CUDA device.
 
     python -m convtasnet_torch.tools.time_gemm --batch 8 5 1
+    python -m convtasnet_torch.tools.time_gemm --batch 5 --plans --kw_plans auto 32x8 32x4 33x1
 
 For each batch (4 s at 8 kHz: K = 3199 frames, padded to 3200) and each
 plan (`auto`: gemm_plan for the card's SM count; `128`: 128-row tiles,
@@ -11,6 +12,11 @@ it picks when every tile fits one wave) prints one JSON line: the plan,
 each kernel's device time per launch from torch.profiler, the host time
 per wrapper call, and torch.matmul of the same product (device time).
 Inputs are random from a seed: the time does not depend on their values.
+
+For KW each plan (`auto`: wgrad_plan for the card; `SxC`: S row splits in
+clusters of C CTAs) gives one JSON line: each form's device time per
+`tcn_wgrad(...).sum(0)` call (the measure of chip_smoke.py), of the kernel
+alone, the host time per wrapper call, and torch.matmul of the product.
 """
 
 from __future__ import annotations
@@ -97,20 +103,51 @@ def run(batch: int, plan: str) -> dict:
     return res
 
 
+def run_kw(batch: int, plan: str) -> dict:
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    rows = batch * KP
+    c, dy1 = (torch.randn((batch, KP, H), generator=gen, device=dev).to(dt) for _ in range(2))
+    x, g = (torch.randn((batch, KP, B), generator=gen, device=dev).to(dt) for _ in range(2))
+    a2 = torch.full((1,), 0.25, device=dev)
+    g2 = torch.randn((H,), generator=gen, device=dev) * 0.1 + 1
+    b2 = torch.randn((H,), generator=gen, device=dev) * 0.1
+    n = float(K * H)
+    s2 = torch.stack([torch.randn((batch, 1), generator=gen, device=dev) * 0.01 * n,
+                      (1 + torch.randn((batch, 1), generator=gen, device=dev).abs()) * n], -1)
+    z = (s2, a2, g2, b2, "gLN")
+    forced = None if plan == "auto" else tuple(int(v) for v in plan.split("x"))
+    res = {"device": torch.cuda.get_device_name(dev), "batch": batch, "kw_plan": plan,
+           "plan_z": list(forced or tbb.wgrad_launch_plan(c, g, z)),
+           "plan_din": list(forced or tbb.wgrad_launch_plan(x, dy1)),
+           "max_clusters": tbb._max_clusters(torch.cuda.current_device(), B)}
+    for name, A, Bm, zz in (("z", c, g, z), ("din", x, dy1, None)):
+        res[f"kw_{name}_ms"] = device_ms(lambda: tbb.tcn_wgrad(A, Bm, K, zz, plan=forced).sum(0))
+        res[f"kw_{name}_kernel_ms"] = device_ms(lambda: tbb.tcn_wgrad(A, Bm, K, zz, plan=forced))
+        res[f"kw_{name}_host_us"] = host_us(lambda: tbb.tcn_wgrad(A, Bm, K, zz, plan=forced))
+    res["matmul_ms"] = device_ms(lambda: torch.matmul(c.view(rows, H).t(), g.view(rows, B)))
+    return res
+
+
 def main(argv=None):
-    p = argparse.ArgumentParser("Time the bf16 wgmma kernels K3 and KB3 on the GPU")
+    p = argparse.ArgumentParser("Time the bf16 wgmma kernels K3, KB3 and KW on the GPU")
     p.add_argument("--batch", type=int, nargs="+", default=[8, 5, 1])
-    p.add_argument("--plans", nargs="+", default=["auto", "128", "64"],
+    p.add_argument("--plans", nargs="*", default=["auto", "128", "64"],
                    choices=["auto", "128", "64"])
+    p.add_argument("--kw_plans", nargs="*", default=["auto"],
+                   help="KW plans: auto, or SxC (S splits in clusters of C)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_gemm: no CUDA device")
     out = []
     for batch in args.batch:
         for plan in args.plans:
-            res = run(batch, plan)
-            print(json.dumps(res), flush=True)
-            out.append(res)
+            out.append(run(batch, plan))
+            print(json.dumps(out[-1]), flush=True)
+        for plan in args.kw_plans:
+            out.append(run_kw(batch, plan))
+            print(json.dumps(out[-1]), flush=True)
     return out
 
 

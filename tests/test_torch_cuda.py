@@ -297,3 +297,43 @@ def test_bwd_dx_matches_plain(dev, monkeypatch, one_sm, norm_type, causal, B, H,
     assert _rel_max(da1k.sum(), da1p.sum()) <= max(tol, 2e-3)
     again = tbb.tcn_bwd_dx(*args)
     assert all(torch.equal(u, v) for u, v in zip((dxk, dy1k, da1k), again))
+
+
+# ---------------------------------------------------------------------------
+# KW on its TMA + wgmma kernel (bf16) and the SIMT tiles (f32), both forms,
+# at the launch plan of the card, of a card of one SM (one split) and at
+# forced cluster plans (splits, cluster); Bm's rows >= K poisoned with NaN.
+# ---------------------------------------------------------------------------
+
+WGRAD_PLANS = {"auto": None, "one_sm": None, "splits4_cluster2": (4, 2),
+               "splits8_cluster4": (8, 4), "splits8_cluster8": (8, 8)}
+
+
+@pytest.mark.parametrize("plan", list(WGRAD_PLANS))
+@pytest.mark.parametrize("M", [5, 1])
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
+@pytest.mark.parametrize("B,H", [(128, 256), (256, 512)])
+@pytest.mark.parametrize("dtype,tol", GEMM_DTYPES)
+def test_wgrad_matches_plain(dev, monkeypatch, plan, M, norm_type, B, H, dtype, tol):
+    """Both KW forms against wgrad_plain (which reads Bm's rows >= K as
+    zero): NaN in those rows must not reach the product; the partials'
+    count follows the plan; two launches give equal bytes."""
+    _plan_sms(monkeypatch, plan == "one_sm")
+    K, Kp = 450, 512
+    d = _bwd_inputs(dev, dtype, norm_type, False, 2, K=K, Kp=Kp, M=M, B=B, H=H)
+    gen = torch.Generator(device=dev).manual_seed(M + B)
+    dy1 = torch.randn((M, Kp, H), generator=gen, device=dev).to(dtype)
+    g, z = d["g"].clone(), (d["s2"], d["a2"], d["g2"], d["b2"], norm_type)
+    g[:, K:] = float("nan")
+    dy1[:, K:] = float("nan")
+    forced = WGRAD_PLANS[plan]
+    for A, Bm, zz in ((d["c"], g, z), (d["x"], dy1, None)):
+        want = tbb.wgrad_plain(A, Bm, K, zz).sum(0)
+        part = tbb.tcn_wgrad(A, Bm, K, zz, plan=forced)
+        assert _rel_max(part.sum(0), want) <= tol, zz is None
+        assert torch.equal(tbb.tcn_wgrad(A, Bm, K, zz, plan=forced), part)
+        if dtype == torch.bfloat16:
+            splits, cluster = (forced or tbb.wgrad_launch_plan(A, Bm, zz))[:2]
+            assert part.shape[0] == splits // cluster
+            if plan == "one_sm":
+                assert part.shape[0] == 1
