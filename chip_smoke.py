@@ -8,10 +8,11 @@
    at the paper widths (B=256, H=512, P=3) and the main path's shapes
    (batch 8, K=3199 frames, padded to 3200), for every dilation 1..128,
    gLN and cLN, causal and non-causal, in f32 and in bf16, then the
-   32-block chains of both forms; then K3 (fold and unfold, into a fresh
-   tensor and in place) and KB3 at the test width (B=128, H=256, batch 3,
-   K_pad=384) at every tile plan of the bf16 wgmma kernels, with rows >= K
-   exact zeros and two launches giving equal bytes;
+   32-block chains of both forms; then K1, K3 (fold and unfold, into a
+   fresh tensor and in place), KB1 (NaN in the rows >= K of g and c) and
+   KB3 at the test width (B=128, H=256, batch 3, K_pad=384) at every tile
+   plan of the bf16 wgmma kernels, with rows >= K exact zeros and two
+   launches giving equal bytes;
 4. training kernel phase: holds K2's save mode and the backward kernels
    (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, also with NaN in the rows
    >= K of its second operand, KB2 tcn_bwd_dwconv, KB3 tcn_bwd_dx) against
@@ -106,8 +107,8 @@ SOURCE_KW = "convtasnet_torch/csrc/tcn_wgrad_sm90.cuh"
 BWD_BLOCK = "convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py:64"
 GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "dout_w")
 # How each kernel is built (bf16, the main path's type).
-DESIGN = {"tcn_in_gemm": "wmma", "tcn_dwconv": "simt", "tcn_out_gemm_fold": "wgmma+tma",
-          "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": "simt", "tcn_bwd_dz": "wmma",
+DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": "simt", "tcn_out_gemm_fold": "wgmma+tma",
+          "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": "simt", "tcn_bwd_dz": "wgmma+tma",
           "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": "simt", "tcn_bwd_dx": "wgmma+tma",
           "tcn_wgrad_in": "wgmma+tma"}
 TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
@@ -223,14 +224,17 @@ def reset_all_counts():
 
 
 def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
-    """K3 (fold and unfold, fresh output and in place) and KB3 at the test
-    width against their plain versions, at every tile plan of the bf16
-    wgmma kernels (the real SM count, and one SM, which makes gemm_plan
-    take 128-row tiles); rows >= K exact zeros; two launches equal bytes."""
+    """K1, K3 (fold and unfold, fresh output and in place), KB1 and KB3 at
+    the test width against their plain versions, at every tile plan of the
+    bf16 wgmma kernels: the card's SM count and occupancy, then one CTA
+    counted per SM on one SM (gemm_plan takes 128-row tiles), on as many
+    SMs as the 64-row tiles of K1 and KB1 (64 x 256) and on unbounded SMs
+    (64 x 128); rows >= K exact zeros (KB1 with NaN in the rows >= K of g
+    and c); two launches equal bytes."""
     from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
 
-    chk = Checks("test-width K3 / KB3 phase")
-    log(f"test-width K3 / KB3 phase (B={B}, H={H}, M={M}, K_pad={Kp}):")
+    chk = Checks("test-width K1 / K3 / KB1 / KB3 phase")
+    log(f"test-width K1 / K3 / KB1 / KB3 phase (B={B}, H={H}, M={M}, K_pad={Kp}):")
     gen = torch.Generator(device=dev).manual_seed(21)
 
     def rnd(*shape, scale=1.0, shift=0.0):
@@ -243,19 +247,36 @@ def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
     x32 = rnd(M, Kp, B)
     x32[:, K:] = 0
     g32 = rnd(M, Kp, B)
-    real_sms = tb._sm_count
+    real = (tb._sm_count, tb._resident, tbb._resident)
+    idx = torch.cuda.current_device()
+    one_each = lambda index, mode: ()  # noqa: E731 (one CTA counted per SM)
+    options = [real] + [(lambda index, n=n: n, one_each, one_each)
+                        for n in (1, M * Kp // 64 * (H // 256), 10 ** 6)]
     try:
-        for one_sm in (False, True):
-            sms = (lambda index: 1) if one_sm else real_sms
+        for sms, res, res_bwd in options:
             tb._sm_count = tbb._sm_count = sms
+            tb._resident, tbb._resident = res, res_bwd
             for dt in (torch.float32, torch.bfloat16):
                 tol = TOL_F32 if dt == torch.float32 else TOL_BF16
                 x, g = x32.to(dt), g32.to(dt)
                 for norm in ("gLN", "cLN"):
+                    red = (1,) if norm == "gLN" else (2,)
+                    n = sms(idx)
+                    tiles = ("plans K3 " + str(tb.gemm_plan(M * Kp, B, H, n, resident=res(idx, tb.H_FOLD)))
+                             + ", K1 " + str(tb.gemm_plan(M * Kp, H, B, n, io_tiles=1,
+                                                          resident=res(idx, tb.H_IN)))
+                             + ", KB1 " + str(tb.gemm_plan(M * Kp, H, B, n,
+                                                           resident=res_bwd(idx, tb.H_DZ))))
+                    what = f"{'f32' if dt == torch.float32 else 'bf16'} {norm} {tiles}"
+                    y1, s1 = tb.in_gemm_plain(x, in_w.to(dt), a1, norm)
+                    y1k, s1k = tb.tcn_in_gemm(x, in_w.to(dt), a1, norm)
+                    chk(f"K1 {what} y1", rel_max(y1k, y1), tol)
+                    chk(f"K1 {what} stats", rel_max(s1k.sum(red), s1.sum(red)), tol)
+                    chk(f"K1 {what} pad rows zero", float(y1k[:, K:].abs().max()), 0.0)
+                    chk(f"K1 {what} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+                        (y1k, s1k), tb.tcn_in_gemm(x, in_w.to(dt), a1, norm)))), 0.0)
                     for causal in (False, True):
-                        what = (f"{'f32' if dt == torch.float32 else 'bf16'} {norm} causal={causal}"
-                                f" plan={tb.gemm_plan(M * Kp, B, H, sms(0))}")
-                        y1, s1 = tb.in_gemm_plain(x, in_w.to(dt), a1, norm)
+                        what = f"{'f32' if dt == torch.float32 else 'bf16'} {norm} causal={causal} {tiles}"
                         e, s2, c = tb.dwconv_plain(y1, s1, a1, g1, b1, w, a2, norm, 2, causal, K,
                                                    save=True)
                         for fold in (True, False):
@@ -273,8 +294,16 @@ def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
                                 float(not torch.equal(inpl, got)), 0.0)
                             chk(f"K3 {form} {what} repeat",
                                 float(not torch.equal(tb.tcn_out_gemm(*args), got)), 0.0)
-                        dz, _, gs2 = tbb.bwd_dz_plain(g, out_w.to(dt).t().contiguous(), c, s2, a2,
-                                                      g2, norm, K)
+                        zargs = (nan_pad(g, K), out_w.to(dt).t().contiguous(), nan_pad(c, K), s2,
+                                 a2, g2, norm, K)
+                        dz, colp, gs2 = tbb.bwd_dz_plain(*zargs)
+                        dzk, colk, gs2k = tbb.tcn_bwd_dz(*zargs)
+                        chk(f"KB1 {what} dz, NaN in g's and c's rows >= K", rel_max(dzk, dz), tol)
+                        chk(f"KB1 {what} dz pad rows zero", float(dzk[:, K:].abs().max()), 0.0)
+                        chk(f"KB1 {what} dg2/db2", rel_max(colk.sum(0), colp.sum(0)), tol)
+                        chk(f"KB1 {what} norm2 sums", rel_max(gs2k.sum(red), gs2.sum(red)), tol)
+                        chk(f"KB1 {what} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+                            (dzk, colk, gs2k), tbb.tcn_bwd_dz(*zargs)))), 0.0)
                         db, _, gs1, _ = tbb.bwd_dwconv_plain(y1, c, dz, s1, s2, gs2, a1, g1, b1, w,
                                                              a2, g2, norm, 2, causal, K)
                         xargs = (db, y1, in_w.to(dt).t().contiguous(), g, s1, gs1, a1, g1, norm, K)
@@ -289,7 +318,8 @@ def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
                         chk(f"KB3 {what} repeat", float(sum(not torch.equal(u, v) for u, v in
                                                             zip((dxk, dy1k, da1k), again))), 0.0)
     finally:
-        tb._sm_count = tbb._sm_count = real_sms
+        tb._sm_count = tbb._sm_count = real[0]
+        tb._resident, tbb._resident = real[1:]
     torch.cuda.synchronize()
     chk.done()
 
@@ -353,6 +383,15 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                         chk(f"KB1 {what} dz", rel_max(dzk, dz), tol)
                         chk(f"KB1 {what} dg2/db2", rel_max(colk.sum(0), colp.sum(0)), tol)
                         chk(f"KB1 {what} norm2 sums", rel_max(gs2k.sum(red), gs2.sum(red)), tol)
+                        chk(f"KB1 {what} dz pad rows zero", float(dzk[:, K:].abs().max()), 0.0)
+                        nargs = (nan_pad(g, K), out_wt, nan_pad(c, K), s2, a2, g2, norm, K)
+                        dzn = tbb.tcn_bwd_dz(*nargs)
+                        chk(f"KB1 {what} NaN in g's and c's rows >= K", max(
+                            rel_max(dzn[0], dz), rel_max(dzn[1].sum(0), colp.sum(0)),
+                            rel_max(dzn[2].sum(red), gs2.sum(red))), tol)
+                        chk(f"KB1 {what} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+                            (dzk, colk, gs2k), tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K)))),
+                            0.0)
                         err("tcn_bwd_dz", dzk, dz, dt)
                         z = (s2, a2, g2, b2, norm)
                         wk, wp = tbb.tcn_wgrad(c, g, K, z).sum(0), tbb.wgrad_plain(c, g, K, z).sum(0)
@@ -571,7 +610,7 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     norm = cfg.norm_type
     y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
     _, s2, c = tb.tcn_dwconv(y1, s1, a1, g1, b1, w, a2, norm, 1, cfg.causal, K, save=True)
-    dz, _, gs2 = tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K)
+    dz, colpart, gs2 = tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K)
     db, _, gs1, _ = tbb.tcn_bwd_dwconv(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, 1,
                                        cfg.causal, K)
     _, dy1, _ = tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
@@ -621,7 +660,8 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             kernel=lambda: tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K),
             plain=lambda: tbb.bwd_dz_plain(g, out_wt, c, s2, a2, g2, norm, K),
             library=lambda: torch.matmul(g.view(rows, B), out_wt),
-            bytes=(rows * B + B * H + 2 * rows * H) * it + s2.numel() * 4 + 2 * H * 4,
+            bytes=(rows * B + B * H + 2 * rows * H) * it
+            + (s2.numel() + colpart.numel() + gs2.numel()) * 4 + 2 * H * 4,
             flops=gemm, per=1),
         "tcn_wgrad_out": dict(
             source=SOURCE_KW, replaces=BWD_BLOCK,
@@ -721,6 +761,20 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb
+
+    idx = torch.cuda.current_device()
+    modes = (("K3 fold", tb, tb.H_FOLD), ("K3 unfold", tb, tb.H_UNFOLD), ("K1", tb, tb.H_IN),
+             ("KB3", tbb, tb.H_DX), ("KB1", tbb, tb.H_DZ))
+    occ = {name: {f"{bm}x{bn}": r for (bm, bn), r in mod._resident(idx, mode)}
+           for name, mod, mode in modes}
+    log(f"wgmma template, CTAs resident per SM by tile: {json.dumps(occ)}")
+    for rows in (8 * 3200, 5 * 3200, 3200):
+        log(f"  plans at {rows} rows (B=256, H=512): "
+            f"K1 {tb.gemm_plan(rows, 512, 256, tb._sm_count(idx), io_tiles=1, resident=tb._resident(idx, tb.H_IN))}, "
+            f"K3 {tb.gemm_plan(rows, 256, 512, tb._sm_count(idx), resident=tb._resident(idx, tb.H_FOLD))}, "
+            f"KB1 {tb.gemm_plan(rows, 512, 256, tb._sm_count(idx), resident=tbb._resident(idx, tb.H_DZ))}, "
+            f"KB3 {tb.gemm_plan(rows, 256, 512, tb._sm_count(idx), split=False, resident=tbb._resident(idx, tb.H_DX))}")
 
     cfg = ConvTasNetConfig()  # the paper config
     NB, B, H, P = cfg.R * cfg.X, cfg.B, cfg.H, cfg.P
@@ -756,6 +810,9 @@ def main() -> int:
             e1 = rel_max(y1k, y1p)
             chk(f"K1 {tag} {norm} y1", e1, tol)
             chk(f"K1 {tag} {norm} stats", rel_max(s1k.sum(red), s1p.sum(red)), tol)
+            chk(f"K1 {tag} {norm} pad rows zero", float(y1k[:, K:].abs().max()), 0.0)
+            chk(f"K1 {tag} {norm} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+                (y1k, s1k), tb.tcn_in_gemm(x, in_w, a1, norm)))), 0.0)
             if dt == torch.bfloat16:
                 errs["tcn_in_gemm"] = max(errs["tcn_in_gemm"], float((y1k.float() - y1p.float()).abs().max()))
             for causal in (False, True):

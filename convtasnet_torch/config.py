@@ -19,7 +19,9 @@ the rules of convtasnet_tpu/models/conv_tasnet.py:182-233):
              (models/conv_tasnet.py);
     "whole"  -> the per-block recompute op (whole_block_vjp.py);
   0 -> the eager op-by-op chain. BN is always eager, and off the CPU so
-  are widths B or H that are not multiples of 128 (the kernels' tiles).
+  is every config beyond a launch limit of a kernel the form runs
+  (ops/kernels/limits.py: widths not multiples of 128, bf16 H > 1024, the
+  conv span of the largest dilation, KB2's taps and span in training).
 
 A CPU tensor takes each kernel's plain PyTorch version.
 """
@@ -30,11 +32,12 @@ import dataclasses
 
 import torch
 
+from .ops.kernels.limits import kernel_limit
+
 # Reference numerical epsilon (conv_tasnet.py:10, pit_criterion.py:9).
 EPS = 1e-8
 
 USE_KERNELS_CHOICES = ("auto", "block", "hybrid", "whole", "0")
-KERNEL_WIDTH = 128  # B and H multiples the CUDA kernels tile (csrc/tcn_block.cuh BN)
 
 # Keys a JAX checkpoint header carries that have no meaning here.
 _JAX_ONLY_KEYS = ("use_pallas", "remat", "scan_unroll")
@@ -95,17 +98,21 @@ class ConvTasNetConfig:
         (default CUDA, the entry points' default): "eager", the inference
         forms "whole_tcn" / "whole_block", or the training forms
         "whole_tcn_train" (use_kernels="hybrid") / "whole_block_train"
-        ("whole"). Decided from the config before any launch."""
+        ("whole"). Decided from the config before any launch: on a card a
+        config beyond the launch limits of the form's kernels runs eager
+        (the CPU's plain versions take any config)."""
         flag = str(self.use_kernels).lower()
         if self.norm_type == "BN" or flag in ("0", "false"):
             return "eager"
-        # The kernels tile B and H by 128; the CPU's plain versions take any width.
-        on_card = device is None or torch.device(device).type != "cpu"
-        if on_card and (self.B % KERNEL_WIDTH or self.H % KERNEL_WIDTH):
-            return "eager"
         if not train:
-            return "whole_block" if flag == "block" else "whole_tcn"
-        return {"hybrid": "whole_tcn_train", "whole": "whole_block_train"}.get(flag, "eager")
+            form = "whole_block" if flag == "block" else "whole_tcn"
+        else:
+            form = {"hybrid": "whole_tcn_train", "whole": "whole_block_train"}.get(flag, "eager")
+        on_card = device is None or torch.device(device).type != "cpu"
+        if form != "eager" and on_card and kernel_limit(
+                self.B, self.H, self.P, self.X, self.compute_dtype == "bfloat16", train):
+            return "eager"
+        return form
 
     def num_frames(self, T: int) -> int:
         """K = (T - L) // (L/2) + 1 (conv_tasnet.py:113)."""

@@ -28,11 +28,11 @@
 // Bound on the H100 at the paper config, batch 8 (25,600 rows): every
 // kernel is bound by device-memory bytes (K1 39 MB, K2 52 MB, K3 52 MB per
 // block at 3.35 TB/s, against 6.7 GFLOP for each GEMM at 989 TFLOP/s).
-// K3 in bf16 (both forms) runs on the TMA + wgmma pipeline of
-// tcn_gemm_sm90.cuh: the A stream read once per row tile, a ring of TMA
-// loads in flight, the epilogue from the accumulator registers. K1, and K3
-// in f32 (SIMT FMA, to keep f32 exact where TF32 would not be), are still
-// plain shared-memory tiles (WMMA / SIMT, no pipeline); K2 reads each y1
+// K1 and K3 (both forms) in bf16 run on the TMA + wgmma pipeline of
+// tcn_gemm_sm90.cuh (modes H_IN, H_FOLD, H_UNFOLD): a ring of TMA loads in
+// flight, the epilogue from the accumulator registers, the tile leaving by
+// TMA store. In f32 both keep plain shared-memory tiles (SIMT FMA, no
+// pipeline), so f32 stays exact where TF32 would not be; K2 reads each y1
 // row P times through L1.
 #include <cstdint>
 #include <type_traits>
@@ -59,12 +59,12 @@ struct GemmArgs {
 enum Mode { IN_GEMM = 0, OUT_FOLD = 1, OUT_UNFOLD = 2 };
 
 // Grid (rows / BM, ncols / BN), GEMM_THREADS threads. kpad % BM == 0, so a
-// CTA's rows belong to one batch item. K1 in both types; K3 in f32 only
-// (bf16 K3 is hgemm_kernel).
+// CTA's rows belong to one batch item. f32 only (bf16 K1 and K3 are
+// hgemm_kernel).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
-  static_assert(MODE == IN_GEMM || std::is_same<T, float>::value,
-                "bf16 K3 runs on the wgmma pipeline (tcn_gemm_sm90.cuh)");
+  static_assert(std::is_same<T, float>::value,
+                "bf16 K1 and K3 run on the wgmma pipeline (tcn_gemm_sm90.cuh)");
   using Tl = Tiles<T>;
   constexpr int VEC = Tl::VEC;
   __shared__ __align__(128) unsigned char smem[Tl::BYTES];
@@ -318,10 +318,29 @@ using namespace tcn;
 // dtype: 0 = float32, 1 = bfloat16. Every function returns the
 // cudaGetLastError() of its launch (0 = success); nothing synchronises.
 
+// bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;
+// f32 ignores them.
 extern "C" int tcn_in_gemm(int device, int dtype, const void* x, const void* in_w,
                            const float* alpha1, void* y1, float* stats1, int rows,
-                           int kpad, int B, int H, int gln, void* stream) {
+                           int kpad, int B, int H, int gln, int bm, int bn, void* stream) {
   cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype) {
+    HMaps m;
+    if (!hop::tensor_map(&m.a, x, rows, B, bm) || !hop::tensor_map(&m.w, in_w, B, H, 64) ||
+        !hop::tensor_map(&m.out, y1, rows, H, 64))
+      return cudaErrorInvalidValue;
+    m.a2 = m.res = m.dy1 = m.a;  // unused
+    HArgs h{};
+    h.alpha = alpha1;
+    h.part = stats1;
+    h.kpad = kpad;
+    h.k_valid = kpad;
+    h.kdim = B;
+    h.ncols = H;
+    h.gln = gln;
+    return hgemm<H_IN>(m, h, rows, bm, bn, s);
+  }
   GemmArgs g{};
   g.A = x;
   g.W = in_w;
@@ -333,8 +352,17 @@ extern "C" int tcn_in_gemm(int device, int dtype, const void* x, const void* in_
   g.kdim = B;
   g.ncols = H;
   g.gln = gln;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_gemm<bf16, IN_GEMM>(g, rows, s) : launch_gemm<float, IN_GEMM>(g, rows, s);
+  return launch_gemm<float, IN_GEMM>(g, rows, s);
+}
+
+// CTAs of the bf16 wgmma kernel in `mode` (tcn_gemm_sm90.cuh HMode: 0 fold,
+// 1 unfold, 3 K1) with tile (bm, bn) resident per SM; -1 if not built here.
+extern "C" int tcn_gemm_resident(int device, int mode, int bm, int bn) {
+  cudaSetDevice(device);
+  if (mode == H_FOLD) return hgemm_resident<H_FOLD>(bm, bn);
+  if (mode == H_UNFOLD) return hgemm_resident<H_UNFOLD>(bm, bn);
+  if (mode == H_IN) return hgemm_resident<H_IN>(bm, bn);
+  return -1;
 }
 
 extern "C" int tcn_dwconv(int device, int dtype, const void* y1, const float* stats1,

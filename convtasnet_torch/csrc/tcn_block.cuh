@@ -7,7 +7,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace tcn {
 
@@ -106,49 +105,10 @@ template <typename T> struct Tiles {
 };
 
 // Accumulates the CTA's [BM, BN] tile of A @ W into Cs (f32, row stride
-// LDC), from As [BM, BK] (row stride LDA) and Bs [BK, BN] (row stride LDB).
-// bf16: WMMA 16x16x16 fragments, 8 warps of 32x32. f32: SIMT FMA, each
-// thread 4 rows x 8 columns.
+// LDC), from As [BM, BK] (row stride LDA) and Bs [BK, BN] (row stride LDB):
+// SIMT FMA, each thread 4 rows x 8 columns. f32 only: every bf16 GEMM runs
+// on the wgmma pipelines (tcn_gemm_sm90.cuh, tcn_wgrad_sm90.cuh).
 template <typename T> struct TileMma;
-
-template <> struct TileMma<bf16> {
-  using Tl = Tiles<bf16>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-  __device__ void step(const bf16* As, const bf16* Bs) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * Tl::LDA + kk, Tl::LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * Tl::LDB + wc * 32 + j * 16, Tl::LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  __device__ void store(float* Cs) {
-    const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * Tl::LDC + wc * 32 + j * 16,
-                                        acc[i][j], Tl::LDC, nvcuda::wmma::mem_row_major);
-  }
-};
 
 template <> struct TileMma<float> {
   using Tl = Tiles<float>;

@@ -47,13 +47,14 @@
 // Bound on the H100 at the paper config, batch 5 (16,000 rows): every
 // launch is bound by device-memory bytes (KB1 ~41 MB, KB2 ~66 MB, KB3
 // ~57 MB at 3.35 TB/s, against 8.4 GFLOP per GEMM pair at 989 TFLOP/s).
-// KB3 in bf16 runs on the TMA + wgmma pipeline of tcn_gemm_sm90.cuh (one
-// CTA covers all B columns of its rows, so dy1 is formed once per row), KW
-// in bf16 on its own TMA + wgmma kernel (tcn_wgrad_sm90.cuh: reduction over
-// the rows, split partials summed inside a cluster). KB1 (WMMA in bf16,
-// SIMT in f32) and KB3 and KW in f32 (SIMT) keep the shared-memory tiles of
-// the forward, with no pipeline; KB2 recomputes each halo row of dc and b
-// P times through L1.
+// KB1 and KB3 in bf16 run on the TMA + wgmma pipeline of tcn_gemm_sm90.cuh
+// (modes H_DZ and H_DX: KB1 prefetches c into the epilogue's tile and
+// reduces its column partials from the accumulator registers; one KB3 CTA
+// covers all B columns of its rows, so dy1 is formed once per row), KW in
+// bf16 on its own TMA + wgmma kernel (tcn_wgrad_sm90.cuh: reduction over
+// the rows, split partials summed inside a cluster). In f32, KB1, KB3 and
+// KW keep the SIMT shared-memory tiles of the forward, with no pipeline;
+// KB2 recomputes each halo row of dc and b P times through L1.
 #include <cstdint>
 #include <type_traits>
 
@@ -67,8 +68,9 @@ constexpr int MAXP = 8;           // depthwise taps held in registers by KB2
 constexpr int MAX_CHUNK = 1024;   // rows per split of tcn_wgrad
 
 // ---------------------------------------------------------------------------
-// KB1: dz = round(g @ out_w^T) with the norm2-backward partials.
-// Grid (rows / BM, H / BN), GEMM_THREADS threads.
+// KB1 in f32: dz = round(g @ out_w^T) with the norm2-backward partials
+// (bf16 KB1 is hgemm_kernel in H_DZ mode). Grid (rows / BM, H / BN),
+// GEMM_THREADS threads.
 // ---------------------------------------------------------------------------
 struct DzArgs {
   const void* g;         // [rows, B] upstream cotangent
@@ -86,6 +88,7 @@ struct DzArgs {
 
 template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS) bwd_dz_kernel(DzArgs g) {
+  static_assert(std::is_same<T, float>::value, "bf16 KB1 runs on the wgmma pipeline");
   using Tl = Tiles<T>;
   constexpr int VEC = Tl::VEC;
   constexpr int NW = GEMM_THREADS / 32;
@@ -615,20 +618,48 @@ using namespace tcn;
 // dtype: 0 = float32, 1 = bfloat16. Every function returns the
 // cudaGetLastError() of its launch (0 = success); nothing synchronises.
 
+// bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;
+// colpart holds rows / bm rows, npart H / bn pairs per row (cLN) or per row
+// tile (gLN). f32: the SIMT tiles (BM, BN).
 extern "C" int tcn_bwd_dz(int device, int dtype, const void* g, const void* wt,
                           const void* c, const float* stats2, int n2, const float* alpha2,
                           const float* g2, void* dz, float* colpart, float* npart,
-                          int rows, int kpad, int k_valid, int B, int H, int gln,
-                          void* stream) {
+                          int rows, int kpad, int k_valid, int B, int H, int gln, int bm,
+                          int bn, void* stream) {
   cudaSetDevice(device);
-  DzArgs a{g, wt, c, stats2, n2, alpha2, g2, dz, colpart, npart, kpad, k_valid, B, H, gln};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(rows / BM, H / BN);
-  if (dtype)
-    bwd_dz_kernel<bf16><<<grid, GEMM_THREADS, 0, s>>>(a);
-  else
-    bwd_dz_kernel<float><<<grid, GEMM_THREADS, 0, s>>>(a);
+  if (dtype) {
+    HMaps m;
+    if (!hop::tensor_map(&m.a, g, rows, B, bm) || !hop::tensor_map(&m.w, wt, B, H, 64) ||
+        !hop::tensor_map(&m.res, c, rows, H, 64) || !hop::tensor_map(&m.out, dz, rows, H, 64))
+      return cudaErrorInvalidValue;
+    m.a2 = m.dy1 = m.a;  // unused
+    HArgs h{};
+    h.stats = stats2;
+    h.n_stats = n2;
+    h.alpha = alpha2;
+    h.vec_a = g2;
+    h.part = npart;
+    h.colpart = colpart;
+    h.kpad = kpad;
+    h.k_valid = k_valid;
+    h.kdim = B;
+    h.ncols = H;
+    h.gln = gln;
+    return hgemm<H_DZ>(m, h, rows, bm, bn, s);
+  }
+  DzArgs a{g, wt, c, stats2, n2, alpha2, g2, dz, colpart, npart, kpad, k_valid, B, H, gln};
+  bwd_dz_kernel<float><<<dim3(rows / BM, H / BN), GEMM_THREADS, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+// CTAs of the bf16 wgmma kernel in `mode` (tcn_gemm_sm90.cuh HMode: 2 KB3,
+// 4 KB1) with tile (bm, bn) resident per SM; -1 if not built here.
+extern "C" int tcn_gemm_resident(int device, int mode, int bm, int bn) {
+  cudaSetDevice(device);
+  if (mode == H_DX) return hgemm_resident<H_DX>(bm, bn);
+  if (mode == H_DZ) return hgemm_resident<H_DZ>(bm, bn);
+  return -1;
 }
 
 // bf16: `splits` ranges of 64-row slices in clusters of `cluster` CTAs

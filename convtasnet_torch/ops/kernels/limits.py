@@ -1,0 +1,47 @@
+"""Launch limits of the CUDA kernels (csrc/), in one module with no imports.
+
+The wrappers (tcn_block.py, tcn_block_bwd.py) refuse a CUDA tensor beyond
+these limits with a ValueError; `ConvTasNetConfig.kernel_form` reads the
+same numbers to send such a config to the eager chain before any launch,
+as the JAX package's gate sends it to XLA (convtasnet_tpu/models/
+conv_tasnet.py:182-233).
+
+  KERNEL_WIDTH    B and H are multiples of it: the GEMMs tile 128 columns
+                  (and a depth of 64); every wrapper checks both widths.
+  GEMM_MAX_H      bf16 K3 and KB3 (csrc/tcn_gemm_sm90.cuh) stage 2 * H f32
+                  norm vectors in hop::VEC_BYTES = 8192 bytes (K3 unfold);
+                  f32 K3 / KB3 (SIMT tiles) have no H limit.
+  DWCONV_MAX_SPAN K2's conv halo, (P - 1) * dilation rows of f32 moments
+                  in shared memory.
+  BWD_MAXP        KB2 holds the P depthwise taps of a channel in registers.
+  BWD_MAX_SPAN    KB2's two shared-memory windows, (32 + span) * 24 bytes.
+
+K1 and KB1 on the bf16 TMA + wgmma pipeline (modes H_IN and H_DZ of
+tcn_gemm_sm90.cuh) bring no limit of their own: the depth B runs through
+the TMA ring whatever its length, and KB1 stages bn <= 256 f32 values of g2.
+"""
+
+KERNEL_WIDTH = 128
+GEMM_MAX_H = 1024
+DWCONV_MAX_SPAN = 4096
+BWD_MAXP = 8
+BWD_MAX_SPAN = 1024
+
+
+def kernel_limit(B: int, H: int, P: int, X: int, bf16: bool, train: bool):
+    """Why the kernel chain cannot run a config with these widths on a card,
+    or None when every kernel it launches admits it. `train` adds the
+    backward kernels (KB2's taps and span); the largest dilation of the
+    chain is 2 ** (X - 1)."""
+    if B % KERNEL_WIDTH or H % KERNEL_WIDTH:
+        return f"B={B} and H={H} must be multiples of {KERNEL_WIDTH}"
+    if bf16 and H > GEMM_MAX_H:
+        return f"H={H} exceeds the bf16 GEMM kernels' {GEMM_MAX_H}"
+    span = (P - 1) * 2 ** (X - 1)
+    if span > DWCONV_MAX_SPAN:
+        return f"conv span {span} exceeds K2's halo limit {DWCONV_MAX_SPAN}"
+    if train and P > BWD_MAXP:
+        return f"P={P} exceeds KB2's {BWD_MAXP} taps"
+    if train and span > BWD_MAX_SPAN:
+        return f"conv span {span} exceeds KB2's halo limit {BWD_MAX_SPAN}"
+    return None

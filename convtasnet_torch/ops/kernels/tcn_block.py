@@ -2,7 +2,8 @@
 plain PyTorch versions.
 
 One temporal block runs as
-  K1 tcn_in_gemm:  y1 = round(x @ in_w), partial sums of a = PReLU(y1);
+  K1 tcn_in_gemm:  y1 = round(x @ in_w), partial sums of a = PReLU(y1); in
+                   bf16 on the TMA + wgmma pipeline, tiled by `gemm_plan`;
   K2 tcn_dwconv:   e = round(PReLU(dwconv(round(norm1(a))))), partial sums
                    of e over the rows < K; with save=True (training) also
                    c = round(dwconv(...)), the conv output before PReLU2,
@@ -36,23 +37,21 @@ import torch.nn.functional as F
 
 from ...config import EPS
 from . import _build
+from .limits import DWCONV_MAX_SPAN, GEMM_MAX_H, KERNEL_WIDTH
 
-# Tile sizes of csrc/tcn_block.cuh.
+# Tile sizes of csrc/tcn_block.cuh (the f32 SIMT tiles and K2).
 BM, BN, BK, DW_ROWS = 64, 128, 32, 32
 ROW_ALIGN = 128  # K_pad multiple (the JAX package pads to 128 the same way)
-# The bf16 wgmma pipeline (csrc/tcn_gemm_sm90.cuh): 64 rows per consumer
-# warpgroup, at most two; 128 or 256 output columns; f32 vectors of at most
-# 2 * 1024 floats staged per CTA.
-GEMM_MAX_H = 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tcn_in_gemm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tcn_in_gemm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_dwconv": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _I, _I, _P],
+    "tcn_gemm_resident": [_I, _I, _I, _I],
 }
 
 
@@ -86,35 +85,62 @@ def _check_cuda(*ts: torch.Tensor, dtype=None) -> None:
 def _check_widths(Kp: int, B: int, H: int, dt: torch.dtype) -> None:
     _require(dt in _DTYPES, f"unsupported activation dtype {dt}")
     _require(Kp % ROW_ALIGN == 0, f"K_pad={Kp} is not a multiple of {ROW_ALIGN}")
-    _require(B % BN == 0 and H % BN == 0,
-             f"B={B} and H={H} must be multiples of {BN} for the kernels")
+    _require(B % KERNEL_WIDTH == 0 and H % KERNEL_WIDTH == 0,
+             f"B={B} and H={H} must be multiples of {KERNEL_WIDTH} for the kernels")
+
+
+# Modes of the bf16 wgmma template (csrc/tcn_gemm_sm90.cuh HMode) and the
+# tiles it takes, smallest first.
+H_FOLD, H_UNFOLD, H_DX, H_IN, H_DZ = range(5)
+GEMM_TILES = ((64, 128), (64, 256), (128, 128), (128, 256))
 
 
 @functools.lru_cache(maxsize=256)
-def gemm_plan(rows: int, ncols: int, kdim: int, sms: int,
-              split: bool = True) -> Tuple[int, int]:
-    """(rows, columns) per CTA of the bf16 wgmma kernels (K3, KB3) for a
-    [rows, kdim] @ [kdim, ncols] product on a card with `sms` SMs.
+def gemm_plan(rows: int, ncols: int, kdim: int, sms: int, split: bool = True,
+              io_tiles: int = 2, resident: Tuple = ()) -> Tuple[int, int]:
+    """(rows, columns) per CTA of the bf16 wgmma kernels (K1, K3, KB1,
+    KB3) for a [rows, kdim] @ [kdim, ncols] product on a card with `sms`
+    SMs, where `resident` gives ((tile, CTAs resident per SM), ...) from the
+    card's occupancy at the kernel's shared memory (1 where not given).
 
-    A CTA covers all columns when ncols is 128 or 256 (a multiple of 256:
-    256 of them), so the A stream is read once. Of 128 or 64 rows, and, with
-    `split`, 128 columns at 64 rows, the plan takes the tile whose waves
-    (CTAs over SMs, rounded up) times bytes per CTA (A tile, residual and
-    output tiles) is least, the first of equals. At the paper widths: 200
-    row tiles of 128 at batch 8, 125 at batch 5; at batch 1 (3,200 rows)
-    100 CTAs of 64 x 128, where full-width tiles would leave 82 of 132 SMs
-    idle. rows is a multiple of 128 (K_pad is)."""
+    A CTA takes 128 or 64 rows and all columns when ncols is 128 or 256 (a
+    multiple of 256: 256 of them), so the A stream is read once per column
+    tile; with `split`, also 64 x 128. Each tile costs its waves (CTAs over
+    the CTAs resident on the card at once, rounded up) times a CTA's bytes
+    (the A tile and the epilogue's `io_tiles` [rows, columns] tiles: 2 for
+    K3 and KB3, residual and output, and KB1, c and dz; 1 for K1, y1) over
+    the consumer warpgroups resident per SM, at most 2: an SM with one
+    warpgroup and nothing to overlap its loads and epilogue with ran 1.2-1.4x
+    slower than this cost without that term says (H100 runs of
+    tools/time_gemm.py). The least cost wins, the smaller tile of equals.
+    At the paper widths on an H100: K3 and KB3 take 128 x 256 at batch 8
+    and 5; at batch 1 (3,200 rows) K3 takes 64 x 128 and KB3 64 x 256. K1
+    takes 64 x 128 at every batch (two CTAs resident per SM); KB1 128 x 256
+    at batch 8 and 5, 64 x 256 at batch 1. rows is a multiple of 128 (K_pad
+    is)."""
     _require(ncols % 128 == 0, f"{ncols} output columns are not a multiple of 128")
     _require(rows > 0 and rows % ROW_ALIGN == 0, f"{rows} rows are not a multiple of {ROW_ALIGN}")
     bn = 256 if ncols % 256 == 0 else 128
-    cands = [(128, bn), (64, bn)] + ([(64, 128)] if split and bn > 128 else [])
+    res = dict(resident)
 
     def cost(tile):
         bm, bn_ = tile
-        ctas = rows // bm * (ncols // bn_)
-        return -(-ctas // sms) * bm * (kdim + 2 * bn_)
+        r = max(1, res.get(tile, 1))
+        waves = -(-(rows // bm * (ncols // bn_)) // (sms * r))
+        return waves * bm * (kdim + io_tiles * bn_) / min(2, r * bm // 64)
 
-    return min(cands, key=cost)
+    return min((t for t in GEMM_TILES if t[1] == bn or (split and t == (64, 128))), key=cost)
+
+
+def card_resident(lib, index: int, mode: int) -> Tuple:
+    """((tile, CTAs resident per SM), ...) of the bf16 wgmma kernel in
+    `mode` on card `index`, from `lib` (the library that builds the mode)."""
+    return tuple((t, lib.tcn_gemm_resident(index, mode, *t)) for t in GEMM_TILES)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, mode: int) -> Tuple:
+    return card_resident(_lib(), index, mode)
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,7 +187,10 @@ def in_gemm_plain(x, in_w, alpha1, norm_type, y1: Optional[torch.Tensor] = None)
 
 
 def tcn_in_gemm(x, in_w, alpha1, norm_type, y1: Optional[torch.Tensor] = None):
-    """K1. Returns (y1 [M, K_pad, H], partial sums); y1 may be given."""
+    """K1. Returns (y1 [M, K_pad, H], partial sums: one pair per row and
+    column tile (cLN) or per CTA (gLN)); y1 may be given. bf16 runs on the
+    TMA + wgmma pipeline (mode H_IN), tiled by `gemm_plan` with y1 as the
+    epilogue's one tile."""
     if x.device.type == "cpu":
         return in_gemm_plain(x, in_w, alpha1, norm_type, y1)
     M, Kp, B = x.shape
@@ -173,15 +202,18 @@ def tcn_in_gemm(x, in_w, alpha1, norm_type, y1: Optional[torch.Tensor] = None):
     if y1 is None:
         y1 = torch.empty((M, Kp, H), dtype=dt, device=x.device)
     gln = norm_type == "gLN"
-    nct = H // BN
-    stats = torch.empty((M, Kp // BM * nct, 2) if gln else (M, Kp, nct, 2),
+    idx = x.device.index
+    bm, bn = (gemm_plan(M * Kp, H, B, _sm_count(idx), io_tiles=1, resident=_resident(idx, H_IN))
+              if dt == torch.bfloat16 else (BM, BN))
+    nct = H // bn
+    stats = torch.empty((M, Kp // bm * nct, 2) if gln else (M, Kp, nct, 2),
                         dtype=torch.float32, device=x.device)
     _check_cuda(x, in_w, y1, dtype=dt)
     _check_cuda(x, alpha1, stats, dtype=None)
     _require(y1.shape == (M, Kp, H), "y1 scratch has the wrong shape")
     rc = _lib().tcn_in_gemm(x.device.index, _DTYPES[dt], x.data_ptr(), in_w.data_ptr(),
                             alpha1.data_ptr(), y1.data_ptr(), stats.data_ptr(),
-                            M * Kp, Kp, B, H, int(gln), _stream(x))
+                            M * Kp, Kp, B, H, int(gln), bm, bn, _stream(x))
     _build.check(rc, "tcn_in_gemm")
     tcn_in_gemm.launches += 1
     return y1, stats
@@ -244,7 +276,7 @@ def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
     _require(w.shape == (P, H) and g1.shape == (H,) and b1.shape == (H,),
              "depthwise / norm1 parameter shapes do not match H")
     span = (P - 1) * dilation
-    _require(span <= 4096, f"conv span {span} exceeds the kernel's halo limit")
+    _require(span <= DWCONV_MAX_SPAN, f"conv span {span} exceeds the kernel's halo limit")
     gln = norm_type == "gLN"
     alpha1, alpha2 = alpha1.reshape(1), alpha2.reshape(1)
     if e is None:
@@ -354,7 +386,10 @@ def tcn_out_gemm(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k, fold,
     n2 = stats2.shape[1] if gln else stats2.shape[2]
     _require(stats2.shape[0] == M and (gln or stats2.shape[1] == Kp),
              "stats2 does not match e")
-    bm, bn = gemm_plan(M * Kp, B, H, _sm_count(e.device.index)) if dt == torch.bfloat16 else (0, 0)
+    idx = e.device.index
+    bm, bn = (gemm_plan(M * Kp, B, H, _sm_count(idx),
+                        resident=_resident(idx, H_FOLD if fold else H_UNFOLD))
+              if dt == torch.bfloat16 else (0, 0))
     rc = _lib().tcn_out_gemm(e.device.index, _DTYPES[dt], int(fold), e.data_ptr(),
                              stats2.data_ptr(), n2, wmat.data_ptr(), vec_a.data_ptr(),
                              vec_b.data_ptr(), res.data_ptr(), out.data_ptr(),

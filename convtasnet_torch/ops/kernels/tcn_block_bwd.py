@@ -7,6 +7,8 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
 
   KB1 tcn_bwd_dz:      dz = round(g @ out_w^T), partials of dg2, db2 and of
                        the norm2 backward sums (sum dz*g2, sum dz*g2*ehat);
+                       in bf16 on the TMA + wgmma pipeline, tiled by
+                       tcn_block.gemm_plan;
   KW  tcn_wgrad (z):   dout_w = z^T g, z = round(norm2(PReLU2(c)));
   KB2 tcn_bwd_dwconv:  de, dc = round(de * PReLU2'(c)), the depthwise
                        transpose db, partials of dw, dg1, db1, d_alpha2 and
@@ -42,16 +44,15 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .tcn_block import (_DTYPES, BM, BN, DW_ROWS, _check_cuda, _check_gemm_h, _check_widths,
-                        _moments, _prelu_f32, _require, _sm_count, _stream, gemm_plan)
-
-MAXP = 8            # depthwise taps KB2 holds in registers
-MAX_SPAN = 1024     # KB2's shared-memory windows: (32 + span) * 24 bytes
+from .limits import BWD_MAX_SPAN, BWD_MAXP
+from .tcn_block import (_DTYPES, BM, BN, DW_ROWS, H_DX, H_DZ, _check_cuda, _check_gemm_h,
+                        _check_widths, _moments, _prelu_f32, _require, _sm_count, _stream,
+                        card_resident, gemm_plan)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "tcn_bwd_dz": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_wgrad": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_wgrad_max_clusters": [_I, _I, _I],
@@ -60,6 +61,7 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_gemm_resident": [_I, _I, _I, _I],
 }
 
 
@@ -70,6 +72,11 @@ def _lib() -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes, f.restype = args, ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, mode: int) -> Tuple:
+    return card_resident(_lib(), index, mode)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -159,7 +166,11 @@ def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
 
 
 def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
-    """KB1. Same signature and results as bwd_dz_plain."""
+    """KB1. Same signature and results as bwd_dz_plain, with one colpart
+    row per row tile and norm2-backward partials per row and column tile
+    (cLN) or per CTA (gLN). bf16 runs on the TMA + wgmma pipeline (mode
+    H_DZ), tiled by tcn_block.gemm_plan with c and dz as the epilogue's
+    two tiles."""
     if g.device.type == "cpu":
         return bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k)
     M, Kp, B = g.shape
@@ -175,16 +186,19 @@ def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
     _check_cuda(g, stats2, alpha2, g2)
     _check_stats(stats2, M, Kp, gln, "stats2")
     _check_params(alpha2, g2)
-    nct = H // BN
+    idx = g.device.index
+    bm, bn = (gemm_plan(M * Kp, H, B, _sm_count(idx), resident=_resident(idx, H_DZ))
+              if dt == torch.bfloat16 else (BM, BN))
+    nct = H // bn
     dz = torch.empty((M, Kp, H), dtype=dt, device=g.device)
-    colpart = torch.empty((M * Kp // BM, 2, H), dtype=torch.float32, device=g.device)
-    npart = torch.empty((M, Kp // BM * nct, 2) if gln else (M, Kp, nct, 2),
+    colpart = torch.empty((M * Kp // bm, 2, H), dtype=torch.float32, device=g.device)
+    npart = torch.empty((M, Kp // bm * nct, 2) if gln else (M, Kp, nct, 2),
                         dtype=torch.float32, device=g.device)
     rc = _lib().tcn_bwd_dz(g.device.index, _DTYPES[dt], g.data_ptr(), out_wt.data_ptr(),
                            c.data_ptr(), stats2.data_ptr(), _n_parts(stats2, gln),
                            alpha2.data_ptr(), g2.data_ptr(), dz.data_ptr(),
                            colpart.data_ptr(), npart.data_ptr(), M * Kp, Kp, valid_k,
-                           B, H, int(gln), _stream(g))
+                           B, H, int(gln), bm, bn, _stream(g))
     _build.check(rc, "tcn_bwd_dz")
     _LAUNCHES["tcn_bwd_dz"] += 1
     return dz, colpart, npart
@@ -413,8 +427,8 @@ def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
     dt = y1.dtype
     _check_widths(Kp, BN, H, dt)
     _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
-    _require(P <= MAXP, f"P={P} exceeds the kernel's {MAXP} taps")
-    _require((P - 1) * dilation <= MAX_SPAN,
+    _require(P <= BWD_MAXP, f"P={P} exceeds the kernel's {BWD_MAXP} taps")
+    _require((P - 1) * dilation <= BWD_MAX_SPAN,
              f"conv span {(P - 1) * dilation} exceeds the kernel's halo limit")
     _require(c.shape == y1.shape and dz.shape == y1.shape and w.shape == (P, H)
              and g1.shape == (H,) and b1.shape == (H,) and g2.shape == (H,),
@@ -486,7 +500,8 @@ def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
     _check_stats(gs1, M, Kp, gln, "KB2 partials")
     _check_params(alpha1, g1)
     # bf16: one CTA per row tile covers every column (dy1 formed once).
-    bm, bn = (gemm_plan(M * Kp, B, H, _sm_count(db.device.index), split=False)
+    idx = db.device.index
+    bm, bn = (gemm_plan(M * Kp, B, H, _sm_count(idx), split=False, resident=_resident(idx, H_DX))
               if dt == torch.bfloat16 else (BM, BN))
     dx = torch.empty((M, Kp, B), dtype=dt, device=db.device)
     dy1 = torch.empty_like(db)

@@ -97,7 +97,8 @@ def test_unsupported_width_raises(dev):
 from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb  # noqa: E402
 from convtasnet_torch.ops.kernels.whole_block_hybrid import whole_block_hybrid  # noqa: E402
 from convtasnet_torch.ops.kernels.whole_block_vjp import whole_block_train  # noqa: E402
-from convtasnet_torch.ops.kernels.whole_tcn_hybrid import whole_tcn_train  # noqa: E402
+from convtasnet_torch.ops.kernels.whole_tcn_hybrid import (chain_save, whole_tcn_bwd,  # noqa: E402
+                                                          whole_tcn_train)
 
 
 def _rel_max(a, b):
@@ -179,7 +180,13 @@ def _op_grads(op, x, params, g, *static, plain):
 def test_training_ops_match_plain(dev, norm_type, causal, dtype, tol):
     """whole_tcn_train, whole_block_train and whole_block_hybrid: output and
     the eleven gradients (x and ten parameters) of the kernel run against
-    the plain run, relative L2."""
+    the plain run, relative L2. The whole-TCN op's gradients are held
+    against the plain backward of the kernel forward's residuals: through
+    its four blocks a change of 1e-4 in x moves the plain bf16 gradients by
+    3-4e-2 (PReLU's kinks, and its d_alpha sums cancel), so from two
+    forwards that round apart the end-to-end gradients differ by 1.8-5.3e-2
+    on the H100 (seeds 5-8, with K1 and KB1 on WMMA tiles or on wgmma
+    alike); the forward is held end to end through its output."""
     X, K, Kp = 2, 300, 384
     args = _blocks(2 * X, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -197,6 +204,10 @@ def test_training_ops_match_plain(dev, norm_type, causal, dtype, tol):
         got, gk = _op_grads(op, x, params, g, *static, plain=False)
         want, gp = _op_grads(op, x, params, g, *static, plain=True)
         assert _rel_l2(got, want) <= tol, op.__name__
+        if op is whole_tcn_train:
+            _, x_res, c_res, s2 = chain_save(x, *params, *static[:3], K)
+            gp = whole_tcn_bwd(g, x_res, c_res, s2, *params, *static[:3], K,
+                               tcn_block.in_gemm_plain, tbb.PLAIN_BWD)
         for i, (a, b) in enumerate(zip(gk, gp)):
             assert _rel_l2(a, b) <= tol, (op.__name__, i)
     counts = tbb.counts()
@@ -224,7 +235,8 @@ def test_backward_repeats_bit_for_bit(dev):
 # card's SM count 64-row tiles (and 128 columns for K3) at these row counts.
 # ---------------------------------------------------------------------------
 
-GEMM_WIDTHS = [(128, 256), (128, 512), (256, 256), (256, 512)]
+# (256, 1024): H at GEMM_MAX_H, the bf16 limit of K3 and KB3.
+GEMM_WIDTHS = [(128, 256), (128, 512), (256, 256), (256, 512), (256, 1024)]
 GEMM_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)]
 
 
@@ -337,3 +349,157 @@ def test_wgrad_matches_plain(dev, monkeypatch, plan, M, norm_type, B, H, dtype, 
             assert part.shape[0] == splits // cluster
             if plan == "one_sm":
                 assert part.shape[0] == 1
+
+
+# ---------------------------------------------------------------------------
+# K1 (tcn_in_gemm) and KB1 (tcn_bwd_dz) on the wgmma pipeline (bf16, modes
+# H_IN and H_DZ) and the SIMT tiles (f32), at each of the three tile plans:
+# with one CTA counted resident per SM, gemm_plan picks 128 x 256 on a card
+# of one SM, 64 x 256 when the 64-row tiles fit one wave, 64 x 128 on a card
+# of unbounded SMs.
+# ---------------------------------------------------------------------------
+
+IN_WIDTHS = [(128, 256), (128, 512), (128, 1024), (256, 256), (256, 512), (256, 1024)]
+
+
+def _plans(rows, B, H, io_tiles):
+    """{tile: SM count that makes gemm_plan pick it} for the three tiles."""
+    sms = {(128, 256): 1, (64, 256): rows // 64 * (H // 256), (64, 128): 10 ** 6}
+    for tile, n in sms.items():
+        assert tcn_block.gemm_plan(rows, H, B, n, io_tiles=io_tiles) == tile
+    return sms
+
+
+def _each_plan(monkeypatch, dtype, rows, B, H, io_tiles):
+    """Yields once per tile plan in bf16 (with _sm_count and the card's
+    occupancy patched to force it), once in f32 (the SIMT tiles take no
+    plan)."""
+    if dtype != torch.bfloat16:
+        yield None
+        return
+    for mod in (tcn_block, tbb):
+        monkeypatch.setattr(mod, "_resident", lambda index, mode: ())
+    for tile, n in _plans(rows, B, H, io_tiles).items():
+        monkeypatch.setattr(tcn_block, "_sm_count", lambda index, n=n: n)
+        monkeypatch.setattr(tbb, "_sm_count", lambda index, n=n: n)
+        yield tile
+
+
+@pytest.mark.parametrize("M", [5, 1])
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
+@pytest.mark.parametrize("B,H", IN_WIDTHS)
+@pytest.mark.parametrize("dtype,tol", GEMM_DTYPES)
+def test_in_gemm_matches_plain(dev, monkeypatch, M, norm_type, B, H, dtype, tol):
+    """K1 against its plain version at every tile plan: y1 (its rows >= K
+    stay zero: x's are), the statistics after their sum, into a fresh y1 and
+    into a given one; two launches give equal bytes."""
+    K, Kp = 300, 384
+    in_w, a1 = [a[0] for a in _blocks(1, B=B, H=H, device=dev)][:2]
+    gen = torch.Generator(device=dev).manual_seed(M * B + H)
+    x = torch.randn((M, Kp, B), generator=gen, device=dev)
+    x[:, K:] = 0
+    x, in_w = x.to(dtype), in_w.to(dtype)
+    red = 1 if norm_type == "gLN" else 2
+    y1p, s1p = tcn_block.in_gemm_plain(x, in_w, a1, norm_type)
+    for tile in _each_plan(monkeypatch, dtype, M * Kp, B, H, io_tiles=1):
+        y1k, s1k = tcn_block.tcn_in_gemm(x, in_w, a1, norm_type)
+        assert _rel_max(y1k, y1p) <= tol, tile
+        assert torch.all(y1k[:, K:] == 0), tile
+        assert _rel_max(s1k.sum(red), s1p.sum(red)) <= tol, tile
+        if tile is not None:
+            n = Kp // tile[0] * (H // tile[1])
+            assert s1k.shape == ((M, n, 2) if norm_type == "gLN" else (M, Kp, H // tile[1], 2))
+        given = torch.full_like(y1k, float("nan"))
+        y1g, s1g = tcn_block.tcn_in_gemm(x, in_w, a1, norm_type, given)
+        assert y1g.data_ptr() == given.data_ptr() and torch.equal(y1g, y1k), tile
+        assert torch.equal(s1g, s1k), tile
+
+
+@pytest.mark.parametrize("M", [5, 1])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("gLN", True), ("cLN", False),
+                                              ("cLN", True)])
+@pytest.mark.parametrize("B,H", IN_WIDTHS)
+@pytest.mark.parametrize("dtype,tol", GEMM_DTYPES)
+def test_bwd_dz_matches_plain(dev, monkeypatch, M, norm_type, causal, B, H, dtype, tol):
+    """KB1 against its plain version at every tile plan, with NaN in the
+    rows >= K of g and of c (the saved c's pad rows are not masked): dz
+    (those rows exact zeros), the dg2 / db2 column partials and the norm2
+    backward partials after their sum; two launches give equal bytes."""
+    d = _bwd_inputs(dev, dtype, norm_type, causal, 2, M=M, B=B, H=H)
+    K = d["K"]
+    red = 1 if norm_type == "gLN" else 2
+    out_wt = d["out_w"].t().contiguous()
+    g, c = d["g"].clone(), d["c"].clone()
+    g[:, K:] = float("nan")
+    c[:, K:] = float("nan")
+    args = (g, out_wt, c, d["s2"], d["a2"], d["g2"], norm_type, K)
+    dzp, colp, gs2p = tbb.bwd_dz_plain(*args)
+    for tile in _each_plan(monkeypatch, dtype, g.shape[0] * g.shape[1], B, H, io_tiles=2):
+        dzk, colk, gs2k = tbb.tcn_bwd_dz(*args)
+        assert _rel_max(dzk, dzp) <= tol, tile
+        assert torch.all(dzk[:, K:] == 0), tile
+        assert _rel_max(colk.sum(0), colp.sum(0)) <= tol, tile
+        assert _rel_max(gs2k.sum(red), gs2p.sum(red)) <= tol, tile
+        if tile is not None:
+            assert colk.shape == (g.shape[0] * g.shape[1] // tile[0], 2, H)
+        again = tbb.tcn_bwd_dz(*args)
+        assert all(torch.equal(u, v) for u, v in zip((dzk, colk, gs2k), again)), tile
+
+
+# ---------------------------------------------------------------------------
+# The depthwise kernels at their span limits (ops/kernels/limits.py): KB2's
+# span 1024 (X = 10, P = 3, dilation 512) and taps 8, K2's span 4096.
+# ---------------------------------------------------------------------------
+
+SPAN_CASES = [(3, 512, True), (8, 128, True), (3, 2048, False)]
+
+
+@pytest.mark.parametrize("P,dilation,backward", SPAN_CASES)
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+@pytest.mark.parametrize("dtype,tol", GEMM_DTYPES)
+def test_dwconv_kernels_at_the_span_limits(dev, P, dilation, backward, norm_type, causal,
+                                           dtype, tol):
+    """K2 (and its save mode) and, within KB2's limits, KB2 against their
+    plain versions at the largest span each takes."""
+    from convtasnet_torch.ops.kernels import limits
+
+    span = (P - 1) * dilation
+    assert span <= (limits.BWD_MAX_SPAN if backward else limits.DWCONV_MAX_SPAN)
+    M, B, H, K = 2, 128, 256, 2 * span + 100
+    Kp = -(-K // 128) * 128
+    in_w, a1, g1, b1, w, a2, g2, b2, out_w = [a[0] for a in _blocks(1, B=B, H=H, P=P,
+                                                                    device=dev)]
+    gen = torch.Generator(device=dev).manual_seed(P * dilation)
+    x = torch.randn((M, Kp, B), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(dtype)
+    red = 1 if norm_type == "gLN" else 2
+    y1, s1 = tcn_block.in_gemm_plain(x, in_w.to(dtype), a1, norm_type)
+    args = (y1, s1, a1, g1, b1, w, a2, norm_type, dilation, causal, K)
+    ek, s2k = tcn_block.tcn_dwconv(*args)
+    ep, s2p = tcn_block.dwconv_plain(*args)
+    assert _rel_max(ek, ep) <= tol and _rel_max(s2k.sum(red), s2p.sum(red)) <= tol
+    _, s2ks, ck = tcn_block.tcn_dwconv(*args, save=True)
+    _, s2, c = tcn_block.dwconv_plain(*args, save=True)
+    assert _rel_max(ck, c) <= tol and _rel_max(s2ks.sum(red), s2.sum(red)) <= tol
+    if not backward:
+        return
+    g = torch.randn((M, Kp, B), generator=gen, device=dev).to(dtype)
+    dz, _, gs2 = tbb.bwd_dz_plain(g, out_w.to(dtype).t().contiguous(), c, s2, a2, g2, norm_type,
+                                  K)
+    bargs = (y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm_type, dilation, causal, K)
+    dbk, chk, gs1k, da2k = tbb.tcn_bwd_dwconv(*bargs)
+    dbp, chp, gs1p, da2p = tbb.bwd_dwconv_plain(*bargs)
+    assert _rel_max(dbk, dbp) <= tol and _rel_max(chk.sum(0), chp.sum(0)) <= tol
+    assert _rel_max(gs1k.sum(red), gs1p.sum(red)) <= tol
+    assert _rel_max(da2k.sum(), da2p.sum()) <= max(tol, 2e-3)
+
+
+def test_gemm_occupancy_query(dev):
+    """The card's occupancy of every mode and tile of the wgmma template:
+    at least one CTA per SM (the plan divides by it)."""
+    for mod, modes in ((tcn_block, (tcn_block.H_FOLD, tcn_block.H_UNFOLD, tcn_block.H_IN)),
+                       (tbb, (tcn_block.H_DX, tcn_block.H_DZ))):
+        for mode in modes:
+            res = dict(mod._resident(torch.cuda.current_device(), mode))
+            assert set(res) == set(tcn_block.GEMM_TILES) and min(res.values()) >= 1, (mode, res)
