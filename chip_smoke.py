@@ -11,11 +11,14 @@
    32-block chains of both forms; then K1, K3 (fold and unfold, into a
    fresh tensor and in place), KB1 (NaN in the rows >= K of g and c) and
    KB3 at the test width (B=128, H=256, batch 3, K_pad=384) at every tile
-   plan of the bf16 wgmma kernels, with rows >= K exact zeros and two
-   launches giving equal bytes;
+   plan of the bf16 wgmma kernels, and K2 (both modes) and KB2 there, with
+   rows >= K exact zeros and two launches giving equal bytes; then K2 and
+   KB2 at the span and tap limits of ops/kernels/limits.py (K2 span 4096,
+   KB2 span 1024 and 8 taps) with NaN in the rows >= K they never read;
 4. training kernel phase: holds K2's save mode and the backward kernels
    (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, also with NaN in the rows
-   >= K of its second operand, KB2 tcn_bwd_dwconv, KB3 tcn_bwd_dx) against
+   >= K of its second operand, KB2 tcn_bwd_dwconv with NaN in the rows
+   >= K of c and dz, KB3 tcn_bwd_dx) against
    their plain versions at the training shapes (batch
    5 x 4 s, K=3199 padded to 3200), every dilation, gLN and cLN, causal
    and not, f32 and bf16; then the 32-block save-form chain and its
@@ -40,7 +43,9 @@
    version, one PyTorch call where there is one (torch.matmul of a GEMM
    kernel's product; F.conv1d / F.conv_transpose1d with groups=H of the
    depthwise kernels, cuDNN with TF32 off), and its roofline bound, and the
-   backward of each training op beside its plain version; KW's launch plan
+   backward of each training op beside its plain version; K2, K2 save and
+   KB2 also per dilation beside the cuDNN call, with their tile (and KB2's
+   f32 channel-partial bytes beside its bound); KW's launch plan
    and its Stage A time (the same splits, one partial per CTA) beside the
    plan's (Stage B: partials summed inside clusters). `ms`, `plain_ms`
    and `library_ms` are device time per call from torch.profiler (the
@@ -107,10 +112,14 @@ SOURCE_KW = "convtasnet_torch/csrc/tcn_wgrad_sm90.cuh"
 BWD_BLOCK = "convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py:64"
 GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "dout_w")
 # How each kernel is built (bf16, the main path's type).
-DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": "simt", "tcn_out_gemm_fold": "wgmma+tma",
-          "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": "simt", "tcn_bwd_dz": "wgmma+tma",
-          "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": "simt", "tcn_bwd_dx": "wgmma+tma",
-          "tcn_wgrad_in": "wgmma+tma"}
+# stencil+bulk: the staged stencil of csrc/tcn_dwconv_sm90.cuh (row boxes
+# by TMA bulk copies on mbarriers, 16-byte vectors, converted once per row).
+STENCIL = "stencil+bulk"
+DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": STENCIL, "tcn_out_gemm_fold": "wgmma+tma",
+          "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": STENCIL,
+          "tcn_bwd_dz": "wgmma+tma", "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": STENCIL,
+          "tcn_bwd_dx": "wgmma+tma", "tcn_wgrad_in": "wgmma+tma"}
+SOURCE_DW = "convtasnet_torch/csrc/tcn_dwconv_sm90.cuh"
 TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
                  "tcn_bwd_dx", "tcn_wgrad_in")
 
@@ -139,21 +148,24 @@ def cuda_ms(fn, iters=20, warm=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warm=3) -> float:
+def device_ms(fn, iters=20, warm=3, tries=3) -> float:
     """Device time per call: the device time of every kernel `fn`
-    launches, summed by torch.profiler over `iters` calls."""
+    launches, summed by torch.profiler over `iters` calls. A profile that
+    recorded no device time (it happens now and then on the H100) is taken
+    again, up to `tries` times."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def host_us(fn, iters=20) -> float:
@@ -279,6 +291,9 @@ def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
                         what = f"{'f32' if dt == torch.float32 else 'bf16'} {norm} causal={causal} {tiles}"
                         e, s2, c = tb.dwconv_plain(y1, s1, a1, g1, b1, w, a2, norm, 2, causal, K,
                                                    save=True)
+                        if sms is real[0]:  # K2 and KB2 take no SM count: once
+                            dw_checks(chk, what, (y1, s1, a1, g1, b1, w, a2, norm, 2, causal, K),
+                                      g, out_w.to(dt).t().contiguous(), g2, tol)
                         for fold in (True, False):
                             wm, va, vb = (tb.fold_weights(out_w, g2, b2, dt) if fold
                                           else (out_w.to(dt), g2, b2))
@@ -320,6 +335,81 @@ def gemm_width_phase(dev, M=3, Kp=384, K=300, B=128, H=256):
     finally:
         tb._sm_count = tbb._sm_count = real[0]
         tb._resident, tbb._resident = real[1:]
+    torch.cuda.synchronize()
+    chk.done()
+
+
+def dw_checks(chk, what, fargs, g, out_wt, g2, tol):
+    """K2 (both modes) and KB2 against their plain versions at one shape:
+    NaN in the rows >= K of K2's y1 and KB2's c and dz (never read), db's
+    rows >= K exact zeros, two launches equal bytes."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    from convtasnet_torch.ops.kernels.limits import BWD_MAX_SPAN, BWD_MAXP
+
+    y1, s1, a1, g1, b1, w, a2, norm, d, causal, K = fargs
+    red = (1,) if norm == "gLN" else (2,)
+    kargs = (nan_pad(y1, K),) + fargs[1:]
+    ep, s2p, cp = tb.dwconv_plain(*fargs, save=True)
+    ek, s2k = tb.tcn_dwconv(*kargs)
+    chk(f"K2 {what} d={d} e, NaN in y1's rows >= K", rel_max(ek, ep), tol)
+    chk(f"K2 {what} d={d} stats", rel_max(s2k.sum(red), s2p.sum(red)), tol)
+    got = tb.tcn_dwconv(*kargs, save=True)
+    chk(f"K2 save {what} d={d} c", rel_max(got[2], cp), tol)
+    chk(f"K2 save {what} d={d} e and stats as inference",
+        float(not (torch.equal(got[0], ek) and torch.equal(got[1], s2k))), 0.0)
+    chk(f"K2 save {what} d={d} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+        got, tb.tcn_dwconv(*kargs, save=True)))), 0.0)
+    P = w.shape[0]
+    if P > BWD_MAXP or (P - 1) * d > BWD_MAX_SPAN:
+        return
+    dz, _, gs2 = tbb.bwd_dz_plain(g, out_wt, cp, s2p, a2, g2, norm, K)
+    tail = (s2p, gs2, a1, g1, b1, w, a2, g2, norm, d, causal, K)
+    want = tbb.bwd_dwconv_plain(y1, cp, dz, s1, *tail)
+    nargs = (y1, nan_pad(cp, K), nan_pad(dz, K), s1) + tail
+    got = tbb.tcn_bwd_dwconv(*nargs)
+    chk(f"KB2 {what} d={d} db, NaN in c's and dz's rows >= K", rel_max(got[0], want[0]), tol)
+    chk(f"KB2 {what} d={d} db pad rows zero", float(got[0][:, K:].abs().max()), 0.0)
+    chk(f"KB2 {what} d={d} dw/dg1/db1", rel_max(got[1].sum(0), want[1].sum(0)), tol)
+    chk(f"KB2 {what} d={d} norm1 sums", rel_max(got[2].sum(red), want[2].sum(red)), tol)
+    chk(f"KB2 {what} d={d} d_alpha2", rel_max(got[3].sum(), want[3].sum()),
+        max(tol, TOL_ALPHA_F32))
+    chk(f"KB2 {what} d={d} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+        got, tbb.tcn_bwd_dwconv(*nargs)))), 0.0)
+
+
+def span_limit_phase(dev, M=2, B=128, H=512):
+    """K2 and KB2 at the largest spans and taps the limits admit
+    (ops/kernels/limits.py): K2 span 4096 (P=3, d=2048), KB2 span 1024 (P=3,
+    d=512) and 8 taps (d=128), f32 and bf16, gLN non-causal and cLN causal,
+    with K = 2 * span + 99 (not a multiple of any tile's rows)."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb
+    from convtasnet_torch.ops.kernels.limits import BWD_MAX_SPAN, BWD_MAXP, DWCONV_MAX_SPAN
+
+    chk = Checks("span-limit phase")
+    log("span-limit phase (K2 / KB2 vs plain at the limits):")
+    for P, d in ((3, DWCONV_MAX_SPAN // 2), (3, BWD_MAX_SPAN // 2), (BWD_MAXP, 128)):
+        span = (P - 1) * d
+        K = 2 * span + 99
+        Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+        gen = torch.Generator(device=dev).manual_seed(P * d)
+
+        def rnd(*shape, scale=1.0, shift=0.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+        in_w, out_w = rnd(B, H, scale=0.1), rnd(H, B, scale=0.1)
+        a1 = a2 = torch.full((1,), 0.25, device=dev)
+        g1, b1, g2 = rnd(H, scale=0.1, shift=1.0), rnd(H, scale=0.1), rnd(H, scale=0.1, shift=1.0)
+        w = rnd(P, H, scale=0.3)
+        x32 = rnd(M, Kp, B)
+        x32[:, K:] = 0
+        g32 = rnd(M, Kp, B)
+        for dt in (torch.float32, torch.bfloat16):
+            tol = TOL_F32 if dt == torch.float32 else TOL_BF16
+            for norm, causal in (("gLN", False), ("cLN", True)):
+                y1, s1 = tb.in_gemm_plain(x32.to(dt), in_w.to(dt), a1, norm)
+                what = f"{'f32' if dt == torch.float32 else 'bf16'} {norm} causal={causal} P={P}"
+                dw_checks(chk, what, (y1, s1, a1, g1, b1, w, a2, norm, d, causal, K), g32.to(dt),
+                          out_w.to(dt).t().contiguous(), g2, tol)
     torch.cuda.synchronize()
     chk.done()
 
@@ -400,9 +490,22 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                             rel_max(tbb.tcn_wgrad(c, nan_pad(g, K), K, z).sum(0), wp), tol)
                         err("tcn_wgrad_out", wk, wp, dt)
                     bargs = (y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, d, causal, K)
-                    dbk, chpk, gs1k, da2k = tbb.tcn_bwd_dwconv(*bargs)
+                    # the kernel never reads c's and dz's rows >= K: NaN there
+                    nargs = (y1, nan_pad(c, K), nan_pad(dz, K)) + bargs[3:]
+                    dbk, chpk, gs1k, da2k = tbb.tcn_bwd_dwconv(*nargs)
                     db, chp, gs1, da2 = tbb.bwd_dwconv_plain(*bargs)
-                    chk(f"KB2 {what} db", rel_max(dbk, db), tol)
+                    if dt == torch.bfloat16 and norm == "gLN" and not causal:
+                        log(f"  tiles at d={d}: K2 {tuple(tb.dw_plan(cfg.P, d, cfg.H, 2)[:3])}, "
+                            f"KB2 {tuple(tb.dw_plan(cfg.P, d, cfg.H, 2, True)[:3])} "
+                            "(rows, channels, lanes)")
+                    chk(f"KB2 {what} db, NaN in c's and dz's rows >= K", rel_max(dbk, db), tol)
+                    chk(f"KB2 {what} db pad rows zero", float(dbk[:, K:].abs().max()), 0.0)
+                    if ends:
+                        chk(f"K2 save {what} repeat", float(sum(not torch.equal(u, v) for u, v in
+                                                                zip((s2k, ck), tb.tcn_dwconv(
+                                                                    *args, save=True)[1:]))), 0.0)
+                        chk(f"KB2 {what} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+                            (dbk, chpk, gs1k, da2k), tbb.tcn_bwd_dwconv(*nargs)))), 0.0)
                     chk(f"KB2 {what} dw/dg1/db1", rel_max(chpk.sum(0), chp.sum(0)), tol)
                     chk(f"KB2 {what} norm1 sums", rel_max(gs1k.sum(red), gs1.sum(red)), tol)
                     chk(f"KB2 {what} d_alpha2", rel_max(da2k.sum(), da2.sum()),
@@ -649,10 +752,14 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
         f = tbb.bwd_dwconv_plain if plain else tbb.tcn_bwd_dwconv
         f(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, d, cfg.causal, K)
 
+    def kb2_chpart(d):
+        return rows // tb.dw_plan(P, d, H, it, backward=True).rows * (P + 2) * H * 4
+
     return {
         "tcn_dwconv_save": dict(
-            source=SOURCE, replaces=WHOLE_TCN, kernel=per_dilation(dws),
+            source=SOURCE_DW, replaces=WHOLE_TCN, kernel=per_dilation(dws),
             plain=per_dilation(dws, plain=True), library=per_dilation(conv), per=cfg.X,
+            per_d=dict(kernel=dws, library=conv, plan=lambda d: tb.dw_plan(P, d, H, it)),
             bytes=3 * rows * H * it + (s1.numel() + s2.numel()) * 4 + (P + 2) * H * 4,
             flops=rows * H * (2.0 * P + 12)),
         "tcn_bwd_dz": dict(
@@ -671,9 +778,14 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             library=lambda: torch.matmul(c.view(rows, H).t(), g.view(rows, B)),
             bytes=rows * (B + H) * it + H * B * 4, flops=gemm, per=1),
         "tcn_bwd_dwconv": dict(
-            source=SOURCE_BWD, replaces=BWD_BLOCK, kernel=per_dilation(kb2),
+            source=SOURCE_DW, replaces=BWD_BLOCK, kernel=per_dilation(kb2),
             plain=per_dilation(kb2, plain=True), library=per_dilation(conv, transpose=True),
             per=cfg.X,
+            # the bound is the work's bytes; the f32 channel partials the
+            # tile writes (and block_bwd sums back) are logged beside it
+            per_d=dict(kernel=kb2, library=lambda d: conv(d, transpose=True),
+                       plan=lambda d: tb.dw_plan(P, d, H, it, backward=True),
+                       chpart_bytes=kb2_chpart),
             bytes=4 * rows * H * it + (s1.numel() + s2.numel() + gs2.numel()) * 4
             + (2 * P + 4) * H * 4, flops=rows * H * (4.0 * P + 30)),
         "tcn_bwd_dx": dict(
@@ -864,6 +976,7 @@ def main() -> int:
     chk.done()
 
     gemm_width_phase(dev)
+    span_limit_phase(dev)
 
     # ---- training kernel phase ---------------------------------------------
     train_errs = train_kernel_phase(blocks, stacked, cfg, dev)
@@ -977,12 +1090,15 @@ def main() -> int:
     out = torch.empty_like(x)
     rows, it = M * Kp, 2
 
+    def dw_one(fn, d):
+        fn(y1, s1, a1, blocks["in_gamma"][nb], blocks["in_beta"][nb], blocks["dw_w"][nb], a2,
+           norm, d, cfg.causal, K)
+
     def dw_all(fn):
         # One launch per dilation of a repeat (the chain's mix of halos).
         def run():
             for xi in range(cfg.X):
-                fn(y1, s1, a1, blocks["in_gamma"][nb], blocks["in_beta"][nb],
-                   blocks["dw_w"][nb], a2, norm, 2 ** xi, cfg.causal, K)
+                dw_one(fn, 2 ** xi)
         return run
 
     # K2's conv alone: one cuDNN depthwise F.conv1d per dilation on a
@@ -990,11 +1106,13 @@ def main() -> int:
     y1_t = y1.transpose(1, 2).contiguous()
     w_t = blocks["dw_w"][nb].t().contiguous().unsqueeze(1).to(dt)
 
+    def conv_one(d):
+        F.conv1d(y1_t, w_t, groups=H, dilation=d,
+                 padding=(P - 1) * d if cfg.causal else (P - 1) * d // 2)
+
     def conv_all():
         for xi in range(cfg.X):
-            d = 2 ** xi
-            F.conv1d(y1_t, w_t, groups=H, dilation=d,
-                     padding=(P - 1) * d if cfg.causal else (P - 1) * d // 2)
+            conv_one(2 ** xi)
 
     gemm_flops = 2.0 * rows * B * H
     specs = {
@@ -1006,8 +1124,10 @@ def main() -> int:
             bytes=(rows * B + B * H + rows * H) * it + s1.numel() * 4,
             flops=gemm_flops, per=1),
         "tcn_dwconv": dict(
-            replaces=WHOLE_TCN,
+            replaces=WHOLE_TCN, source=SOURCE_DW,
             kernel=dw_all(tb.tcn_dwconv), plain=dw_all(tb.dwconv_plain), library=conv_all,
+            per_d=dict(kernel=lambda d: dw_one(tb.tcn_dwconv, d), library=conv_one,
+                       plan=lambda d: tb.dw_plan(P, d, H, it)),
             bytes=(2 * rows * H * it + s1.numel() * 4 + s2.numel() * 4 + (P + 2) * H * 4),
             flops=rows * H * (2.0 * P + 12), per=cfg.X),
         "tcn_out_gemm_fold": dict(
@@ -1042,6 +1162,26 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
 
+    def per_dilation_times(name, s, shape):
+        """Device ms per launch of the kernel and of the cuDNN call at each
+        dilation of the chain (the mean hides the worst), with the tile."""
+        rows_ = []
+        t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3  # per launch, as measure()
+        for xi in range(cfg.X):
+            d = 2 ** xi
+            pd = s["per_d"]
+            row = {"dilation": d, "tile": list(pd["plan"](d)[:3]),
+                   "ms": device_ms(lambda: pd["kernel"](d)),
+                   "library_ms": device_ms(lambda: pd["library"](d))}
+            if "chpart_bytes" in pd:
+                row["chpart_bytes"] = pd["chpart_bytes"](d)
+            rows_.append(row)
+            extra = f", chpart {row['chpart_bytes']} B" if "chpart_bytes" in row else ""
+            log(f"    {name} d={d}: {row['ms']:.4f} ms (cuDNN {row['library_ms']:.4f}, bound "
+                f"{t_bytes:.4f} by bytes; tile rows x channels x lanes {row['tile']}{extra}) "
+                f"at {shape}")
+        return rows_
+
     def report(name, t, shape):
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"  {name} ({DESIGN[name]}): {t['ms']:.4f} ms/launch on the device (plain "
@@ -1051,14 +1191,17 @@ def main() -> int:
     kernels = []
     for name, s in specs.items():
         t = measure(s)
+        shape = f"M={M}, K_pad={Kp}, B={B}, H={H}"
+        if "per_d" in s:
+            t["per_dilation"] = per_dilation_times(name, s, shape)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "design": DESIGN[name],
-            "replaces": s["replaces"],
+            "name": name, "route": "cuda", "source": s.get("source", SOURCE),
+            "design": DESIGN[name], "replaces": s["replaces"],
             "launches": path_counts[path_of[name]][name],
             "path": f"separate --use_kernels {path_of[name]}",
             "max_abs_err": errs[name], **t,
         })
-        report(name, t, f"M={M}, K_pad={Kp}, B={B}, H={H}")
+        report(name, t, shape)
     M5, rows5 = 5, 5 * Kp
     for name, s in train_kernel_specs(blocks, cfg, dev, M=M5, K=K).items():
         t = measure(s)
@@ -1067,6 +1210,8 @@ def main() -> int:
             t["stage_a_ms"] = device_ms(s["stage_a"])
             log(f"  {name}: Stage A {t['stage_a_ms']:.4f} ms, Stage B {t['ms']:.4f} ms per "
                 "tcn_wgrad(...).sum(0) call")
+        if "per_d" in s:
+            t["per_dilation"] = per_dilation_times(name, s, f"M={M5}, K_pad={Kp}, H={H}")
         kernels.append({
             "name": name, "route": "cuda", "source": s["source"], "design": DESIGN[name],
             "replaces": s["replaces"], "launches": train_counts[name],

@@ -3,7 +3,8 @@
 // (tcn_block_bwd.cu): mbarriers, TMA loads and stores (cp.async.bulk.tensor),
 // wgmma with A from shared memory (SS, K- or MN-major) or registers (RS),
 // ldmatrix / stmatrix on 128-byte swizzled tiles, cluster barriers and
-// distributed shared memory, and the host-side tensor maps. Raw PTX only:
+// distributed shared memory, and the host-side tensor maps (also the
+// unswizzled row boxes of K2 / KB2, tcn_dwconv_sm90.cuh). Raw PTX only:
 // no CUTLASS header, so a build stays a matter of seconds.
 //
 // Shared-memory tile layout (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
@@ -392,6 +393,40 @@ static inline bool tensor_map(CUtensorMap* out, const void* ptr, int rows, int c
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   if (cache.size() >= 4096) cache.clear();  // bounds the cache; entries are cheap to remake
+  cache.emplace(key, m);
+  *out = m;
+  return true;
+}
+
+// Tensor map of a row-major [rows, cols] matrix of bf16 (or f32) with a box
+// of [box_rows, box_cols] and no swizzle: a box lands in shared memory as
+// dense rows of box_cols elements. Coordinates outside the matrix read as
+// zero. Cached like tensor_map.
+static inline bool tensor_map_rows(CUtensorMap* out, const void* ptr, bool f32, int rows,
+                                   int cols, int box_rows, int box_cols) {
+  using Key = std::tuple<const void*, bool, int, int, int, int>;
+  static std::map<Key, CUtensorMap> cache;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  const Key key{ptr, f32, rows, cols, box_rows, box_cols};
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return true;
+  }
+  EncodeTiledFn fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  CUtensorMap m;
+  if (fn(&m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+         const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, m);
   *out = m;
   return true;

@@ -32,12 +32,15 @@
 // tcn_gemm_sm90.cuh (modes H_IN, H_FOLD, H_UNFOLD): a ring of TMA loads in
 // flight, the epilogue from the accumulator registers, the tile leaving by
 // TMA store. In f32 both keep plain shared-memory tiles (SIMT FMA, no
-// pipeline), so f32 stays exact where TF32 would not be; K2 reads each y1
-// row P times through L1.
+// pipeline), so f32 stays exact where TF32 would not be. K2, in both types,
+// is the staged stencil of tcn_dwconv_sm90.cuh: the y1 rows its taps reach
+// arrive as TMA boxes, become b once per row in shared memory, and every
+// access is a 16-byte vector.
 #include <cstdint>
 #include <type_traits>
 
 #include "tcn_block.cuh"
+#include "tcn_dwconv_sm90.cuh"
 #include "tcn_gemm_sm90.cuh"
 
 namespace tcn {
@@ -201,109 +204,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   }
 }
 
-struct DwArgs {
-  const void* y1;         // [M, kpad, H]
-  const float* stats1;    // K1 partials: n1 pairs per item (gLN) / per row (cLN)
-  int n1;
-  const float* alpha1;
-  const float* g1;        // [H]
-  const float* b1;        // [H]
-  const float* w;         // [P, H] f32
-  const float* alpha2;
-  void* e;                // [M, kpad, H]
-  void* c;                // save mode: conv output before PReLU2 [M, kpad, H]
-                          // (rounded, pad rows not masked); null otherwise
-  float* stats2;          // gLN: [M, kpad / DW_ROWS] pairs; cLN: [M * kpad] pairs
-  int kpad, k_valid, H, P, dilation, left, gln;
-};
-
-// Grid M * kpad / DW_ROWS, DW_THREADS threads; dynamic shared memory holds
-// the norm1 moments of the CTA's rows plus the conv halo.
-template <typename T>
-__global__ void __launch_bounds__(DW_THREADS) dwconv_kernel(DwArgs g) {
-  extern __shared__ float2 mom[];  // [DW_ROWS + span]
-  __shared__ float2 red[DW_THREADS / 32];
-  const int row0 = blockIdx.x * DW_ROWS;
-  const int item = row0 / g.kpad, k0 = row0 % g.kpad;
-  const int span = (g.P - 1) * g.dilation;
-  const int nhalo = DW_ROWS + span;
-  const size_t ibase = (size_t)item * g.kpad;
-
-  if (g.gln) {
-    const float2 t = reduce_partials(g.stats1 + 2 * (size_t)item * g.n1, g.n1, red);
-    const float2 mm = moments(t.x, t.y, (float)g.k_valid * (float)g.H);
-    for (int i = threadIdx.x; i < nhalo; i += blockDim.x) mom[i] = mm;
-  } else {
-    for (int i = threadIdx.x; i < nhalo; i += blockDim.x) {
-      const int src = k0 - g.left + i;
-      float2 mm = make_float2(0.f, 0.f);
-      if (src >= 0 && src < g.k_valid) {
-        const float* p = g.stats1 + 2 * (ibase + src) * g.n1;
-        float s = 0.f, ss = 0.f;
-        for (int q = 0; q < g.n1; ++q) {
-          s += p[2 * q];
-          ss += p[2 * q + 1];
-        }
-        mm = moments(s, ss, (float)g.H);
-      }
-      mom[i] = mm;
-    }
-  }
-  __syncthreads();
-
-  const T* y1 = static_cast<const T*>(g.y1);
-  T* e = static_cast<T*>(g.e);
-  const float a1 = *g.alpha1, a2 = *g.alpha2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float ts = 0.f, tss = 0.f;
-  for (int rr = warp; rr < DW_ROWS; rr += DW_THREADS / 32) {
-    const int k = k0 + rr;
-    const bool valid = k < g.k_valid;
-    float rs = 0.f, rss = 0.f;
-    for (int c = lane; c < g.H; c += 32) {
-      const float gc = g.g1[c], bc = g.b1[c];
-      float acc = 0.f;
-      for (int p = 0; p < g.P; ++p) {
-        const int src = k - g.left + p * g.dilation;
-        if (src < 0 || src >= g.k_valid) continue;  // zero halo / pad rows
-        const float2 mm = mom[rr + p * g.dilation];
-        const float a = prelu(to_f(y1[(ibase + src) * g.H + c]), a1);
-        const float b = round_dt<T>(gc * ((a - mm.x) * mm.y) + bc);
-        acc += b * g.w[p * g.H + c];
-      }
-      const float ev = prelu(acc, a2);
-      e[(ibase + k) * g.H + c] = from_f<T>(ev);
-      if (g.c) static_cast<T*>(g.c)[(ibase + k) * g.H + c] = from_f<T>(acc);
-      if (valid) {
-        rs += ev;
-        rss += ev * ev;
-      }
-    }
-    if (g.gln) {
-      ts += rs;
-      tss += rss;
-    } else {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        rss += __shfl_xor_sync(0xffffffffu, rss, off);
-      }
-      if (lane == 0) {
-        float* p = g.stats2 + 2 * (ibase + k);
-        p[0] = rs;
-        p[1] = rss;
-      }
-    }
-  }
-  if (g.gln) {
-    const float2 t = block_sum2(ts, tss, red);
-    if (threadIdx.x == 0) {
-      g.stats2[2 * blockIdx.x] = t.x;
-      g.stats2[2 * blockIdx.x + 1] = t.y;
-    }
-  }
-}
-
 template <typename T, int MODE>
 static cudaError_t launch_gemm(const GemmArgs& g, int rows, cudaStream_t s) {
   dim3 grid(rows / BM, g.ncols / BN);
@@ -365,24 +265,26 @@ extern "C" int tcn_gemm_resident(int device, int mode, int bm, int bn) {
   return -1;
 }
 
+// (br, lanes, staged, chunk, stages, smem): the tile plan of
+// tcn_block.dw_plan.
 extern "C" int tcn_dwconv(int device, int dtype, const void* y1, const float* stats1,
                           int n1, const float* alpha1, const float* g1, const float* b1,
                           const float* w, const float* alpha2, void* e, void* c,
                           float* stats2, int M, int kpad, int k_valid, int H, int P,
-                          int dilation, int causal, int gln, void* stream) {
+                          int dilation, int causal, int gln, int br, int lanes, int staged,
+                          int chunk, int stages, int smem, void* stream) {
   cudaSetDevice(device);
-  DwArgs g{y1, stats1, n1, alpha1, g1, b1, w, alpha2, e, c, stats2,
-           kpad, k_valid, H, P, dilation, 0, gln};
   const int span = (P - 1) * dilation;
-  g.left = causal ? span : span / 2;
-  const size_t smem = (DW_ROWS + span) * sizeof(float2);
+  DwArgs g{stats1, n1, alpha1, g1, b1, w, alpha2, e, c, stats2, M, kpad, k_valid, H, P,
+           dilation, causal ? span : span / 2, gln,
+           DwTile{br, lanes, staged, chunk, stages}};
+  if (stages < 1 || stages > DW_MAX_STAGES) return cudaErrorInvalidValue;
+  DwMaps m;
+  if (!hop::tensor_map_rows(&m.a, y1, dtype == 0, M * kpad, H, DW_BOX, lanes * (dtype ? 8 : 4)))
+    return cudaErrorInvalidValue;
+  m.b = m.c = m.a;  // unused
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = M * kpad / DW_ROWS;
-  if (dtype)
-    dwconv_kernel<bf16><<<grid, DW_THREADS, smem, s>>>(g);
-  else
-    dwconv_kernel<float><<<grid, DW_THREADS, smem, s>>>(g);
-  return cudaGetLastError();
+  return dtype ? dwconv_sm90<bf16>(m, g, smem, s) : dwconv_sm90<float>(m, g, smem, s);
 }
 
 // bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;

@@ -16,8 +16,7 @@ constexpr int BM = 64;            // GEMM rows (frames) per CTA
 constexpr int BN = 128;           // GEMM output columns per CTA
 constexpr int BK = 32;            // GEMM depth per main-loop step
 constexpr int GEMM_THREADS = 256;
-constexpr int DW_ROWS = 32;       // depthwise-kernel rows per CTA
-constexpr int DW_THREADS = 256;
+constexpr int DW_THREADS = 256;   // K2 / KB2 threads per CTA (tile rows: dw_plan)
 constexpr float EPS = 1e-8f;      // inside the power, as the reference
 
 __device__ __forceinline__ float to_f(float v) { return v; }

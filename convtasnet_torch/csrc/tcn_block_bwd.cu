@@ -16,11 +16,11 @@
 //                       c; split over ranges of rows
 //   KB2 tcn_bwd_dwconv  de = round(inv2*(dz*g2 - mean(dz*g2)
 //                       - ehat*mean(dz*g2*ehat))), dc = round(de*PReLU2'(c))
-//                       (recomputed for the conv halo rows), the depthwise
-//                       transpose db[j] = round(sum_p w[p]*dc[j+left-p*d]),
-//                       partials of dw[p] = sum_k dc[k]*b[k-left+p*d]
-//                       (b recomputed from y1), dg1, db1, d_alpha2 and of the
-//                       norm1 backward sums
+//                       (staged once per row of the conv window), the
+//                       depthwise transpose db[j] = round(sum_p w[p]*
+//                       dc[j+left-p*d]), partials of dw[p] = sum_j b[j]*
+//                       dc[j+left-p*d] (b from the own rows of y1), dg1, db1,
+//                       d_alpha2 and of the norm1 backward sums
 //   KB3 tcn_bwd_dx      da and dy1 = round(da*PReLU1'(y1)) formed in the
 //                       A-operand prologue (stored, with the d_alpha1
 //                       partials), dx = round(round(dy1 @ in_w^T) + g), rows
@@ -53,18 +53,18 @@
 // covers all B columns of its rows, so dy1 is formed once per row), KW in
 // bf16 on its own TMA + wgmma kernel (tcn_wgrad_sm90.cuh: reduction over
 // the rows, split partials summed inside a cluster). In f32, KB1, KB3 and
-// KW keep the SIMT shared-memory tiles of the forward, with no pipeline;
-// KB2 recomputes each halo row of dc and b P times through L1.
+// KW keep the SIMT shared-memory tiles of the forward, with no pipeline.
+// KB2, in both types, is the staged stencil of tcn_dwconv_sm90.cuh.
 #include <cstdint>
 #include <type_traits>
 
 #include "tcn_block.cuh"
+#include "tcn_dwconv_sm90.cuh"
 #include "tcn_gemm_sm90.cuh"
 #include "tcn_wgrad_sm90.cuh"
 
 namespace tcn {
 
-constexpr int MAXP = 8;           // depthwise taps held in registers by KB2
 constexpr int MAX_CHUNK = 1024;   // rows per split of tcn_wgrad
 
 // ---------------------------------------------------------------------------
@@ -303,200 +303,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) wgrad_kernel(WgArgs g) {
 }
 
 // ---------------------------------------------------------------------------
-// KB2: norm2 / PReLU2 backward, depthwise transpose, partials of dw, dg1,
-// db1, d_alpha2 and of the norm1 backward sums.
-// Grid M * kpad / DW_ROWS, DW_THREADS threads, one thread per channel (a
-// stride of DW_THREADS), the CTA's DW_ROWS rows in a loop. Dynamic shared
-// memory holds per-row terms of two windows of DW_ROWS + span rows:
-//   dc window, rows k0 + left - span + i: (mean2, inv2, mean(dz*g2),
-//     mean(dz*g2*ehat)) (float4);
-//   b window,  rows k0 - left + i: (mean1, inv1) (float2).
-// Rows outside [0, K) hold zeros and are never read.
-// ---------------------------------------------------------------------------
-struct DwbArgs {
-  const void* y1;        // [rows, H]
-  const void* c;         // [rows, H]
-  const void* dz;        // [rows, H]
-  const float* stats1;   // K1 partials of a: n1 pairs per item / row
-  int n1;
-  const float* stats2;   // K2 partials of e
-  int n2;
-  const float* gs2;      // KB1 partials of (sum dz*g2, sum dz*g2*ehat)
-  int ng2;
-  const float* alpha1;
-  const float* g1;
-  const float* b1;
-  const float* w;        // [P, H]
-  const float* alpha2;
-  const float* g2;
-  void* db;              // [rows, H]
-  float* chpart;         // [rows / DW_ROWS, P + 2, H]: dw[0..P), dg1, db1
-  float* gs1;            // gLN [rows / DW_ROWS] pairs; cLN [rows] pairs
-  float* da2part;        // [rows / DW_ROWS]
-  int kpad, k_valid, H, P, dilation, left, gln;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(DW_THREADS) bwd_dwconv_kernel(DwbArgs g) {
-  constexpr int NW = DW_THREADS / 32;
-  extern __shared__ float4 win2[];  // [nh] dc window, then [nh] float2 b window
-  __shared__ float2 red[NW];
-  __shared__ float2 rowred[DW_ROWS][NW];
-  const int row0 = blockIdx.x * DW_ROWS;
-  const int item = row0 / g.kpad, k0 = row0 % g.kpad;
-  const int span = (g.P - 1) * g.dilation;
-  const int nh = DW_ROWS + span;
-  float2* win1 = reinterpret_cast<float2*>(win2 + nh);
-  const size_t ibase = (size_t)item * g.kpad;
-  const float n_g = (float)g.k_valid * (float)g.H;
-  const int d0 = k0 + g.left - span;  // first row of the dc window
-  const int b0 = k0 - g.left;         // first row of the b window
-
-  if (g.gln) {
-    const float2 t1 = reduce_partials(g.stats1 + 2 * (size_t)item * g.n1, g.n1, red);
-    const float2 t2 = reduce_partials(g.stats2 + 2 * (size_t)item * g.n2, g.n2, red);
-    const float2 tg = reduce_partials(g.gs2 + 2 * (size_t)item * g.ng2, g.ng2, red);
-    const float2 m1 = moments(t1.x, t1.y, n_g), m2 = moments(t2.x, t2.y, n_g);
-    const float4 m2g = make_float4(m2.x, m2.y, tg.x / n_g, tg.y / n_g);
-    for (int i = threadIdx.x; i < nh; i += blockDim.x) {
-      win2[i] = m2g;
-      win1[i] = m1;
-    }
-  } else {
-    const float n_c = (float)g.H;
-    for (int i = threadIdx.x; i < nh; i += blockDim.x) {
-      float4 m2g = make_float4(0.f, 0.f, 0.f, 0.f);
-      int src = d0 + i;
-      if (src >= 0 && src < g.k_valid) {
-        const float2 t2 = sum_pairs(g.stats2 + 2 * (ibase + src) * g.n2, g.n2);
-        const float2 tg = sum_pairs(g.gs2 + 2 * (ibase + src) * g.ng2, g.ng2);
-        const float2 m2 = moments(t2.x, t2.y, n_c);
-        m2g = make_float4(m2.x, m2.y, tg.x / n_c, tg.y / n_c);
-      }
-      win2[i] = m2g;
-      float2 m1 = make_float2(0.f, 0.f);
-      src = b0 + i;
-      if (src >= 0 && src < g.k_valid) {
-        const float2 t1 = sum_pairs(g.stats1 + 2 * (ibase + src) * g.n1, g.n1);
-        m1 = moments(t1.x, t1.y, n_c);
-      }
-      win1[i] = m1;
-    }
-  }
-  __syncthreads();
-
-  const T* y1 = static_cast<const T*>(g.y1);
-  const T* cin = static_cast<const T*>(g.c);
-  const T* dz = static_cast<const T*>(g.dz);
-  T* db = static_cast<T*>(g.db);
-  const float a1 = *g.alpha1, a2 = *g.alpha2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  float rsa[DW_ROWS], rsb[DW_ROWS];
-#pragma unroll
-  for (int rr = 0; rr < DW_ROWS; ++rr) rsa[rr] = rsb[rr] = 0.f;
-  float da2acc = 0.f;
-
-  for (int ch = threadIdx.x; ch < g.H; ch += blockDim.x) {
-    const float gc1 = g.g1[ch], bc1 = g.b1[ch], gc2 = g.g2[ch];
-    float wv[MAXP], dwacc[MAXP];
-#pragma unroll
-    for (int p = 0; p < MAXP; ++p) {
-      wv[p] = p < g.P ? g.w[p * g.H + ch] : 0.f;
-      dwacc[p] = 0.f;
-    }
-    float dg1acc = 0.f, db1acc = 0.f;
-    // de and dc of a row src in [0, K), channel ch.
-    auto dcde = [&](int src, float& de, float& cf) -> float {
-      const float4 m = win2[src - d0];
-      const size_t idx = (ibase + src) * g.H + ch;
-      cf = to_f(cin[idx]);
-      const float ehat = (prelu(cf, a2) - m.x) * m.y;
-      const float dzg = to_f(dz[idx]) * gc2;
-      de = round_dt<T>(m.y * (dzg - m.z - ehat * m.w));
-      return round_dt<T>(de * dprelu(cf, a2));
-    };
-#pragma unroll 1
-    for (int rr = 0; rr < DW_ROWS; ++rr) {
-      const int k = k0 + rr;
-      const bool valid = k < g.k_valid;
-      // db[k] = sum_p w[p] * dc[k + left - p*d]
-      float acc = 0.f;
-#pragma unroll
-      for (int p = 0; p < MAXP; ++p) {
-        if (p >= g.P) break;
-        const int src = k + g.left - p * g.dilation;
-        if (src < 0 || src >= g.k_valid) continue;  // dc is zero there
-        float de, cf;
-        acc += wv[p] * dcde(src, de, cf);
-      }
-      const float dbv = valid ? round_dt<T>(acc) : 0.f;
-      db[(ibase + k) * g.H + ch] = from_f<T>(dbv);
-      // norm1 backward terms of row k
-      const float2 m1 = win1[k - b0];
-      const float ahat = (prelu(to_f(y1[(ibase + k) * g.H + ch]), a1) - m1.x) * m1.y;
-      dg1acc += dbv * ahat;
-      db1acc += dbv;
-      const float dbg = dbv * gc1;
-      rsa[rr] += dbg;
-      rsb[rr] += dbg * ahat;
-      if (!valid) continue;
-      // own dc: d_alpha2 and dw[p] += dc[k] * b[k - left + p*d]
-      float de, cf;
-      const float dc = dcde(k, de, cf);
-      da2acc += de * fminf(cf, 0.f);
-#pragma unroll
-      for (int p = 0; p < MAXP; ++p) {
-        if (p >= g.P) break;
-        const int src = k - g.left + p * g.dilation;
-        if (src < 0 || src >= g.k_valid) continue;  // b is zero there
-        const float2 mb = win1[src - b0];
-        const float a = prelu(to_f(y1[(ibase + src) * g.H + ch]), a1);
-        dwacc[p] += dc * round_dt<T>(gc1 * ((a - mb.x) * mb.y) + bc1);
-      }
-    }
-    float* cp = g.chpart + (size_t)blockIdx.x * (g.P + 2) * g.H + ch;
-    for (int p = 0; p < g.P; ++p) cp[p * g.H] = dwacc[p];
-    cp[g.P * g.H] = dg1acc;
-    cp[(g.P + 1) * g.H] = db1acc;
-  }
-
-  // Per-row sums over the channels: warp shuffle, then warps in order.
-#pragma unroll
-  for (int rr = 0; rr < DW_ROWS; ++rr) {
-    float s = rsa[rr], s1 = rsb[rr];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    }
-    if (lane == 0) rowred[rr][warp] = make_float2(s, s1);
-  }
-  const float2 t = block_sum2(da2acc, 0.f, red);  // syncs: rowred is complete
-  if (threadIdx.x == 0) g.da2part[blockIdx.x] = t.x;
-  if (g.gln) {
-    if (threadIdx.x == 0) {
-      float s = 0.f, s1 = 0.f;
-      for (int rr = 0; rr < DW_ROWS && k0 + rr < g.k_valid; ++rr)
-        for (int w = 0; w < NW; ++w) {
-          s += rowred[rr][w].x;
-          s1 += rowred[rr][w].y;
-        }
-      g.gs1[2 * blockIdx.x] = s;
-      g.gs1[2 * blockIdx.x + 1] = s1;
-    }
-  } else if (threadIdx.x < DW_ROWS) {
-    float s = 0.f, s1 = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      s += rowred[threadIdx.x][w].x;
-      s1 += rowred[threadIdx.x][w].y;
-    }
-    g.gs1[2 * ((size_t)row0 + threadIdx.x)] = s;
-    g.gs1[2 * ((size_t)row0 + threadIdx.x) + 1] = s1;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // KB3 in f32: dx = round(round(dy1 @ in_w^T) + g), dy1 formed in the A
 // load. Grid (rows / BM, B / BN), GEMM_THREADS threads (bf16 KB3 is
 // hgemm_kernel in H_DX mode).
@@ -702,6 +508,8 @@ extern "C" int tcn_wgrad_max_clusters(int device, int n_cols, int cluster) {
   return e == cudaSuccess ? n : -1;
 }
 
+// (br, lanes, staged, chunk, stages, smem): the tile plan of
+// tcn_block.dw_plan (backward form); P <= 8.
 extern "C" int tcn_bwd_dwconv(int device, int dtype, const void* y1, const void* c,
                               const void* dz, const float* stats1, int n1,
                               const float* stats2, int n2, const float* gs2, int ng2,
@@ -709,20 +517,23 @@ extern "C" int tcn_bwd_dwconv(int device, int dtype, const void* y1, const void*
                               const float* w, const float* alpha2, const float* g2,
                               void* db, float* chpart, float* gs1, float* da2part, int M,
                               int kpad, int k_valid, int H, int P, int dilation, int causal,
-                              int gln, void* stream) {
+                              int gln, int br, int lanes, int staged, int chunk, int stages,
+                              int smem, void* stream) {
   cudaSetDevice(device);
   const int span = (P - 1) * dilation;
-  DwbArgs a{y1, c, dz, stats1, n1, stats2, n2, gs2, ng2, alpha1, g1, b1, w, alpha2, g2,
-            db, chpart, gs1, da2part, kpad, k_valid, H, P, dilation,
-            causal ? span : span / 2, gln};
-  const size_t smem = (size_t)(DW_ROWS + span) * (sizeof(float4) + sizeof(float2));
+  DwbArgs a{c, dz, stats1, n1, stats2, n2, gs2, ng2, alpha1, g1, b1, w, alpha2, g2,
+            db, chpart, gs1, da2part, M, kpad, k_valid, H, P, dilation,
+            causal ? span : span / 2, gln,
+            DwTile{br, lanes, staged, chunk, stages}};
+  if (stages < 1 || stages > DW_MAX_STAGES) return cudaErrorInvalidValue;
+  DwMaps m;
+  const int bc = lanes * (dtype ? 8 : 4), rows = M * kpad;
+  if (!hop::tensor_map_rows(&m.a, c, dtype == 0, rows, H, DW_BOX, bc) ||
+      !hop::tensor_map_rows(&m.b, dz, dtype == 0, rows, H, DW_BOX, bc) ||
+      !hop::tensor_map_rows(&m.c, y1, dtype == 0, rows, H, DW_BOX, bc))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = M * kpad / DW_ROWS;
-  if (dtype)
-    bwd_dwconv_kernel<bf16><<<grid, DW_THREADS, smem, s>>>(a);
-  else
-    bwd_dwconv_kernel<float><<<grid, DW_THREADS, smem, s>>>(a);
-  return cudaGetLastError();
+  return dtype ? bwd_dwconv_sm90<bf16>(m, a, smem, s) : bwd_dwconv_sm90<float>(m, a, smem, s);
 }
 
 // bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;

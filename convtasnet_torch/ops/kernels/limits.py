@@ -11,10 +11,15 @@ conv_tasnet.py:182-233).
   GEMM_MAX_H      bf16 K3 and KB3 (csrc/tcn_gemm_sm90.cuh) stage 2 * H f32
                   norm vectors in hop::VEC_BYTES = 8192 bytes (K3 unfold);
                   f32 K3 / KB3 (SIMT tiles) have no H limit.
-  DWCONV_MAX_SPAN K2's conv halo, (P - 1) * dilation rows of f32 moments
-                  in shared memory.
-  BWD_MAXP        KB2 holds the P depthwise taps of a channel in registers.
-  BWD_MAX_SPAN    KB2's two shared-memory windows, (32 + span) * 24 bytes.
+  DWCONV_MAX_SPAN the largest conv span K2 is held to on the card (its card
+                  tests run it). K2's staged window (tcn_block.dw_plan) takes
+                  min(br + span, P * br) rows of a channel slice as narrow as
+                  16 bytes, so shared memory does not bind below ~14,000 rows.
+  BWD_MAXP        KB2 is compiled for 1..8 taps: dw[P] of a thread's
+                  channels stays in registers across the tile's rows.
+  BWD_MAX_SPAN    the largest conv span KB2 is held to on the card (its card
+                  tests run it); its staged windows (dw_plan, backward form)
+                  hold at most P * br rows whatever the span.
 
 K1 and KB1 on the bf16 TMA + wgmma pipeline (modes H_IN and H_DZ of
 tcn_gemm_sm90.cuh) bring no limit of their own: the depth B runs through

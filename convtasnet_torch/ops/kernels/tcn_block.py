@@ -7,7 +7,8 @@ One temporal block runs as
   K2 tcn_dwconv:   e = round(PReLU(dwconv(round(norm1(a))))), partial sums
                    of e over the rows < K; with save=True (training) also
                    c = round(dwconv(...)), the conv output before PReLU2,
-                   pad rows not masked;
+                   pad rows not masked; a staged stencil
+                   (csrc/tcn_dwconv_sm90.cuh), tiled by `dw_plan`;
   K3 tcn_out_gemm: x' = round(x + round(norm2(e) @ out_w)), in place when
                    the caller passes out=x, with
                    norm2 folded into the product (fold=True, the whole-TCN
@@ -30,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +40,8 @@ from ...config import EPS
 from . import _build
 from .limits import DWCONV_MAX_SPAN, GEMM_MAX_H, KERNEL_WIDTH
 
-# Tile sizes of csrc/tcn_block.cuh (the f32 SIMT tiles and K2).
-BM, BN, BK, DW_ROWS = 64, 128, 32, 32
+# Tile sizes of csrc/tcn_block.cuh (the f32 SIMT GEMM tiles).
+BM, BN, BK = 64, 128, 32
 ROW_ALIGN = 128  # K_pad multiple (the JAX package pads to 128 the same way)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,7 +49,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "tcn_in_gemm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_dwconv": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
@@ -136,6 +137,108 @@ def card_resident(lib, index: int, mode: int) -> Tuple:
     """((tile, CTAs resident per SM), ...) of the bf16 wgmma kernel in
     `mode` on card `index`, from `lib` (the library that builds the mode)."""
     return tuple((t, lib.tcn_gemm_resident(index, mode, *t)) for t in GEMM_TILES)
+
+
+# Tile plan of the depthwise kernels K2 and KB2 (csrc/tcn_dwconv_sm90.cuh).
+DW_THREADS = 256
+DW_ROW_TILES = (128, 64, 32, 16)   # rows per CTA; each divides any K_pad
+DW_LANES = (32, 16, 8, 4, 2, 1)    # threads per row, one 16-byte vector each
+DW_HEAD = 128                      # bytes of mbarriers ahead of the window buffer
+DW_MAX_STAGES = 8
+DW_BOX = 16                        # rows per TMA box (divides every tile's rows)
+SMEM_LIMIT = 232448 - 1024         # a CTA's 227 KB (hop::SMEM_LIMIT) less its static shared memory
+
+
+class DwPlan(NamedTuple):
+    """Tile of K2 / KB2: `rows` x `cols` channels of one item per CTA,
+    `lanes` threads per row; `staged` window slots per staged stream
+    (`contiguous`: br + span rows in order; else P disjoint windows of br
+    rows), loaded as TMA boxes of DW_BOX rows in `stages` stages of
+    `chunk` boxes; `smem` bytes of dynamic shared memory (the barriers and
+    the window buffer)."""
+    rows: int
+    cols: int
+    lanes: int
+    staged: int
+    contiguous: bool
+    chunk: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_plan(P: int, dilation: int, H: int, itemsize: int, backward: bool = False) -> DwPlan:
+    """Tile plan of K2 (backward=False: y1 staged) or KB2 (c and dz staged,
+    plus y1's own rows; its channel partials reduced through the same
+    shared memory) for P taps at `dilation`, width H (a multiple of 128)
+    and activations of `itemsize` bytes.
+
+    A tile's taps reach S = min(br + span, P * br) rows, each read from
+    shared memory instead of device memory, so S / br is the reads of each
+    staged stream per output row. A tile costs those bytes per output
+    element (KB2 stages two streams, c and dz) plus, in KB2, its f32
+    channel partials, (P + 2) floats per channel and tile, written and
+    summed back. Among the tiles that fit a CTA's shared memory the plan
+    takes the least cost, then the most rows, then the widest row up to 256
+    bytes (rows of 512 bytes, and tiles small enough for a second CTA per
+    SM, measured no faster on the H100: tools/time_dwconv.py). At the paper
+    widths in bf16: K2 and KB2 take 128 x 128 at every dilation 1..128."""
+    _require(P >= 1 and dilation >= 1 and H % KERNEL_WIDTH == 0 and itemsize in (2, 4),
+             f"no depthwise tile for P={P}, dilation={dilation}, H={H}")
+    fit = [dw_tile(P, dilation, H, itemsize, backward, br, lanes)
+           for lanes in DW_LANES if H % (lanes * 16 // itemsize) == 0 for br in DW_ROW_TILES]
+    fit = [c for c in fit if c[1].smem <= SMEM_LIMIT]
+    _require(bool(fit), f"no depthwise tile fits shared memory at P={P}, dilation={dilation}")
+    return min(fit)[1]
+
+
+def dw_tile(P: int, dilation: int, H: int, itemsize: int, backward: bool, br: int,
+            lanes: int) -> Tuple[Tuple, DwPlan]:
+    """(cost key, plan) of the tile of `br` rows and `lanes` threads per row
+    (see dw_plan); card tests force each tile through it."""
+    vec = 16 // itemsize
+    bc = lanes * vec
+    _require(H % bc == 0 and br in DW_ROW_TILES and lanes in DW_LANES,
+             f"no tile of {br} rows x {bc} channels at H={H}")
+    span = (P - 1) * dilation
+    contiguous = dilation <= br
+    staged = br + span if contiguous else P * br
+    boxes = -(-staged // DW_BOX)             # TMA boxes of DW_BOX rows
+    data = boxes * DW_BOX * lanes * 16
+    cost = staged / br * (2 if backward else 1) * itemsize
+    if backward:
+        groups = min(DW_THREADS // lanes, br)
+        data = max(data * 2 + br * lanes * 16, groups * (P + 2) * bc * 4)
+        cost += 2 * (P + 2) * 4 / br
+    chunk = -(-boxes // min(DW_MAX_STAGES, boxes))
+    plan = DwPlan(br, bc, lanes, staged, contiguous, chunk, -(-boxes // chunk), DW_HEAD + data)
+    return (cost, -br, -min(bc * itemsize, 256)), plan
+
+
+def dw_window(plan: DwPlan, base: int, dilation: int) -> List[int]:
+    """The row each window slot stages (csrc/tcn_dwconv_sm90.cuh Window):
+    slot s holds base + s (contiguous) or base + (s // br) * d + s % br.
+    Tap p of tile row r reads slot r + p * dw_stride (K2's b window, base
+    k0 - left) or r + (P - 1 - p) * dw_stride (KB2's dc window, base k0 +
+    left - span)."""
+    br = plan.rows
+    if plan.contiguous:
+        return [base + s for s in range(plan.staged)]
+    return [base + (s // br) * dilation + s % br for s in range(plan.staged)]
+
+
+def dw_stride(plan: DwPlan, dilation: int) -> int:
+    return dilation if plan.contiguous else plan.rows
+
+
+def dw_slot_of(plan: DwPlan, base: int, dilation: int, P: int, j: int) -> int:
+    """The slot of the window at `base` that holds row j >= base, or -1
+    (csrc/tcn_dwconv_sm90.cuh Window::slot_of)."""
+    off = j - base
+    if plan.contiguous:
+        return off
+    q, rem = divmod(off, dilation)
+    return q * plan.rows + rem if q < P and rem < plan.rows else -1
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,11 +363,19 @@ def dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
     return _into(e, ev.to(dt)), stats
 
 
+def _check_dw_plan(plan: DwPlan, H: int) -> None:
+    _require(H % plan.cols == 0 and 1 <= plan.stages <= DW_MAX_STAGES
+             and plan.smem <= SMEM_LIMIT, f"depthwise tile {tuple(plan)} does not fit H={H}")
+
+
 def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
                causal, valid_k, e: Optional[torch.Tensor] = None,
-               save: bool = False, c: Optional[torch.Tensor] = None):
-    """K2. Returns (e [M, K_pad, H], partial sums), and c [M, K_pad, H]
-    third with save=True; e and c may be given."""
+               save: bool = False, c: Optional[torch.Tensor] = None,
+               plan: Optional[DwPlan] = None):
+    """K2. Returns (e [M, K_pad, H], partial sums: one pair per CTA tile of
+    `dw_plan` (gLN) or per row and channel tile (cLN)), and c [M, K_pad, H]
+    third with save=True; e and c may be given. `plan` forces a tile
+    (dw_tile); the default is dw_plan's."""
     if y1.device.type == "cpu":
         return dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type,
                             dilation, causal, valid_k, e, save, c)
@@ -283,7 +394,10 @@ def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
         e = torch.empty_like(y1)
     if save and c is None:
         c = torch.empty_like(y1)
-    stats = torch.empty((M, Kp // DW_ROWS, 2) if gln else (M, Kp, 1, 2),
+    plan = plan or dw_plan(P, dilation, H, y1.element_size())
+    _check_dw_plan(plan, H)
+    nct = H // plan.cols
+    stats = torch.empty((M, Kp // plan.rows * nct, 2) if gln else (M, Kp, nct, 2),
                         dtype=torch.float32, device=y1.device)
     _check_cuda(y1, e, dtype=dt)
     if save:
@@ -300,7 +414,8 @@ def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
                            w.data_ptr(), alpha2.data_ptr(), e.data_ptr(),
                            c.data_ptr() if save else None,
                            stats.data_ptr(), M, Kp, valid_k, H, P, dilation,
-                           int(causal), int(gln), _stream(y1))
+                           int(causal), int(gln), plan.rows, plan.lanes, plan.staged,
+                           plan.chunk, plan.stages, plan.smem, _stream(y1))
     _build.check(rc, "tcn_dwconv")
     if save:
         tcn_dwconv.launches_save += 1

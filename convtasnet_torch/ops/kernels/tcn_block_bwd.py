@@ -12,7 +12,9 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
   KW  tcn_wgrad (z):   dout_w = z^T g, z = round(norm2(PReLU2(c)));
   KB2 tcn_bwd_dwconv:  de, dc = round(de * PReLU2'(c)), the depthwise
                        transpose db, partials of dw, dg1, db1, d_alpha2 and
-                       of the norm1 backward sums;
+                       of the norm1 backward sums; a staged stencil
+                       (csrc/tcn_dwconv_sm90.cuh), tiled by
+                       tcn_block.dw_plan;
   KB3 tcn_bwd_dx:      da, dy1 = round(da * PReLU1'(y1)), dx = round(round(
                        dy1 @ in_w^T) + g) with rows >= K zero, d_alpha1
                        partials; in bf16 on the TMA + wgmma pipeline
@@ -45,9 +47,9 @@ import torch.nn.functional as F
 
 from . import _build
 from .limits import BWD_MAX_SPAN, BWD_MAXP
-from .tcn_block import (_DTYPES, BM, BN, DW_ROWS, H_DX, H_DZ, _check_cuda, _check_gemm_h,
+from .tcn_block import (_DTYPES, BM, BN, H_DX, H_DZ, _check_cuda, _check_dw_plan, _check_gemm_h,
                         _check_widths, _moments, _prelu_f32, _require, _sm_count, _stream,
-                        card_resident, gemm_plan)
+                        card_resident, dw_plan, gemm_plan)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -58,7 +60,7 @@ _SIGNATURES = {
     "tcn_wgrad_max_clusters": [_I, _I, _I],
     "tcn_bwd_dwconv": [_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
@@ -417,8 +419,13 @@ def bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
 
 
 def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
-                   g2, norm_type, dilation, causal, valid_k):
-    """KB2. Same signature and results as bwd_dwconv_plain."""
+                   g2, norm_type, dilation, causal, valid_k, plan=None):
+    """KB2. Same signature and results as bwd_dwconv_plain, with channel
+    partials per row tile of `dw_plan` (backward form), norm1-backward
+    partials per CTA tile (gLN) or per row and channel tile (cLN) and
+    d_alpha2 partials per CTA tile; a staged stencil
+    (csrc/tcn_dwconv_sm90.cuh). `plan` forces a tile (tcn_block.dw_tile,
+    backward form)."""
     if y1.device.type == "cpu":
         return bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w,
                                 alpha2, g2, norm_type, dilation, causal, valid_k)
@@ -440,19 +447,22 @@ def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
     for s, what in ((stats1, "stats1"), (stats2, "stats2"), (gs2, "KB1 partials")):
         _check_stats(s, M, Kp, gln, what)
     _check_params(alpha1, g1, b1, w, alpha2, g2)
-    ntile = M * Kp // DW_ROWS
+    plan = plan or dw_plan(P, dilation, H, y1.element_size(), backward=True)
+    _check_dw_plan(plan, H)
+    nct = H // plan.cols
     db = torch.empty_like(y1)
-    chpart = torch.empty((ntile, P + 2, H), dtype=torch.float32, device=y1.device)
-    gs1 = torch.empty((M, Kp // DW_ROWS, 2) if gln else (M, Kp, 1, 2),
+    chpart = torch.empty((M * Kp // plan.rows, P + 2, H), dtype=torch.float32, device=y1.device)
+    gs1 = torch.empty((M, Kp // plan.rows * nct, 2) if gln else (M, Kp, nct, 2),
                       dtype=torch.float32, device=y1.device)
-    da2part = torch.empty((ntile,), dtype=torch.float32, device=y1.device)
+    da2part = torch.empty((M * Kp // plan.rows * nct,), dtype=torch.float32, device=y1.device)
     rc = _lib().tcn_bwd_dwconv(
         y1.device.index, _DTYPES[dt], y1.data_ptr(), c.data_ptr(), dz.data_ptr(),
         stats1.data_ptr(), _n_parts(stats1, gln), stats2.data_ptr(), _n_parts(stats2, gln),
         gs2.data_ptr(), _n_parts(gs2, gln), alpha1.data_ptr(), g1.data_ptr(),
         b1.data_ptr(), w.data_ptr(), alpha2.data_ptr(), g2.data_ptr(), db.data_ptr(),
         chpart.data_ptr(), gs1.data_ptr(), da2part.data_ptr(), M, Kp, valid_k, H, P,
-        dilation, int(causal), int(gln), _stream(y1))
+        dilation, int(causal), int(gln), plan.rows, plan.lanes, plan.staged, plan.chunk,
+        plan.stages, plan.smem, _stream(y1))
     _build.check(rc, "tcn_bwd_dwconv")
     _LAUNCHES["tcn_bwd_dwconv"] += 1
     return db, chpart, gs1, da2part

@@ -7,7 +7,8 @@ one CUDA device.
 Seeded paper-config weights, random mixtures (and, with --train, random
 sources) of 4 s at 8 kHz; --train profiles make_train_step (forward, uPIT
 loss, backward, clip, Adam update). Prints one JSON line: the host-clock
-time per call (synchronised), the CUDA-event time, the device time by
+time per call (synchronised), the host's enqueue time per call of
+back-to-back calls (no synchronisation), the CUDA-event time, the device time by
 kernel from torch.profiler over 10 calls, and the device's idle share:
 1 - (device time per call) / (CUDA-event time per call). With --out the
 same JSON is also written to a file.
@@ -66,8 +67,10 @@ def profile(batch: int, use_kernels: str, train: bool = False) -> dict:
             host.append((time.perf_counter() - t0) * 1e3)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
+        t0 = time.perf_counter()
         for _ in range(ITERS):
             fwd()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / ITERS
         end.record()
         end.synchronize()
         event_ms = start.elapsed_time(end) / ITERS
@@ -97,6 +100,9 @@ def profile(batch: int, use_kernels: str, train: bool = False) -> dict:
         "batch": batch, "seconds": SECONDS, "use_kernels": use_kernels,
         "compute_dtype": cfg.compute_dtype, "iters": ITERS,
         "host_ms_median": float(np.median(host)), "event_ms": event_ms,
+        # host time to enqueue one call back to back, no synchronisation: the
+        # host's share; where it exceeds device busy, the host sets event_ms
+        "enqueue_ms_per_call": enqueue_ms,
         "profiled_window_ms_per_call": window_ms / ITERS,
         "device_busy_ms_per_call": busy_ms,
         # Against the unprofiled CUDA-event time: the profiler slows the

@@ -503,3 +503,111 @@ def test_gemm_occupancy_query(dev):
         for mode in modes:
             res = dict(mod._resident(torch.cuda.current_device(), mode))
             assert set(res) == set(tcn_block.GEMM_TILES) and min(res.values()) >= 1, (mode, res)
+
+
+# ---------------------------------------------------------------------------
+# K2 (both modes) and KB2 as staged stencils (csrc/tcn_dwconv_sm90.cuh): at
+# every tile the plan can take, over dilations 1..512 with P in {2, 3, 8},
+# with K not a multiple of the tile's rows, NaN in the rows >= K of y1, c
+# and dz (never read), and two launches giving equal bytes.
+# ---------------------------------------------------------------------------
+
+def _dw_case(dev, dtype, norm_type, P, M=2, Kp=1280, K=1201, H=256, seed=0):
+    """y1 (rows >= K NaN) with its norm1 partials, c (rows >= K NaN) and the
+    norm2 partials from the plain K2, dz (rows >= K NaN) and KB1's plain
+    partials, and the block's f32 parameters."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    in_w, a1, g1, b1, w, a2, g2, b2, out_w = [a[0] for a in _blocks(1, B=128, H=H, P=P,
+                                                                    device=dev)]
+    x = torch.randn((M, Kp, 128), generator=gen, device=dev)
+    x[:, K:] = 0
+    y1, s1 = tcn_block.in_gemm_plain(x.to(dtype), in_w.to(dtype), a1, norm_type)
+    g = torch.randn((M, Kp, 128), generator=gen, device=dev).to(dtype)
+    return dict(y1=y1, s1=s1, a1=a1, g1=g1, b1=b1, w=w, a2=a2, g2=g2, out_wt=out_w.to(dtype).t()
+                .contiguous(), g=g, K=K, norm=norm_type)
+
+
+def _nan_rows(t, K):
+    t = t.clone()
+    t[:, K:] = float("nan")
+    return t
+
+
+def _check_dw(d, dilation, causal, tol, plan=None, bplan=None, backward=True):
+    """K2 (inference and save) and, where KB2 admits the span, KB2 against
+    the plain versions at one dilation; returns nothing, asserts."""
+    from convtasnet_torch.ops.kernels import limits
+
+    K, norm = d["K"], d["norm"]
+    red = 1 if norm == "gLN" else 2
+    y1n = _nan_rows(d["y1"], K)
+    fargs = (d["y1"], d["s1"], d["a1"], d["g1"], d["b1"], d["w"], d["a2"], norm, dilation,
+             causal, K)
+    kargs = (y1n,) + fargs[1:]
+    ep, s2p, cp = tcn_block.dwconv_plain(*fargs, save=True)
+    ek, s2k = tcn_block.tcn_dwconv(*kargs, plan=plan)
+    assert _rel_max(ek, ep) <= tol and _rel_max(s2k.sum(red), s2p.sum(red)) <= tol
+    eks, s2ks, ck = tcn_block.tcn_dwconv(*kargs, save=True, plan=plan)
+    assert torch.equal(eks, ek) and torch.equal(s2ks, s2k)
+    assert _rel_max(ck, cp) <= tol
+    again = tcn_block.tcn_dwconv(*kargs, save=True, plan=plan)
+    assert all(torch.equal(u, v) for u, v in zip((eks, s2ks, ck), again))
+    P = d["w"].shape[0]
+    if not backward or P > limits.BWD_MAXP or (P - 1) * dilation > limits.BWD_MAX_SPAN:
+        return
+    dz, _, gs2 = tbb.bwd_dz_plain(d["g"], d["out_wt"], cp, s2p, d["a2"], d["g2"], norm, K)
+    tail = (s2p, gs2, d["a1"], d["g1"], d["b1"], d["w"], d["a2"], d["g2"], norm, dilation,
+            causal, K)
+    want = tbb.bwd_dwconv_plain(d["y1"], cp, dz, d["s1"], *tail)
+    bargs = (y1n, _nan_rows(cp, K), _nan_rows(dz, K), d["s1"]) + tail
+    got = tbb.tcn_bwd_dwconv(*bargs, plan=bplan)
+    assert _rel_max(got[0], want[0]) <= tol and torch.all(got[0][:, K:] == 0)
+    assert _rel_max(got[1].sum(0), want[1].sum(0)) <= tol
+    assert _rel_max(got[2].sum(red), want[2].sum(red)) <= tol
+    assert _rel_max(got[3].sum(), want[3].sum()) <= max(tol, 2e-3)
+    assert all(torch.equal(u, v) for u, v in zip(got, tbb.tcn_bwd_dwconv(*bargs, plan=bplan)))
+
+
+DW_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)]
+
+
+@pytest.mark.parametrize("P", [2, 3, 8])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("gLN", True), ("cLN", False),
+                                              ("cLN", True)])
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+def test_dwconv_kernels_over_dilations(dev, P, norm_type, causal, dtype, tol):
+    """The planned tile at every dilation 1..512 (spans up to 3,584 rows at
+    P = 8, beyond K = 1,201: the halo reads nothing), K2 and KB2."""
+    d = _dw_case(dev, dtype, norm_type, P, seed=P)
+    for i in range(10):
+        _check_dw(d, 2 ** i, causal, tol)
+
+
+@pytest.mark.parametrize("lanes", [32, 16, 8, 4, 2, 1])
+@pytest.mark.parametrize("br", [128, 64, 32, 16])
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+def test_dwconv_kernels_at_every_tile(dev, br, lanes, dtype, tol):
+    """Each tile dw_plan can pick (rows x lanes), forced, contiguous
+    (dilation 3) and disjoint (dilation 2 * br + 1) windows, P = 3 and P = 4
+    (even: own rows outside KB2's windows), gLN and cLN; a persistent CTA
+    walks several tiles through its window buffer."""
+    it = torch.finfo(dtype).bits // 8
+    for P, norm_type, causal in ((3, "gLN", False), (4, "cLN", False), (4, "gLN", True)):
+        d = _dw_case(dev, dtype, norm_type, P, Kp=640, K=555, seed=br + lanes)
+        for dil in (3, 2 * br + 1):
+            plan = tcn_block.dw_tile(P, dil, 256, it, False, br, lanes)[1]
+            bplan = tcn_block.dw_tile(P, dil, 256, it, True, br, lanes)[1]
+            if plan.smem > tcn_block.SMEM_LIMIT:  # e.g. 128 rows x 512 bytes, P * 128 staged
+                continue
+            _check_dw(d, dil, causal, tol, plan=plan, bplan=bplan,
+                      backward=bplan.smem <= tcn_block.SMEM_LIMIT)
+
+
+def test_dwconv_plans_are_what_the_wrappers_take(dev):
+    """At the paper widths every plan dw_plan returns for dilations 1..128 is
+    a tile test_dwconv_kernels_at_every_tile forces."""
+    for bw in (False, True):
+        for it in (2, 4):
+            for i in range(8):
+                p = tcn_block.dw_plan(3, 2 ** i, 512, it, bw)
+                assert p.rows in (128, 64, 32, 16) and p.lanes in (32, 16, 8, 4, 2, 1)
