@@ -30,7 +30,19 @@
    --use_kernels auto (the main path), block and 0; checks the wavs, the
    launch counts (NB per forward for every kernel of the form) and the
    agreement of the kernel forms with the eager run;
-6. train phase: writes a synthetic 4 s, 8 kHz wav dataset (10 tr, 4 cv
+6. evaluate phase: writes two tt sets with the port's modules (harmonic,
+   data/synthetic, 6 utterances of 2.5-10 s; broadband, band-passed noise
+   mixed at 0-5 dB, 4 utterances), manifests them with
+   `convtasnet_torch.cli.preprocess`, and runs `convtasnet_torch.cli.evaluate`
+   on the slice phase's checkpoint on cuda with --use_kernels auto, block
+   and 0, each with --cal_sdr 1 --sdr_backend device, then the broadband set
+   with --sdr_backend host; checks counts, finite metrics, the launches per
+   forward, the kernel forms' reordered estimates against the eager chain's,
+   device (f64) SDRi against host SDRi on the same estimates, that the
+   native decoder decoded every file and that native/*.so did not change;
+   times evaluate per utterance, device BSS-Eval (f64 and f32) per
+   utterance and the native and wavio decode per batch;
+7. train phase: writes a synthetic 4 s, 8 kHz wav dataset (10 tr, 4 cv
    utterances) with the port's synthetic.py and runs
    `convtasnet_torch.cli.train` on cuda at the paper config, --batch_size
    5, with --use_kernels hybrid (the main path), whole and 0: finite
@@ -38,7 +50,7 @@
    counts of the run; then one train step of each form from the same
    seed: the launches per step, the loss, and the gradients against the
    eager autograd step in f32 and bf16;
-7. times the forward at batch 8 and batch 1 (4 s at 8 kHz), the train
+8. times the forward at batch 8 and batch 1 (4 s at 8 kHz), the train
    step at batch 5 x 4 s, each kernel per launch beside its plain
    version, one PyTorch call where there is one (torch.matmul of a GEMM
    kernel's product; F.conv1d / F.conv_transpose1d with groups=H of the
@@ -52,7 +64,7 @@
    kernels' own time: a wrapper's host time can exceed it), `event_ms` the
    CUDA-event time per call of back-to-back calls, `host_us` the host's
    enqueue time per call;
-8. prints the card again, a {"kernels": [...]} line (each kernel with its
+9. prints the card again, a {"kernels": [...]} line (each kernel with its
    `design`) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It imports nothing
@@ -102,6 +114,11 @@ TOL_LOSS_F32 = 1e-4
 # in f32 a change of summation order alone moves the result by about
 # eps * sqrt(N) * sum|t| / |sum t| (6e-8 * 2900 * 1..10 = 2e-4..2e-3).
 TOL_ALPHA_F32 = 2e-3
+# Evaluate: device BSS-Eval (f64) against the host f64 numpy BSS-Eval on the
+# same estimates, per utterance in dB; the JAX package's gates for
+# non-degenerate and degenerate (tonal) Grams (tests/test_metrics.py).
+TOL_SDR_BROADBAND_DB = 1e-3
+TOL_SDR_HARMONIC_DB = 1e-2
 
 SR = 8000
 SOURCE = "convtasnet_torch/csrc/tcn_block.cu"
@@ -693,6 +710,215 @@ def train_phase(cfg, dev, tmp):
     chk.done()
     return path_counts["hybrid"], timing
 
+def _band_noise(rng, n, lo, hi):
+    """White noise band-passed to [lo, hi] Hz by an FFT mask, unit RMS."""
+    f = np.fft.rfft(rng.standard_normal(n))
+    hz = np.fft.rfftfreq(n, 1.0 / SR)
+    x = np.fft.irfft(f * ((hz >= lo) & (hz <= hi)), n)
+    return x / np.sqrt(np.mean(x * x))
+
+
+def _write_eval_sets(tmp):
+    """Two tt sets written with the port's own modules, manifested by its
+    preprocess CLI: harmonic (data/synthetic, 6 utterances of 2.5-10 s,
+    FLOAT wavs) and broadband (seeded band-passed noise sources mixed at
+    0-5 dB, 4 utterances of 3-6 s, PCM_16 wavs). Returns {name: (manifest
+    dir, utterances)}."""
+    from convtasnet_torch.data.synthetic import make_wav_dataset
+    from convtasnet_torch.data.wavio import write_wav
+
+    sets = {}
+    harm = os.path.join(tmp, "harmonic")
+    make_wav_dataset(harm, n_utts=6, min_sec=2.5, max_sec=10.0, seed=11, splits=("tt",))
+    broad = os.path.join(tmp, "broadband")
+    rng = np.random.default_rng(12)
+    for u in range(4):
+        n = int(rng.uniform(3.0, 6.0) * SR)
+        s1 = _band_noise(rng, n, 100.0, 3000.0)
+        s2 = _band_noise(rng, n, 300.0, 3800.0) * 10 ** (-rng.uniform(0.0, 5.0) / 20)
+        g = 0.9 / np.abs(s1 + s2).max()
+        for name, x in (("mix", s1 + s2), ("s1", s1), ("s2", s2)):
+            write_wav(os.path.join(broad, "wav", "tt", name, f"b{u}.wav"), g * x, SR)
+    for name, root, n_utts in (("harmonic", harm, 6), ("broadband", broad, 4)):
+        for split in ("tr", "cv"):  # preprocess manifests every split
+            for spk in ("mix", "s1", "s2"):
+                os.makedirs(os.path.join(root, "wav", split, spk), exist_ok=True)
+        subprocess.run([sys.executable, "-m", "convtasnet_torch.cli.preprocess",
+                        "--in-dir", os.path.join(root, "wav"),
+                        "--out-dir", os.path.join(root, "manifests")],
+                       check=True, timeout=120,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        sets[name] = (os.path.join(root, "manifests", "tt"), n_utts)
+    return sets
+
+
+def _native_so_digests():
+    import hashlib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for f in sorted(glob.glob(os.path.join(here, "native", "*.so"))):
+        with open(f, "rb") as fh:
+            out[f] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def evaluate_phase(cfg, dev, ckpt, tmp):
+    """The evaluate CLI on the slice phase's paper-config checkpoint; returns
+    its timings. Checks the counts and finite metrics, the launches per
+    forward, the kernel forms' estimates against the eager chain's, device
+    (f64) SDRi against host SDRi on the same estimates, and that the native
+    decoder decoded every file without touching native/*.so."""
+    from convtasnet_torch.cli.evaluate import build_parser, evaluate
+    from convtasnet_torch.data import dataset as ds_mod
+    from convtasnet_torch.ops.metrics import sdr_improvement
+    from convtasnet_torch.ops.metrics_device import sdr_improvement_batch
+    from convtasnet_torch.training.checkpoint import load_model
+
+    chk = Checks("evaluate phase")
+    NB = cfg.R * cfg.X
+    so_before = _native_so_digests()
+    sets = _write_eval_sets(tmp)
+    want_launch = {"auto": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_fold"),
+                   "block": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_unfold"), "0": ()}
+    sdr_tol = {"broadband": TOL_SDR_BROADBAND_DB, "harmonic": TOL_SDR_HARMONIC_DB}
+    timing, runs = {}, {}
+
+    def run(name, form, backend):
+        data_dir, n_utts = sets[name]
+        reset_all_counts()
+        ds_mod.reset_counts()
+        utts, stamps = [], []
+
+        def stamp(line):  # when each utterance's results reach the host
+            if line.startswith("Utt "):
+                stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        res = evaluate(build_parser().parse_args(
+            ["--model_path", ckpt, "--data_dir", data_dir, "--cal_sdr", "1",
+             "--sdr_backend", backend, "--use_kernels", form, "--device", str(dev)]),
+            log=stamp, utterances=utts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # Steady state: from the first utterance's results to the last's
+        # (load_model, the loader's start and the first batch excluded).
+        steady = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+        counts, decoded = all_counts(), ds_mod.counts()
+        tag = f"{name} --use_kernels {form} --sdr_backend {backend}"
+        log(f"evaluate {tag}: SI-SNRi {res['si_snri']:.4f} dB, SDRi {res['sdri']:.4f} dB over "
+            f"{res['count']} utterances in {wall:.2f} s ({wall / n_utts * 1e3:.1f} ms per "
+            f"utterance, {steady:.1f} ms per utterance after the first); decoded {decoded}; "
+            f"launches {counts}")
+        chk(f"{tag}: count", abs(res["count"] - n_utts), 0)
+        chk(f"{tag}: metrics finite", float(not all(np.isfinite(
+            [res["si_snri"], res["sdri"]] + [u[k] for u in utts for k in ("si_snri", "sdri")]))), 0)
+        for k, v in counts.items():
+            chk(f"{tag}: {k} launches", abs(v - (NB * n_utts if k in want_launch[form] else 0)),
+                0)
+        chk(f"{tag}: native decoder decoded every file",
+            abs(decoded["native"] - 3 * n_utts) + decoded["wavio"], 0)
+        timing[f"{name}_{form}_{backend}_ms_per_utt"] = wall / n_utts * 1e3
+        timing[f"{name}_{form}_{backend}_steady_ms_per_utt"] = steady
+        runs[(name, form, backend)] = utts
+        return utts
+
+    # One-time set-up outside the timed runs: the cuFFT / cuSOLVER handles of
+    # the device BSS-Eval, and the checkpoint load each run repeats.
+    warm = torch.randn((1, 2, 4000), generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    for dtype in (torch.float64, torch.float32):
+        sdr_improvement_batch(warm, warm.flip(1), warm.sum(1), dtype=dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_model(ckpt, dev)
+    torch.cuda.synchronize()
+    timing["model_load_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  load_model of the paper checkpoint: {timing['model_load_ms']:.1f} ms (in every "
+        "evaluate run's wall time)")
+    for name in ("harmonic", "broadband"):
+        for form in ("auto", "block", "0"):
+            run(name, form, "device")
+        eager = np.concatenate([u["estimate"].ravel() for u in runs[(name, "0", "device")]])
+        for form in ("auto", "block"):
+            got = np.concatenate([u["estimate"].ravel() for u in runs[(name, form, "device")]])
+            chk(f"{name}: reordered estimates --use_kernels {form} vs 0 (bf16, rel L2)",
+                rel_l2(torch.from_numpy(got), torch.from_numpy(eager)), TOL_E2E_BF16)
+        # Device (f64) SDRi against the host's on the main path's estimates.
+        t0 = time.perf_counter()
+        worst = max(abs(u["sdri"] - sdr_improvement(u["source"], u["estimate"], u["mixture"]))
+                    for u in runs[(name, "auto", "device")])
+        timing[f"{name}_host_bss_eval_ms_per_utt"] = (
+            (time.perf_counter() - t0) / len(runs[(name, "auto", "device")]) * 1e3)
+        chk(f"{name}: device (f64) vs host SDRi on the same estimates, worst utterance (dB)",
+            worst, sdr_tol[name])
+    host = run("broadband", "auto", "host")
+    worst = max(abs(h["sdri"] - d["sdri"]) for h, d in zip(host, runs[("broadband", "auto",
+                                                                          "device")]))
+    chk("broadband: --sdr_backend host vs device SDRi, worst utterance (dB)", worst,
+        TOL_SDR_BROADBAND_DB)
+
+    # Device BSS-Eval alone, one utterance per call, f64 and f32.
+    import warnings
+
+    for name in ("broadband", "harmonic"):
+        u = max(runs[(name, "auto", "device")], key=lambda u: u["mixture"].size)
+        src, est, mix = (torch.from_numpy(np.ascontiguousarray(u[k]))[None].to(dev)
+                         for k in ("source", "estimate", "mixture"))
+        for dtype in (torch.float64, torch.float32):
+            # No host synchronisation inside a call (the forward's enqueue
+            # runs on past it): PyTorch's sync debug mode warns on each.
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    sdr_improvement_batch(src, est, mix, dtype=dtype)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs = [str(w.message)[:120] for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            chk(f"device BSS-Eval {str(dtype)[6:]}: host synchronisations in one call "
+                f"{syncs[:2]}", len(syncs), 0)
+            ms, n = forward_ms(lambda: sdr_improvement_batch(src, est, mix, dtype=dtype),
+                               iters=10, warm=2)
+            key = f"{name}_device_bss_eval_{str(dtype)[6:]}_ms_per_utt"
+            timing[key] = ms
+            log(f"  device BSS-Eval {str(dtype)[6:]}, {name} utterance of "
+                f"{u['mixture'].size / SR:.2f} s: median {ms:.3f} ms of {n}")
+            if name == "broadband":
+                # Where its device time goes, by operation (5 calls).
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        sdr_improvement_batch(src, est, mix, dtype=dtype)
+                    torch.cuda.synchronize()
+                ops = sorted(((e.self_device_time_total / 5 / 1e3, e.key)
+                              for e in prof.key_averages()
+                              if e.device_type == torch.autograd.DeviceType.CUDA),
+                             reverse=True)
+                busy = sum(t for t, _ in ops)
+                timing[f"device_bss_eval_{str(dtype)[6:]}_device_busy_ms"] = busy
+                log(f"    device busy {busy:.3f} ms per call; top: " + "; ".join(
+                    f"{k[:60]} {t:.3f}" for t, k in ops[:6]))
+
+    # Host decode per batch (evaluate's batch of one utterance), native and wavio.
+    for name, (data_dir, n_utts) in sets.items():
+        ds = ds_mod.AudioDataset(data_dir, 1, segment=-1, cv_maxlen=1e9)
+        for native in (True, False):
+            ds.disable_native = not native
+            t0 = time.perf_counter()
+            for i in range(len(ds)):
+                ds.load_batch(i)
+            ms = (time.perf_counter() - t0) / len(ds) * 1e3
+            key = f"{name}_decode_{'native' if native else 'wavio'}_ms_per_batch"
+            timing[key] = ms
+            log(f"  host decode, {name}, {'native' if native else 'wavio'}: {ms:.2f} ms per "
+                "batch of 1 utterance (3 files)")
+    chk("native/*.so unchanged", float(_native_so_digests() != so_before), 0)
+    log(f"evaluate phase timing: {json.dumps(timing)}")
+    chk.done()
+    return timing
+
 
 def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     """Timing specs of the training kernels at the main path's shapes (bf16)."""
@@ -1042,19 +1268,23 @@ def main() -> int:
             chk(f"separations --use_kernels {form} vs 0 (bf16, rel L2)",
                 rel_l2(torch.from_numpy(a), torch.from_numpy(b)), TOL_E2E_BF16)
 
-    # f32 forward on a short input: kernel forms against the eager chain.
-    mix = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 8000))
-                           .astype(np.float32)).to(dev)
-    with torch.inference_mode():
-        outs32 = {}
-        for form in ("auto", "block", "0"):
-            c32 = ConvTasNetConfig(compute_dtype="float32", use_kernels=form)
-            outs32[form], _ = forward(params, state, c32, mix)
-            chk(f"f32 forward {form} shape", float(outs32[form].shape != (2, 2, 8000)), 0)
-        for form in ("auto", "block"):
-            chk(f"f32 forward {form} vs eager (rel L2)",
-                rel_l2(outs32[form], outs32["0"]), TOL_E2E_F32)
-    chk.done()
+        # f32 forward on a short input: kernel forms against the eager chain.
+        mix = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 8000))
+                               .astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            outs32 = {}
+            for form in ("auto", "block", "0"):
+                c32 = ConvTasNetConfig(compute_dtype="float32", use_kernels=form)
+                outs32[form], _ = forward(params, state, c32, mix)
+                chk(f"f32 forward {form} shape", float(outs32[form].shape != (2, 2, 8000)), 0)
+            for form in ("auto", "block"):
+                chk(f"f32 forward {form} vs eager (rel L2)",
+                    rel_l2(outs32[form], outs32["0"]), TOL_E2E_F32)
+        chk.done()
+
+        # ---- evaluate phase: the evaluate CLI on the slice's checkpoint -----
+        log("evaluate phase:")
+        eval_timing = evaluate_phase(cfg, dev, ckpt, tmp)
 
     # ---- train phase: the train CLI and one step of each form ---------------
     log("train phase:")
@@ -1223,7 +1453,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on its path")
 
     train_timing.update(backward_timing(stacked, cfg, dev, M=M5, K=K))
-    log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing}))
+    log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
+                    "evaluate": eval_timing}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,3 +26,24 @@ def add_device_flag(p: argparse.ArgumentParser) -> None:
                    help="torch device to run on (default cuda; the run fails "
                         "rather than fall back when no GPU is present)")
 
+
+# Type of each JAX CLI flag that waits for a later slice of the port.
+_LATER_TYPES = {"remat": str, "scan_unroll": int, "dp": int, "tp": int, "cp": int,
+                "multihost": int, "coordinator_address": str, "num_processes": int,
+                "process_id": int, "visualize": int}
+
+
+def add_later_flags(p: argparse.ArgumentParser, defaults: dict) -> None:
+    """Parse the JAX CLI's flags that wait for a later slice of the port
+    (parallelism, multihost, remat, visualize), each with that CLI's
+    default; check_later_flags raises on any other value."""
+    for flag, default in defaults.items():
+        p.add_argument(f"--{flag}", default=default, type=_LATER_TYPES[flag],
+                       help="not ported yet: only the default is accepted")
+
+
+def check_later_flags(args: argparse.Namespace, defaults: dict) -> None:
+    for flag, default in defaults.items():
+        if getattr(args, flag) != default:
+            raise SystemExit(f"--{flag} {getattr(args, flag)}: waits for a later slice of "
+                             "the port (ROADMAP.md)")

@@ -6,6 +6,9 @@ separate.py:35-79): loads a checkpoint, builds an EvalDataset from
 writes `<base>.wav` (the mixture) plus `<base>_s{c}.wav` per speaker as
 PCM_16. Runs on CUDA unless --device cpu is given.
 
+Parsed but not ported yet (a non-default value raises): --dp / --tp / --cp,
+--multihost / --coordinator_address / --num_processes / --process_id.
+
     python -m convtasnet_torch.cli.separate --model_path final.ckpt \\
         --mix_dir mixtures/ --out_dir out/ --batch_size 8
 """
@@ -23,7 +26,11 @@ from ..data.dataset import DataLoader, EvalDataset
 from ..data.wavio import write_wav
 from ..models.conv_tasnet import forward, resolve_device
 from ..training.checkpoint import load_model
-from .common import add_device_flag, add_use_kernels_flag
+from .common import add_device_flag, add_later_flags, add_use_kernels_flag, check_later_flags
+
+# Flags of the JAX CLI that wait for a later slice, with their defaults.
+LATER_FLAGS = {"dp": 1, "tp": 1, "cp": 1, "multihost": 0, "coordinator_address": None,
+               "num_processes": None, "process_id": None}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,10 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pad_to_multiple", default=1, type=int,
                    help="pad mixtures to a sample multiple to bound the "
                         "number of distinct shapes")
+    add_later_flags(p, LATER_FLAGS)
     return p
 
 
 def separate(args) -> int:
+    check_later_flags(args, LATER_FLAGS)
     if args.mix_dir is None and args.mix_json is None:
         raise SystemExit("Must provide mix_dir or mix_json! When providing "
                          "mix_dir, mix_json is ignored.")

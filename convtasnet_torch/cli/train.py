@@ -25,7 +25,7 @@ from ..config import ConvTasNetConfig, TrainConfig
 from ..data.dataset import AudioDataset, DataLoader
 from ..models.conv_tasnet import ConvTasNet, resolve_device
 from ..training.solver import Solver
-from .common import add_device_flag, add_use_kernels_flag
+from .common import add_device_flag, add_later_flags, add_use_kernels_flag, check_later_flags
 
 # Flags of the JAX CLI that wait for a later slice, with their defaults.
 LATER_FLAGS = {"remat": "0", "scan_unroll": 1, "dp": 0, "tp": 1, "cp": 1,
@@ -79,34 +79,20 @@ def build_parser() -> argparse.ArgumentParser:
     # Logging
     p.add_argument("--print_freq", default=10, type=int)
     p.add_argument("--seed", default=0, type=int)
-    p.add_argument("--visualize", default=0, type=int, help="not ported yet")
     # Device and kernels
     p.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
     add_use_kernels_flag(p)
     add_device_flag(p)
     p.add_argument("--pad_to_multiple", default=1, type=int,
                    help="pad CV batches to a sample multiple")
-    # Not ported yet
-    p.add_argument("--remat", default="0", type=str,
-                   choices=["0", "none", "1", "repeat", "block", "dots"])
-    p.add_argument("--scan_unroll", default=1, type=int)
-    p.add_argument("--dp", default=0, type=int)
-    p.add_argument("--tp", default=1, type=int)
-    p.add_argument("--cp", default=1, type=int)
-    p.add_argument("--multihost", default=0, type=int)
-    p.add_argument("--coordinator_address", default=None, type=str)
-    p.add_argument("--num_processes", default=None, type=int)
-    p.add_argument("--process_id", default=None, type=int)
+    add_later_flags(p, LATER_FLAGS)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     print(args)
-    for flag, default in LATER_FLAGS.items():
-        if getattr(args, flag) != default:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: waits for a later slice of "
-                             "the port (ROADMAP.md)")
+    check_later_flags(args, LATER_FLAGS)
     device = resolve_device(args.device)
     model_cfg = ConvTasNetConfig(
         N=args.N, L=args.L, B=args.B, H=args.H, P=args.P, X=args.X, R=args.R, C=args.C,

@@ -132,15 +132,6 @@ class ConvTasNetConfig:
         return d
 
 
-@dataclasses.dataclass(frozen=True)
-class EvalConfig:
-    model_path: str = ""
-    data_dir: str = ""
-    cal_sdr: bool = False
-    sample_rate: int = 8000
-    batch_size: int = 1
-
-
 # TrainConfig fields whose non-default values wait for a later slice.
 _LATER = {"dp": 1, "tp": 1, "cp": 1, "visualize": False}
 

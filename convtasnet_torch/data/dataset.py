@@ -16,8 +16,10 @@ numpy only), which reproduces the reference's (data.py:32-299):
   the order is a pure function of (seed, epoch), which mid-epoch resume
   relies on.
 
-Decoding goes through the port's wavio; the JAX package's native C++
-decoder is not ported yet."""
+AudioDataset decodes through the native C++ batch decoder
+(data/native_loader.py) when it is available; a file at another rate, or a
+machine without a toolchain, goes through the port's wavio. `counts()`
+says how many files each decoder decoded since `reset_counts()`."""
 
 from __future__ import annotations
 
@@ -31,6 +33,29 @@ import numpy as np
 
 from .manifest import load_manifest
 from .wavio import read_wav
+
+# Files decoded by each decoder since reset_counts() (DataLoader threads
+# decode concurrently, so updates take the lock).
+_COUNTS = {"native": 0, "wavio": 0}
+_COUNTS_LOCK = threading.Lock()
+
+
+def counts() -> dict:
+    """Files decoded by the native decoder and by wavio since the last
+    reset_counts()."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def reset_counts() -> None:
+    with _COUNTS_LOCK:
+        for k in _COUNTS:
+            _COUNTS[k] = 0
+
+
+def _count(decoder: str, n: int) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[decoder] += n
 
 
 class Batch:
@@ -53,7 +78,10 @@ def _sorted_infos(json_dir: str, speakers: Sequence[str]):
 
 
 class AudioDataset:
-    """Minibatch plan over a manifest directory (mix.json + s1..sC.json)."""
+    """Minibatch plan over a manifest directory (mix.json + s1..sC.json).
+    Set `disable_native` on an instance to decode through wavio alone."""
+
+    disable_native = False
 
     def __init__(self, json_dir: str, batch_size: int, sample_rate: int = 8000,
                  segment: float = 4.0, cv_maxlen: float = 8.0, num_speakers: int = 2,
@@ -111,19 +139,50 @@ class AudioDataset:
     def __len__(self):
         return len(self.batches)
 
+    def _decode_utts(self, idxs):
+        """Decode every file of the given utterances -> {(speaker, j): [T]}.
+
+        The native C++ thread-pool decoder takes the batch when it is
+        available; a file whose rate differs from the target is read again
+        through wavio (which resamples), as is the whole batch when the
+        native decode fails."""
+        sr = self.sample_rate
+        jobs = [(s, j) for j in idxs for s in self.speakers]
+        out = {}
+        if not self.disable_native:
+            from . import native_loader
+
+            if native_loader.available():
+                paths = [self.infos[s][j][0] for s, j in jobs]
+                max_len = max(int(self.infos[s][j][1]) for s, j in jobs)
+                try:
+                    buf, lens, rates = native_loader.decode_batch(paths, max_len)
+                    for k, (s, j) in enumerate(jobs):
+                        if int(rates[k]) == sr:
+                            out[(s, j)] = buf[k, :int(lens[k])]
+                except RuntimeError:
+                    out = {}
+        _count("native", len(out))
+        rest = [(s, j) for s, j in jobs if (s, j) not in out]
+        for s, j in rest:
+            out[(s, j)], _ = read_wav(self.infos[s][j][0], sample_rate=sr)
+        _count("wavio", len(rest))
+        return out
+
     def load_batch(self, i: int) -> Batch:
         """Decode one planned minibatch into padded numpy arrays."""
-        sr = self.sample_rate
         mixtures: List[np.ndarray] = []
         sources: List[np.ndarray] = []
-        for j in self.batches[i]:
+        idxs = self.batches[i]
+        for j in idxs:
             mix_path, n = self.infos["mix"][j]
             for s in self.speakers[1:]:
                 if int(self.infos[s][j][1]) != int(n):
                     raise ValueError(f"length mismatch in manifests for {mix_path}")
-            mix, _ = read_wav(mix_path, sample_rate=sr)
-            srcs = np.stack([read_wav(self.infos[s][j][0], sample_rate=sr)[0]
-                             for s in self.speakers[1:]], axis=1)  # [T, C]
+        decoded = self._decode_utts(idxs)
+        for j in idxs:
+            mix = decoded[("mix", j)]
+            srcs = np.stack([decoded[(s, j)] for s in self.speakers[1:]], axis=1)  # [T, C]
             T = mix.shape[0]
             seg = self.segment_len
             if seg > 0:
