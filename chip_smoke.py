@@ -42,7 +42,19 @@
    native decoder decoded every file and that native/*.so did not change;
    times evaluate per utterance, device BSS-Eval (f64 and f32) per
    utterance and the native and wavio decode per batch;
-7. train phase: writes a synthetic 4 s, 8 kHz wav dataset (10 tr, 4 cv
+7. stream phase: at the causal paper config (cLN, causal; seeded weights
+   written as a bf16 checkpoint and an f32 copy) on 4 mixtures of 2-5.9 s,
+   two of them a multiple of the 20 ms chunk: `convtasnet_torch.cli.separate`
+   padded to the chunk (--use_kernels auto, with K1 / K2 / K3 fold in their
+   cLN and causal modes counted, and 0) as the offline reference, and
+   `convtasnet_torch.cli.stream` at --batch 1 and 4 (wavs against the
+   offline wavs); StreamingSeparator (CUDA graphs and eager) against
+   forward: f32 streamed vs eager and auto, bf16 vs both, graphed vs eager,
+   batch 4 vs each stream alone, reset() vs fresh separators; push() under
+   strict_mode (no host synchronisation); ms per chunk with a host fetch per
+   chunk, RTF, device busy and device operations per chunk, eager and
+   graphed, at 10 / 20 / 40 ms chunks (batch 1) and 20 ms at batch 1-1024;
+8. train phase: writes a synthetic 4 s, 8 kHz wav dataset (10 tr, 4 cv
    utterances) with the port's synthetic.py and runs
    `convtasnet_torch.cli.train` on cuda at the paper config, --batch_size
    5, with --use_kernels hybrid (the main path), whole and 0: finite
@@ -50,7 +62,7 @@
    counts of the run; then one train step of each form from the same
    seed: the launches per step, the loss, and the gradients against the
    eager autograd step in f32 and bf16;
-8. times the forward at batch 8 and batch 1 (4 s at 8 kHz), the train
+9. times the forward at batch 8 and batch 1 (4 s at 8 kHz), the train
    step at batch 5 x 4 s, each kernel per launch beside its plain
    version, one PyTorch call where there is one (torch.matmul of a GEMM
    kernel's product; F.conv1d / F.conv_transpose1d with groups=H of the
@@ -64,7 +76,7 @@
    kernels' own time: a wrapper's host time can exceed it), `event_ms` the
    CUDA-event time per call of back-to-back calls, `host_us` the host's
    enqueue time per call;
-9. prints the card again, a {"kernels": [...]} line (each kernel with its
+10. prints the card again, a {"kernels": [...]} line (each kernel with its
    `design`) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It imports nothing
@@ -119,6 +131,9 @@ TOL_ALPHA_F32 = 2e-3
 # non-degenerate and degenerate (tonal) Grams (tests/test_metrics.py).
 TOL_SDR_BROADBAND_DB = 1e-3
 TOL_SDR_HARMONIC_DB = 1e-2
+# Streamed against offline separated wavs in f32 (tests/test_e2e_cli.py:225):
+# two PCM16 roundings (2^-16 each) and the f32 paths' summation order.
+TOL_PCM16 = 5e-4
 
 SR = 8000
 SOURCE = "convtasnet_torch/csrc/tcn_block.cu"
@@ -920,6 +935,229 @@ def evaluate_phase(cfg, dev, ckpt, tmp):
     return timing
 
 
+# Mixture lengths in samples (2-5.9 s): 16000 and 47200 are multiples of the
+# 160-sample chunk (20 ms), 26403 and 37517 are not.
+STREAM_LENGTHS = (16000, 26403, 37517, 47200)
+STREAM_CHUNK_MS = 20.0
+STREAM_TIMING = [(10.0, 1), (20.0, 1), (40.0, 1), (20.0, 16), (20.0, 64), (20.0, 256),
+                 (20.0, 1024)]
+
+
+def _streamed(sep, block, chunk):
+    """Streamed output of a [M, n * chunk] block (host or device), pushed
+    chunk by chunk, then the flush."""
+    outs = [sep.push(block[:, k:k + chunk]) for k in range(0, block.shape[1], chunk)]
+    return torch.cat(outs + [sep.flush()], dim=-1)
+
+
+def stream_phase(cfg16, dev, tmp):
+    """The streaming path at `cfg16`, the causal paper config (cLN, causal,
+    bf16; an f32 copy of the same seeded weights beside it): the separate
+    CLI (--use_kernels auto and 0, padded to the chunk multiple) as the
+    offline reference, the stream CLI at --batch 1 and 4, the array checks
+    of StreamingSeparator against forward, push() under strict_mode, and ms
+    per chunk, RTF, device busy and device operations per chunk, eager and
+    graphed. Returns its timings."""
+    import dataclasses
+
+    from convtasnet_torch.cli.separate import main as separate_main
+    from convtasnet_torch.cli.stream import chunk_samples, main as stream_main
+    from convtasnet_torch.data.wavio import read_wav, write_wav
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+    from convtasnet_torch.models.streaming import StreamingSeparator
+    from convtasnet_torch.ops.kernels import tcn_block as tb
+    from convtasnet_torch.tools.bench_streaming import measure
+    from convtasnet_torch.training.checkpoint import save_checkpoint
+    from convtasnet_torch.utils.debugging import strict_mode
+
+    chk = Checks("stream phase")
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32")
+    NB = cfg16.R * cfg16.X
+    params, state = init_params(torch.Generator(device=dev).manual_seed(4321), cfg16, device=dev)
+    ckpt = {"bf16": os.path.join(tmp, "causal_bf16.ckpt"),
+            "f32": os.path.join(tmp, "causal_f32.ckpt")}
+    save_checkpoint(ckpt["bf16"], cfg16, params, state)
+    save_checkpoint(ckpt["f32"], cfg32, params, state)
+    mix_dir = os.path.join(tmp, "stream_mix")
+    rng = np.random.default_rng(21)
+    for i, n in enumerate(STREAM_LENGTHS):
+        t = np.arange(n) / SR
+        sig = (0.25 * np.sin(2 * np.pi * (150 + 55 * i) * t)
+               + 0.2 * np.sin(2 * np.pi * (700 + 90 * i) * t) + 0.05 * rng.normal(size=n))
+        write_wav(os.path.join(mix_dir, f"s{i}.wav"), sig, SR)
+    lengths = list(STREAM_LENGTHS)
+    chunk = chunk_samples(STREAM_CHUNK_MS, SR, cfg16.L, cfg16.stride)
+    log(f"  {len(lengths)} mixtures of {lengths} samples; chunk {chunk} samples; "
+        f"multiples of the chunk: {[n % chunk == 0 for n in lengths]}")
+    timing = {}
+
+    def wavs(out_dir):
+        got = {}
+        for i, n in enumerate(lengths):
+            for c in range(cfg16.C):
+                f = f"s{i}_s{c + 1}.wav"
+                y, _ = read_wav(os.path.join(out_dir, f))
+                chk(f"{os.path.basename(out_dir)}: {f} length", abs(len(y) - n), 0)
+                chk(f"{os.path.basename(out_dir)}: {f} finite", float(not np.all(np.isfinite(y))), 0)
+                got[f] = y
+        chk(f"{os.path.basename(out_dir)}: wav count",
+            abs(len(glob.glob(os.path.join(out_dir, "*.wav"))) - 3 * len(lengths)), 0)
+        return got
+
+    # Offline references: the separate CLI padded to the chunk multiple, so
+    # that it sees the frames the streams see.
+    offline = {}
+    for dt, form, bs in (("bf16", "auto", 1), ("bf16", "0", 1), ("f32", "0", 1), ("f32", "0", 4)):
+        out_dir = os.path.join(tmp, f"sep_{dt}_{form}_b{bs}")
+        tb.reset_counts()
+        t0 = time.perf_counter()
+        n = separate_main(["--model_path", ckpt[dt], "--mix_dir", mix_dir, "--out_dir", out_dir,
+                           "--batch_size", str(bs), "--pad_to_multiple", str(chunk),
+                           "--use_kernels", form, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tb.counts()
+        log(f"  separate {dt} --use_kernels {form} --batch_size {bs}: {n} mixtures in "
+            f"{wall:.2f} s, launches {counts}")
+        chk(f"separate {dt} {form} b{bs}: mixtures written", abs(n - len(lengths)), 0)
+        want = dict(tcn_in_gemm=NB, tcn_dwconv=NB, tcn_out_gemm_fold=NB) if form == "auto" else {}
+        for k, v in counts.items():
+            chk(f"separate {dt} {form} b{bs} (cLN, causal): {k} launches",
+                abs(v - want.get(k, 0) * -(-len(lengths) // bs)), 0)
+        offline[(dt, form, bs)] = wavs(out_dir)
+
+    # The stream CLI (no kernel on its path).
+    for dt, bs in (("bf16", 1), ("f32", 1), ("f32", 4)):
+        out_dir = os.path.join(tmp, f"stream_{dt}_b{bs}")
+        tb.reset_counts()
+        t0 = time.perf_counter()
+        n = stream_main(["--model_path", ckpt[dt], "--mix_dir", mix_dir, "--out_dir", out_dir,
+                         "--chunk_ms", str(STREAM_CHUNK_MS), "--batch", str(bs),
+                         "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        log(f"  stream {dt} --batch {bs}: {n} mixtures in {wall:.2f} s")
+        timing[f"stream_cli_{dt}_b{bs}_wall_s"] = wall
+        chk(f"stream {dt} b{bs}: mixtures written", abs(n - len(lengths)), 0)
+        chk(f"stream {dt} b{bs}: kernel launches", sum(tb.counts().values()), 0)
+        got = wavs(out_dir)
+        if dt == "f32":
+            ref = offline[("f32", "0", bs)]
+            chk(f"stream f32 b{bs} vs separate f32 0 b{bs} wavs (max abs, PCM16)",
+                max(float(np.abs(got[f] - ref[f]).max()) for f in got), TOL_PCM16)
+        else:
+            a = np.concatenate([got[f] for f in sorted(got)])
+            for form in ("auto", "0"):
+                b = np.concatenate([offline[("bf16", form, 1)][f] for f in sorted(got)])
+                chk(f"stream bf16 b1 vs separate bf16 {form} b1 wavs (rel L2)",
+                    rel_l2(torch.from_numpy(a), torch.from_numpy(b)), TOL_E2E_BF16)
+
+    # Arrays: StreamingSeparator against forward on the padded group block.
+    mixes = [read_wav(os.path.join(mix_dir, f"s{i}.wav"))[0] for i in range(len(lengths))]
+    Tpad = -(-max(lengths) // chunk) * chunk
+    block = torch.zeros((len(mixes), Tpad))
+    for i, m in enumerate(mixes):
+        block[i, : len(m)] = torch.from_numpy(m)
+    cfgs = {"f32": cfg32, "bf16": cfg16}
+    streamed, off = {}, {}
+    with torch.no_grad():
+        for dt, c in cfgs.items():
+            for form in ("auto", "0"):
+                off[(dt, form)], _ = forward(params, state, dataclasses.replace(c, use_kernels=form),
+                                             block.to(dev))
+            for graph in (True, False):
+                sep = StreamingSeparator(c, params, batch=len(mixes), device=dev, graph=graph)
+                streamed[(dt, graph)] = _streamed(sep, block, chunk)
+                chk(f"streamed {dt} graph={graph} shape",
+                    float(tuple(streamed[(dt, graph)].shape) != (len(mixes), cfg16.C, Tpad)), 0)
+                del sep
+    s32 = streamed[("f32", True)]
+    chk("streamed (graphed) vs offline eager, f32, TF32 off (rel L2)", rel_l2(s32, off[("f32", "0")]),
+        TOL_F32)
+    chk("streamed (graphed) vs offline auto, f32 (rel L2)", rel_l2(s32, off[("f32", "auto")]),
+        TOL_E2E_F32)
+    for form in ("auto", "0"):
+        chk(f"streamed (graphed) vs offline {form}, bf16 (rel L2)",
+            rel_l2(streamed[("bf16", True)], off[("bf16", form)]), TOL_E2E_BF16)
+    chk("graphed vs eager StreamingSeparator, f32 (rel L2)", rel_l2(s32, streamed[("f32", False)]),
+        TOL_F32)
+    for dt in cfgs:
+        same = torch.equal(streamed[(dt, True)], streamed[(dt, False)])
+        timing[f"graphed_eager_identical_bytes_{dt}"] = same
+        log(f"  graphed vs eager {dt}: identical bytes {same}, rel L2 "
+            f"{rel_l2(streamed[(dt, True)], streamed[(dt, False)]):.3e}")
+
+    # Batch 4 against each stream alone, and reset() against fresh separators,
+    # over the first 2 s of the block.
+    short = block[:, : 100 * chunk]
+    with torch.no_grad():
+        together = _streamed(StreamingSeparator(cfg32, params, batch=4, device=dev), short, chunk)
+        alone = [_streamed(StreamingSeparator(cfg32, params, batch=1, device=dev), short[i:i + 1],
+                           chunk) for i in range(4)]
+        for i in range(4):
+            chk(f"batch-4 stream {i} vs the stream alone, f32 (rel L2)",
+                rel_l2(together[i:i + 1], alone[i]), TOL_F32)
+        sep = StreamingSeparator(cfg32, params, batch=1, device=dev)
+        for i in range(2):
+            if i:
+                sep.reset()
+            again = _streamed(sep, short[i:i + 1], chunk)
+            chk(f"utterance {i} after {'reset()' if i else 'construction'} vs a fresh separator, "
+                f"f32 (rel L2; identical bytes {torch.equal(again, alone[i])})",
+                rel_l2(again, alone[i]), TOL_F32)
+        del sep
+
+    # push() without a host synchronisation, graphed and eager (bf16, batch
+    # 1): chunks from pinned host memory; the fetch after strict_mode.
+    pinned = [short[:1, k:k + chunk].clone().pin_memory() for k in range(0, 20 * chunk, chunk)]
+    for graph in (True, False):
+        sep = StreamingSeparator(cfg16, params, batch=1, device=dev, graph=graph)
+        for c in pinned[:3]:
+            sep.push(c)  # captures both graphs
+        sep.reset()
+        err = ""
+        try:
+            with strict_mode():
+                outs = [sep.push(c) for c in pinned]
+        except RuntimeError as e:
+            err = str(e)[:200]
+        chk(f"push() graph={graph} under strict_mode: host synchronisations ({err})",
+            float(bool(err)), 0)
+        if not err:
+            chk(f"push() graph={graph} under strict_mode: outputs finite",
+                float(not torch.isfinite(torch.cat(outs, -1)).all()), 0)
+        del sep
+    torch.cuda.synchronize()
+
+    # ms per chunk (a host fetch per chunk), device busy and operations per
+    # chunk, eager and graphed, bf16.
+    points = []
+    for ms, bs in STREAM_TIMING:
+        c_len = int(SR * ms / 1000)
+        for graph in (False, True):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            row = measure(cfg16, params, bs, c_len, SR, 50, graph, dev)
+            row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            points.append(row)
+            busy = "not measured" if row["device_busy_ms"] is None else f"{row['device_busy_ms']:.3f} ms"
+            ops = "not measured" if row["ops_per_chunk"] is None else f"{row['ops_per_chunk']:.1f}"
+            log(f"  stream {ms:g} ms chunk, batch {bs}, {'graphed' if graph else 'eager'}: median "
+                f"{row['latency_ms']:.3f} ms per chunk (p90 {row['latency_p90_ms']:.3f}) of "
+                f"{row['steps']}, RTF {row['rtf']:.4f}; first two pushes {row['setup_ms']:.1f} ms; "
+                f"device busy {busy}, device ops {ops} per chunk; peak {row['peak_mem_gb']:.2f} GB")
+    for graph in (False, True):
+        rt = [r["batch"] for r in points if r["chunk_ms"] == STREAM_CHUNK_MS
+              and r["graph"] == graph and r["rtf"] < 1.0]
+        best = max(rt) if rt else 0
+        timing[f"largest_rt_batch_20ms_{'graphed' if graph else 'eager'}"] = best
+        log(f"  largest batch with RTF < 1 at {STREAM_CHUNK_MS:g} ms chunks, "
+            f"{'graphed' if graph else 'eager'}: {best} (of {[b for m, b in STREAM_TIMING if m == STREAM_CHUNK_MS]})")
+    timing["points"] = points
+    log(f"stream phase timing: {json.dumps(timing)}")
+    chk.done()
+    return timing
+
+
 def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     """Timing specs of the training kernels at the main path's shapes (bf16)."""
     from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
@@ -1286,6 +1524,12 @@ def main() -> int:
         log("evaluate phase:")
         eval_timing = evaluate_phase(cfg, dev, ckpt, tmp)
 
+        # ---- stream phase: the stream CLI and StreamingSeparator ------------
+        log("stream phase:")
+        t0 = time.perf_counter()
+        stream_timing = stream_phase(ConvTasNetConfig(norm_type="cLN", causal=True), dev, tmp)
+        stream_timing["phase_s"] = time.perf_counter() - t0
+
     # ---- train phase: the train CLI and one step of each form ---------------
     log("train phase:")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1454,7 +1698,7 @@ def main() -> int:
 
     train_timing.update(backward_timing(stacked, cfg, dev, M=M5, K=K))
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
-                    "evaluate": eval_timing}))
+                    "evaluate": eval_timing, "stream": stream_timing}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

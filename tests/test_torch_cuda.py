@@ -611,3 +611,66 @@ def test_dwconv_plans_are_what_the_wrappers_take(dev):
             for i in range(8):
                 p = tcn_block.dw_plan(3, 2 ** i, 512, it, bw)
                 assert p.rows in (128, 64, 32, 16) and p.lanes in (32, 16, 8, 4, 2, 1)
+
+
+# ---- the streaming separator's CUDA graphs ---------------------------------
+
+STREAM_CFG = dict(N=32, L=16, B=32, H=64, P=3, X=3, R=2, C=2, norm_type="cLN", causal=True)
+# Relative L2 of graphed vs eager (the same ops) and of streamed vs offline
+# in f32 (the matmuls' summation order at another row count): chip_smoke.py's
+# TOL_F32.
+STREAM_TOL = 1e-4
+
+
+def _streamed(sep, x, chunk):
+    """Streamed output, and each push's output cloned at once (to show that
+    a later replay does not overwrite an earlier output)."""
+    outs, snaps = [], []
+    for i in range(0, x.shape[1], chunk):
+        outs.append(sep.push(x[:, i: i + chunk]))
+        snaps.append(outs[-1].clone())
+    outs.append(sep.flush())
+    snaps.append(outs[-1].clone())
+    return torch.cat(outs, dim=-1), torch.cat(snaps, dim=-1)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_graphed_separator_matches_eager_and_offline(dev, compute_dtype):
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+    from convtasnet_torch.models.streaming import StreamingSeparator
+
+    cfg = ConvTasNetConfig(compute_dtype=compute_dtype, use_kernels=0, **STREAM_CFG)
+    params, state = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    x = torch.randn((3, 640), generator=torch.Generator().manual_seed(1))
+    g = StreamingSeparator(cfg, params, batch=3, device=dev)
+    e = StreamingSeparator(cfg, params, batch=3, device=dev, graph=False)
+    assert g.graphed and not e.graphed
+    got, snaps = _streamed(g, x, 64)
+    want, _ = _streamed(e, x, 64)
+    assert torch.equal(got, snaps)
+    assert _rel_l2(got, want) <= STREAM_TOL
+    if compute_dtype == "float32":
+        off, _ = forward(params, state, cfg, x.to(dev))
+        assert _rel_l2(got, off[..., : got.shape[-1]]) <= STREAM_TOL
+
+
+def test_graphed_reset_zeroes_state_in_place(dev):
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.models.streaming import StreamingSeparator, state_leaves
+
+    cfg = ConvTasNetConfig(compute_dtype="float32", **STREAM_CFG)
+    params, _ = init_params(torch.Generator(device=dev).manual_seed(2), cfg, device=dev)
+    gen = torch.Generator().manual_seed(3)
+    a, b = torch.randn((2, 320), generator=gen), torch.randn((2, 480), generator=gen)
+    sep = StreamingSeparator(cfg, params, batch=2, device=dev)
+    first, _ = _streamed(sep, a, 32)
+    ptrs = [t.data_ptr() for t in state_leaves(sep.state)]
+    sep.reset()
+    assert [t.data_ptr() for t in state_leaves(sep.state)] == ptrs
+    assert not any(t.any() for t in state_leaves(sep.state))
+    second, _ = _streamed(sep, b, 32)
+    fresh_a, _ = _streamed(StreamingSeparator(cfg, params, batch=2, device=dev), a, 32)
+    fresh_b, _ = _streamed(StreamingSeparator(cfg, params, batch=2, device=dev), b, 32)
+    assert torch.equal(first, fresh_a) and torch.equal(second, fresh_b)
