@@ -76,7 +76,23 @@
    kernels' own time: a wrapper's host time can exceed it), `event_ms` the
    CUDA-event time per call of back-to-back calls, `host_us` the host's
    enqueue time per call;
-10. prints the card again, a {"kernels": [...]} line (each kernel with its
+10. parallel phase (parallel/, over torch.distributed) at the paper config,
+   last, on the train phase's dataset: two ranks spawned on cuda:0 over
+   gloo (NCCL refuses two ranks on one card; gloo carries all-reduce and
+   broadcast of CUDA tensors through the host) run the DP train step
+   (--use_kernels hybrid, batch 5 x 4 s padded to 6, 3 rows per rank, f32
+   and bf16, SGD at lr 1 so the parameter change is the clipped gradient),
+   the DP forward (auto, batch 8 split 4 + 4) and the TP = 2 forward and
+   train step (eager chain); each is held against the single-process run,
+   with each rank's kernel launches and the collectives per step (2 for
+   DP: the real-row count and the gradient bucket). Then one rank over
+   NCCL: the train CLI for one epoch through its distributed path
+   (torchrun's variables) against the train phase's losses, the DP step
+   bit for bit against the plain step, cp_forward at n = 1 (the padding
+   path) against forward, and the DP step timed against the plain step in
+   turns (CUDA events, device busy from torch.profiler). The world-2 step
+   times go through the host and are printed as such;
+11. prints the card again, a {"kernels": [...]} line (each kernel with its
    `design`) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It imports nothing
@@ -630,7 +646,8 @@ def per_step_launches(form, NB):
 
 def train_phase(cfg, dev, tmp):
     """The train CLI at the paper config and one train step of each form;
-    returns (launch counts of the main path's run, step-time medians)."""
+    returns (launch counts of the main path's run, step-time medians, the
+    hybrid run: its argv and result)."""
     import dataclasses
 
     from convtasnet_torch.cli.train import main as train_main
@@ -654,13 +671,15 @@ def train_phase(cfg, dev, tmp):
             "--norm_type", cfg.norm_type, "--compute_dtype", cfg.compute_dtype]
     for k in ("N", "L", "B", "H", "P", "X", "R", "C"):
         base += [f"--{k}", str(getattr(cfg, k))]
-    path_counts = {}
+    path_counts, runs = {}, {}
     for form in ("hybrid", "whole", "0"):
         folder = os.path.join(tmp, f"exp_{form}")
+        argv = base + ["--use_kernels", form, "--epochs", "1", "--checkpoint", "1",
+                       "--save_every_steps", "1"]
         reset_all_counts()
         t0 = time.perf_counter()
-        out = train_main(base + ["--use_kernels", form, "--epochs", "1", "--checkpoint", "1",
-                                 "--save_every_steps", "1", "--save_folder", folder])
+        out = train_main(argv + ["--save_folder", folder])
+        runs[form] = {"argv": argv, "out": out, "tr": tr}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = all_counts()
@@ -723,7 +742,7 @@ def train_phase(cfg, dev, tmp):
             f"({5 * 4.0 / (ms / 1e3):.1f} audio-s/s)")
     torch.cuda.synchronize()
     chk.done()
-    return path_counts["hybrid"], timing
+    return path_counts["hybrid"], timing, runs["hybrid"]
 
 def _band_noise(rng, n, lo, hi):
     """White noise band-passed to [lo, hi] Hz by an FFT mask, unit RMS."""
@@ -1158,6 +1177,307 @@ def stream_phase(cfg16, dev, tmp):
     return timing
 
 
+# ---- parallel phase ---------------------------------------------------------
+
+PAR_JOIN_S = 400
+
+
+def _par_tensors(path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _sgd_delta(step, params, opt, state, mix, src, lens):
+    """One SGD step at lr 1: (loss, the clipped gradient per leaf as the
+    parameter change, on the CPU) of `step`."""
+    from convtasnet_torch.training.optim import tree_leaves
+
+    p1, _, _, loss, _ = step(params, opt.init(params), state, mix, src, lens)
+    return float(loss), [(a - b).cpu() for a, b in zip(tree_leaves(params), tree_leaves(p1))]
+
+
+def _par_worker(rank, world, tmp, dev_type):
+    """One of two ranks on cuda:0 over gloo: the DP hybrid train step (f32
+    and bf16), the DP `auto` forward, and the TP forward and train step
+    (eager chain); writes its results to tmp/par_r<rank>.pt."""
+    import dataclasses
+
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.parallel import comm, distributed
+    from convtasnet_torch.parallel.mesh import (gather_params, make_mesh, mesh_forward,
+                                                shard_batch_fn, shard_params_fn)
+    from convtasnet_torch.training.optim import Optimizer, tree_leaves
+    from convtasnet_torch.training.solver import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = distributed.initialize(f"file://{tmp}/par_store", world, rank, backend="gloo",
+                                 device_type=dev_type)
+    try:
+        z = _par_tensors(os.path.join(tmp, "par_inputs.pt"))
+        params = _tree_to(z["params"], dev)
+        base = ConvTasNetConfig(**json.loads(z["cfg"]))
+        res = {}
+        mesh = make_mesh(2, 1, 1, dev)
+        opt = Optimizer("sgd", lr=1.0)
+        mix, lens, src = shard_batch_fn(mesh)(z["step_mix"], z["step_lens"], z["step_src"])
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=dtype, use_kernels="hybrid")
+            step = make_train_step(cfg, opt, 5.0, mesh)
+            _sgd_delta(step, params, opt, {}, mix, src, lens)  # warm-up
+            torch.cuda.synchronize()
+            reset_all_counts()
+            comm.reset_counts()
+            loss, delta = _sgd_delta(step, params, opt, {}, mix, src, lens)
+            torch.cuda.synchronize()
+            res[f"dp_step_{dtype}"] = {"loss": loss, "delta": delta,
+                                       "launches": all_counts(),
+                                       "collectives": comm.counts()["collectives"],
+                                       "bucket_bytes": step.bucket[0].nbytes,
+                                       "rows": int(mix.shape[0])}
+            if dtype == "bfloat16":
+                ms, _ = forward_ms(lambda: step(params, opt.init(params), {}, mix, src, lens),
+                                   iters=5, warm=1)
+                res["dp_step_gloo_ms"] = ms
+        fmix, _, _ = shard_batch_fn(mesh)(z["fwd_mix"], np.ones(8, np.int32), None)
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=dtype, use_kernels="auto")
+            with torch.inference_mode():
+                fwd = mesh_forward(cfg, params, {}, mesh)
+                fwd(fmix)
+                torch.cuda.synchronize()
+                reset_all_counts()
+                est = fwd(fmix)
+                torch.cuda.synchronize()
+            res[f"dp_fwd_{dtype}"] = {"est": est.cpu(), "launches": all_counts()}
+        tpm = make_mesh(1, 2, 1, dev)
+        tmix, tlens, tsrc = (z[k].to(dev) for k in ("tp_mix", "tp_lens", "tp_src"))
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=dtype, use_kernels="0")
+            with torch.inference_mode():
+                est = mesh_forward(cfg, params, {}, tpm)(tmix)
+            res[f"tp_fwd_{dtype}"] = {"est": est.cpu()}
+        cfg = dataclasses.replace(base, compute_dtype="float32", use_kernels="0")
+        p0, s0, _ = shard_params_fn(tpm, 2, cfg.C)(params, {}, None)
+        comm.reset_counts()
+        p1, _, _, loss, _ = make_train_step(cfg, opt, 5.0, tpm)(p0, opt.init(p0), s0, tmix,
+                                                                 tsrc, tlens)
+        collectives = comm.counts()["collectives"]
+        w0, w1 = gather_params(tpm, cfg.C, p0)[0], gather_params(tpm, cfg.C, p1)[0]
+        res["tp_step_float32"] = {"loss": float(loss), "collectives": collectives,
+                                  "delta": [(a - b).cpu() for a, b in
+                                            zip(tree_leaves(w0), tree_leaves(w1))]}
+        torch.save(res, os.path.join(tmp, f"par_r{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _run_world2(tmp, dev):
+    """Spawn the two gloo ranks; returns their results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_par_worker, args=(r, 2, tmp, dev.type)) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PAR_JOIN_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.terminate()
+        p.join(10)
+    codes = [p.exitcode for p in procs]
+    if alive or codes != [0, 0]:
+        raise AssertionError(f"parallel phase: world-2 ranks exited {codes}"
+                             f"{' (timed out)' if alive else ''}")
+    return [_par_tensors(os.path.join(tmp, f"par_r{r}.pt")) for r in range(2)]
+
+
+def parallel_phase(cfg, dev, tmp, hybrid_run):
+    """DP and TP over torch.distributed at the paper config: two gloo ranks
+    on cuda:0 (DP hybrid step, DP auto forward, TP forward and step)
+    against the single-process runs, then one NCCL rank (the train CLI
+    through its distributed path, the DP step bit for bit, cp_forward at
+    n = 1, and the DP step timed against the plain step)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from convtasnet_torch.cli.train import main as train_main
+    from convtasnet_torch.data.dataset import AudioDataset
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+    from convtasnet_torch.parallel import comm, distributed
+    from convtasnet_torch.parallel.context import cp_forward
+    from convtasnet_torch.parallel.mesh import make_mesh
+    from convtasnet_torch.training.optim import Optimizer, tree_leaves
+    from convtasnet_torch.training.solver import make_train_step
+
+    NB = cfg.R * cfg.X
+    chk = Checks("parallel phase")
+    timing = {}
+    params, _ = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    batch = AudioDataset(hybrid_run["tr"], 5).load_batch(0)
+    rng = np.random.default_rng(11)
+    fwd_mix = rng.normal(size=(8, 4 * SR)).astype(np.float32)
+    tp_src = (rng.normal(size=(2, 2, 4 * SR)) * 0.3).astype(np.float32)
+    inputs = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in (
+        ("step_mix", batch.mixture), ("step_lens", batch.lengths), ("step_src", batch.source),
+        ("fwd_mix", fwd_mix), ("tp_mix", tp_src.sum(1)), ("tp_src", tp_src),
+        ("tp_lens", np.array([4 * SR, 3 * SR], np.int32)))}
+    torch.save({"params": _tree_to(params, "cpu"), "cfg": json.dumps(cfg.header_dict()),
+                **inputs}, os.path.join(tmp, "par_inputs.pt"))
+
+    # ---- world 2 over gloo, both ranks on cuda:0 --------------------------
+    t0 = time.perf_counter()
+    ranks = _run_world2(tmp, dev)
+    timing["world2_s"] = time.perf_counter() - t0
+    mix, lens, src = (inputs[k].to(dev) for k in ("step_mix", "step_lens", "step_src"))
+    opt = Optimizer("sgd", lr=1.0)
+    for dtype, gtol, ltol in (("float32", TOL_GRAD_F32, TOL_LOSS_F32),
+                              ("bfloat16", TOL_GRAD_BF16, TOL_LOSS_BF16)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype, use_kernels="hybrid")
+        ref_loss, ref = _sgd_delta(make_train_step(c, opt, 5.0), params, opt, {}, mix, src, lens)
+        for r, res in enumerate(ranks):
+            got = res[f"dp_step_{dtype}"]
+            chk(f"DP step {dtype} rank {r}: rows ({got['rows']} of 6)", abs(got["rows"] - 3), 0)
+            chk(f"DP step {dtype} rank {r}: loss vs one process ({got['loss']:.5f} vs "
+                f"{ref_loss:.5f})", abs(got["loss"] - ref_loss) / max(abs(ref_loss), 1e-6), ltol)
+            worst = max((rel_l2(a, b), i) for i, (a, b) in enumerate(zip(got["delta"], ref)))
+            chk(f"DP step {dtype} rank {r}: parameter change vs one process, worst leaf "
+                f"#{worst[1]} (relative L2)", worst[0], gtol)
+            for k, v in per_step_launches("hybrid", NB).items():
+                chk(f"DP step {dtype} rank {r}: {k} launches", abs(got["launches"][k] - v), 0)
+            chk(f"DP step {dtype} rank {r}: collectives per step ({got['collectives']})",
+                abs(got["collectives"] - 2), 0)
+    log(f"  DP step: {ranks[0]['dp_step_bfloat16']['collectives']} collectives per step, "
+        f"gradient bucket {ranks[0]['dp_step_bfloat16']['bucket_bytes']} bytes")
+    timing["dp_collectives_per_step"] = ranks[0]["dp_step_bfloat16"]["collectives"]
+    timing["dp_bucket_bytes"] = ranks[0]["dp_step_bfloat16"]["bucket_bytes"]
+    timing["world2_gloo_dp_step_bf16_ms"] = [res["dp_step_gloo_ms"] for res in ranks]
+    log(f"  world-2 DP step over gloo (all-reduces staged through the host; no speed "
+        f"claim): {timing['world2_gloo_dp_step_bf16_ms']} ms per step by rank")
+    fmix = inputs["fwd_mix"].to(dev)
+    fwd_want = dict(tcn_in_gemm=NB, tcn_dwconv=NB, tcn_out_gemm_fold=NB)
+    for dtype, tol in (("float32", TOL_E2E_F32), ("bfloat16", TOL_E2E_BF16)):
+        with torch.inference_mode():
+            ref, _ = forward(params, {}, dataclasses.replace(cfg, compute_dtype=dtype,
+                                                             use_kernels="auto"), fmix)
+        got = torch.cat([res[f"dp_fwd_{dtype}"]["est"] for res in ranks])
+        chk(f"DP forward {dtype}: 4 + 4 rows vs one process (relative L2)",
+            rel_l2(got, ref.cpu()), tol)
+        for r, res in enumerate(ranks):
+            for k, v in fwd_want.items():
+                chk(f"DP forward {dtype} rank {r}: {k} launches",
+                    abs(res[f"dp_fwd_{dtype}"]["launches"][k] - v), 0)
+    tmix, tlens, tsrc = (inputs[k].to(dev) for k in ("tp_mix", "tp_lens", "tp_src"))
+    for dtype, tol in (("float32", TOL_E2E_F32), ("bfloat16", TOL_E2E_BF16)):
+        with torch.inference_mode():
+            ref, _ = forward(params, {}, dataclasses.replace(cfg, compute_dtype=dtype,
+                                                             use_kernels="0"), tmix)
+        for r, res in enumerate(ranks):
+            chk(f"TP forward {dtype} rank {r}: vs one process, eager (relative L2)",
+                rel_l2(res[f"tp_fwd_{dtype}"]["est"], ref.cpu()), tol)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32", use_kernels="0")
+    ref_loss, ref = _sgd_delta(make_train_step(c32, opt, 5.0), params, opt, {}, tmix, tsrc,
+                               tlens)
+    for r, res in enumerate(ranks):
+        got = res["tp_step_float32"]
+        chk(f"TP step float32 rank {r}: loss vs one process",
+            abs(got["loss"] - ref_loss) / max(abs(ref_loss), 1e-6), TOL_LOSS_F32)
+        worst = max((rel_l2(a, b), i) for i, (a, b) in enumerate(zip(got["delta"], ref)))
+        chk(f"TP step float32 rank {r}: parameter change vs one process, worst leaf "
+            f"#{worst[1]} (relative L2)", worst[0], TOL_GRAD_F32)
+    timing["tp_collectives_per_step"] = ranks[0]["tp_step_float32"]["collectives"]
+    log(f"  TP step (tp 2): {timing['tp_collectives_per_step']} collectives per step")
+
+    # ---- world 1 over NCCL -------------------------------------------------
+    # The train CLI through its distributed path: torchrun's variables.
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        out = train_main(hybrid_run["argv"] + ["--save_folder", os.path.join(tmp, "exp_nccl")])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    want = hybrid_run["out"]
+    log(f"  train CLI at world 1 (nccl, env init): tr_loss {out['tr_loss']}, cv_loss "
+        f"{out['cv_loss']} (non-distributed: {want['tr_loss']}, {want['cv_loss']})")
+    chk("train CLI world 1: steps", abs(out["steps"] - want["steps"]), 0)
+    for k in ("tr_loss", "cv_loss"):
+        chk(f"train CLI world 1: {k} vs the non-distributed run (relative)",
+            float(np.max(np.abs(np.subtract(out[k], want[k])) / np.abs(want[k]))), 1e-6)
+    chk("train CLI world 1: process group closed", float(dist.is_initialized()), 0)
+
+    distributed.initialize(f"file://{tmp}/nccl_store", 1, 0, device_type=dev.type)
+    try:
+        mesh = make_mesh(1, 1, 1, dev)
+        c = dataclasses.replace(cfg, use_kernels="hybrid")
+        adam = Optimizer("adam", lr=1e-3)
+        plain_step = make_train_step(c, adam, 5.0)
+        dp_step = make_train_step(c, adam, 5.0, mesh)
+        o0 = adam.init(params)
+        a = plain_step(params, o0, {}, mix, src, lens)
+        comm.reset_counts()
+        b = dp_step(params, o0, {}, mix, src, lens)
+        torch.cuda.synchronize()
+        chk("world-1 nccl DP step: collectives per step", abs(comm.counts()["collectives"] - 2),
+            0)
+        diff = float(not (torch.equal(a[3], b[3]) and torch.equal(a[4], b[4]) and all(
+            torch.equal(u, v) for u, v in zip(tree_leaves(a[0]), tree_leaves(b[0])))))
+        chk("world-1 nccl DP step == plain step, bit for bit (loss, norm, parameters)", diff, 0)
+
+        cp_mesh = dataclasses.replace(mesh, context=dist.new_group([0]))
+        mix2 = tmix
+        for dtype, tol in (("float32", TOL_E2E_F32), ("bfloat16", TOL_E2E_BF16)):
+            cc = dataclasses.replace(cfg, compute_dtype=dtype, use_kernels="0")
+            with torch.inference_mode():
+                got = cp_forward(params, {}, cc, mix2, cp_mesh)
+                ref, _ = forward(params, {}, cc, mix2)
+            chk(f"cp_forward n=1 {dtype} vs forward (relative L2)", rel_l2(got, ref), tol)
+            chk(f"cp_forward n=1 {dtype} shape", float(got.shape != ref.shape), 0)
+
+        # The DP step against the plain step, in turns (CUDA events; the
+        # device's busy share from torch.profiler's device time).
+        def run(fn):
+            return lambda: fn(params, o0, {}, mix, src, lens)
+
+        order = [("plain", plain_step), ("dp", dp_step), ("dp", dp_step), ("plain", plain_step)]
+        ms = {"plain": [], "dp": []}
+        dev_ms = {"plain": [], "dp": []}
+        for name, fn in order:
+            ms[name].append(forward_ms(run(fn), iters=10, warm=2)[0])
+            dev_ms[name].append(device_ms(run(fn), iters=5, warm=1))
+        for name in ("plain", "dp"):
+            timing[f"world1_{name}_step_bf16_ms"] = ms[name]
+            timing[f"world1_{name}_step_bf16_device_ms"] = dev_ms[name]
+            busy = [d / e for d, e in zip(dev_ms[name], ms[name])]
+            timing[f"world1_{name}_step_bf16_busy"] = busy
+            log(f"  world-1 nccl {name} step, batch 5 x 4 s, hybrid bf16: {ms[name]} ms "
+                f"(CUDA events, median of 10 each), device {dev_ms[name]} ms, busy {busy}")
+    finally:
+        distributed.shutdown()
+    chk.done()
+    return timing
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     """Timing specs of the training kernels at the main path's shapes (bf16)."""
     from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
@@ -1532,8 +1852,9 @@ def main() -> int:
 
     # ---- train phase: the train CLI and one step of each form ---------------
     log("train phase:")
-    with tempfile.TemporaryDirectory() as tmp:
-        train_counts, train_timing = train_phase(cfg, dev, tmp)
+    # Kept to the end: the parallel phase trains on the same dataset.
+    train_tmp = tempfile.TemporaryDirectory()
+    train_counts, train_timing, hybrid_run = train_phase(cfg, dev, train_tmp.name)
 
     # ---- timing -------------------------------------------------------------
     log("timing (CUDA events, after warm-up):")
@@ -1697,8 +2018,20 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on its path")
 
     train_timing.update(backward_timing(stacked, cfg, dev, M=M5, K=K))
+
+    # ---- parallel phase: DP / TP over torch.distributed ---------------------
+    # Last, so that no kernel time above depends on it: one H100 run had
+    # torch.profiler record no device time after this phase, which neither
+    # tools/check_profiler.py nor a rerun in that order reproduced
+    # (PERF.md section 7).
+    log("parallel phase:")
+    t0 = time.perf_counter()
+    with train_tmp:
+        par_timing = parallel_phase(cfg, dev, train_tmp.name, hybrid_run)
+    par_timing["phase_s"] = time.perf_counter() - t0
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
-                    "evaluate": eval_timing, "stream": stream_timing}))
+                    "evaluate": eval_timing, "stream": stream_timing,
+                    "parallel": par_timing}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,8 +17,13 @@ out SI-SNRi (and host SDRi) of batch i while batch i + 1 runs.
 --sdr_backend auto is the device backend on CUDA and the host one
 (ops/metrics.py, f64 numpy) on the CPU; neither falls back to the other.
 
-Parsed but not ported yet (a non-default value raises): --dp / --tp / --cp,
---multihost / --coordinator_address / --num_processes / --process_id.
+Several cards (one process each, launched with torchrun or the
+--multihost rendezvous flags; cli/common.py): the batch rows are cut over
+the data ranks (zero-row padding), the parameters over --tp, the frames
+over --cp, with the eager chain under TP or CP. Each data rank works out
+its own rows' metrics (on the host, or on the device with the device SDR
+backend) and the sums are all-reduced on the device, whichever way the
+ranks met.
 """
 
 from __future__ import annotations
@@ -30,16 +35,15 @@ from typing import Callable, List, Optional
 import torch
 
 from ..data.dataset import AudioDataset, DataLoader
-from ..models.conv_tasnet import forward, resolve_device
 from ..ops.loss import cal_loss
 from ..ops.metrics import sdr_improvement, si_snr_improvement
 from ..ops.metrics_device import sdr_improvement_batch
+from ..parallel.comm import all_reduce_
+from ..parallel.distributed import shutdown
+from ..parallel.mesh import mesh_forward, shard_batch_fn
 from ..training.checkpoint import load_model
-from .common import add_device_flag, add_later_flags, add_use_kernels_flag, check_later_flags
-
-# Flags of the JAX CLI that wait for a later slice, with their defaults.
-LATER_FLAGS = {"dp": 1, "tp": 1, "cp": 1, "multihost": 0, "coordinator_address": None,
-               "num_processes": None, "process_id": None}
+from .common import (add_device_flag, add_parallel_flags, add_use_kernels_flag,
+                     resolve_mesh_kernels, setup_parallel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pad utterances to a sample multiple to bound the number of "
                         "distinct shapes (lengths stay exact; only gLN statistics see "
                         "the padding, as with batch-max padding)")
-    add_later_flags(p, LATER_FLAGS)
+    add_parallel_flags(p, dp_default=1)
     return p
 
 
@@ -71,27 +75,48 @@ def evaluate(args, log: Callable[[str], None] = print,
              utterances: Optional[List[dict]] = None) -> dict:
     """Run the evaluation; returns {"si_snri", "count"[, "sdri"]}. When
     `utterances` is a list, each utterance's trimmed "mixture", "source",
-    reordered "estimate", "si_snri" (and "sdri") are appended to it."""
-    check_later_flags(args, LATER_FLAGS)
-    device = resolve_device(args.device)
+    reordered "estimate", "si_snri" (and "sdri") are appended to it (on a
+    mesh: this rank's utterances)."""
+    # Parallel flags left at their defaults in a launched run: every rank
+    # is a data rank (the JAX CLI's multihost rule).
+    dp = 0 if (args.dp, args.tp, args.cp) == (1, 1, 1) else args.dp
+    device, mesh, joined = setup_parallel(args, dp)
+    try:
+        return _evaluate(args, device, mesh, log, utterances)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _evaluate(args, device, mesh, log, utterances):
     cfg, params, state = load_model(args.model_path, device)
     # The kernel path is a run-time choice, not a model property.
     cfg = dataclasses.replace(cfg, use_kernels=args.use_kernels)
     use_device_sdr = bool(args.cal_sdr) and (
-        args.sdr_backend == "device"
-        or (args.sdr_backend == "auto" and device.type == "cuda"))
+        args.sdr_backend == "device" or (args.sdr_backend == "auto" and device.type == "cuda"))
+    if mesh is not None:
+        cfg = resolve_mesh_kernels(cfg, mesh.tp, mesh.cp)
+        shard = shard_batch_fn(mesh)
+    fwd = mesh_forward(cfg, params, state, mesh)
+    # Only the first rank of each TP / CP group counts its rows.
+    counts_rows = mesh is None or (mesh.model_rank == 0 and mesh.context_rank == 0)
 
     dataset = AudioDataset(args.data_dir, args.batch_size, sample_rate=args.sample_rate,
                            segment=-1, cv_maxlen=args.cv_maxlen, num_speakers=cfg.C,
                            pad_to_multiple=args.pad_to_multiple)
     loader = DataLoader(dataset, num_workers=2)
 
+    def rows(batch):
+        if mesh is None:
+            return (torch.from_numpy(a).to(device, non_blocking=True)
+                    for a in (batch.mixture, batch.lengths, batch.source))
+        return shard(batch.mixture, batch.lengths, batch.source)
+
     @torch.inference_mode()
     def infer(batch):
         """Enqueue one batch; returns (host tensors, event to wait on)."""
-        mix, src, lens = (torch.from_numpy(a).to(device, non_blocking=True)
-                          for a in (batch.mixture, batch.source, batch.lengths))
-        est, _ = forward(params, state, cfg, mix, train=False)
+        mix, lens, src = rows(batch)
+        est = fwd(mix)
         _, _, _, reordered = cal_loss(src, est, lens)
         outs = [reordered]
         if use_device_sdr:
@@ -123,16 +148,21 @@ def evaluate(args, log: Callable[[str], None] = print,
     count = 0
     for batch, outs in batches_with_async_infer():
         reordered = outs[0]
-        for b in range(batch.mixture.shape[0]):
+        # This rank's rows of the (zero-padded) batch: real where length > 0.
+        first = 0 if mesh is None else mesh.data_rank * reordered.shape[0]
+        for i in range(reordered.shape[0] if counts_rows else 0):
+            b = first + i
+            if b >= batch.mixture.shape[0]:
+                break
             n = int(batch.lengths[b])
             mix = batch.mixture[b, :n]
             src = batch.source[b, :, :n]
-            est = reordered[b, :, :n]
+            est = reordered[i, :, :n]
             count += 1
             log(f"Utt {count}")
             utt = {"mixture": mix, "source": src, "estimate": est}
             if args.cal_sdr:
-                sdri = float(outs[1][b]) if use_device_sdr else sdr_improvement(src, est, mix)
+                sdri = float(outs[1][i]) if use_device_sdr else sdr_improvement(src, est, mix)
                 total_sdri += sdri
                 utt["sdri"] = sdri
                 log(f"\tSDRi={sdri:.2f}")
@@ -143,6 +173,15 @@ def evaluate(args, log: Callable[[str], None] = print,
             if utterances is not None:
                 utterances.append(utt)
 
+    if mesh is not None:  # the ranks' sums
+        tot = torch.tensor([total_sisnri, total_sdri, count], dtype=torch.float64,
+                           device=device)
+        total_sisnri, total_sdri, count = all_reduce_(tot, None).tolist()
+        count = int(count)
+    return _result(args, total_sisnri, total_sdri, count, log)
+
+
+def _result(args, total_sisnri, total_sdri, count, log) -> dict:
     result = {"si_snri": total_sisnri / max(count, 1), "count": count}
     if args.cal_sdr:
         result["sdri"] = total_sdri / max(count, 1)

@@ -6,8 +6,12 @@ separate.py:35-79): loads a checkpoint, builds an EvalDataset from
 writes `<base>.wav` (the mixture) plus `<base>_s{c}.wav` per speaker as
 PCM_16. Runs on CUDA unless --device cpu is given.
 
-Parsed but not ported yet (a non-default value raises): --dp / --tp / --cp,
---multihost / --coordinator_address / --num_processes / --process_id.
+Several cards (one process each, launched with torchrun or the
+--multihost rendezvous flags; cli/common.py): with tp = cp = 1 every rank
+takes a stride slice of the batch list, runs the single-card forward and
+writes only its own wavs (the JAX CLI's multihost layout); with --tp or
+--cp the ranks of a TP / CP group run the same batch together (the eager
+chain) and the group's first rank writes.
 
     python -m convtasnet_torch.cli.separate --model_path final.ckpt \\
         --mix_dir mixtures/ --out_dir out/ --batch_size 8
@@ -21,16 +25,16 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import DataLoader, EvalDataset
+from ..data.manifest import preprocess_one_dir
 from ..data.wavio import write_wav
-from ..models.conv_tasnet import forward, resolve_device
+from ..parallel.distributed import shutdown
+from ..parallel.mesh import mesh_forward
 from ..training.checkpoint import load_model
-from .common import add_device_flag, add_later_flags, add_use_kernels_flag, check_later_flags
-
-# Flags of the JAX CLI that wait for a later slice, with their defaults.
-LATER_FLAGS = {"dp": 1, "tp": 1, "cp": 1, "multihost": 0, "coordinator_address": None,
-               "num_processes": None, "process_id": None}
+from .common import (add_device_flag, add_parallel_flags, add_use_kernels_flag,
+                     resolve_mesh_kernels, setup_parallel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,24 +50,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pad_to_multiple", default=1, type=int,
                    help="pad mixtures to a sample multiple to bound the "
                         "number of distinct shapes")
-    add_later_flags(p, LATER_FLAGS)
+    add_parallel_flags(p, dp_default=1)
     return p
 
 
 def separate(args) -> int:
-    check_later_flags(args, LATER_FLAGS)
+    """Separate every mixture; returns the number this rank wrote."""
     if args.mix_dir is None and args.mix_json is None:
         raise SystemExit("Must provide mix_dir or mix_json! When providing "
                          "mix_dir, mix_json is ignored.")
-    device = resolve_device(args.device)
+    dp = 0 if (args.dp, args.tp, args.cp) == (1, 1, 1) else args.dp
+    device, mesh, joined = setup_parallel(args, dp)
+    try:
+        return _separate(args, device, mesh)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _separate(args, device, mesh) -> int:
     cfg, params, state = load_model(args.model_path, device)
     # The kernel path is a run-time choice, not a model property.
     cfg = dataclasses.replace(cfg, use_kernels=args.use_kernels)
+    mix_dir, mix_json = args.mix_dir, args.mix_json
+    writes = True
+    if mesh is not None:
+        cfg = resolve_mesh_kernels(cfg, mesh.tp, mesh.cp)
+        writes = mesh.model_rank == 0 and mesh.context_rank == 0
+        if mix_dir is not None:
+            # One rank writes the manifest; the others wait for it.
+            if dist.get_rank() == 0:
+                preprocess_one_dir(mix_dir, mix_dir, "mix", args.sample_rate)
+            dist.barrier()
+            mix_dir, mix_json = None, os.path.join(mix_dir, "mix.json")
+    fwd = mesh_forward(cfg, params, state, mesh)
 
-    dataset = EvalDataset(args.mix_dir, args.mix_json,
+    dataset = EvalDataset(mix_dir, mix_json,
                           batch_size=args.batch_size,
                           sample_rate=args.sample_rate,
                           pad_to_multiple=args.pad_to_multiple)
+    if mesh is not None:
+        # Data ranks take disjoint batches (the manifest order is shared);
+        # the ranks of a TP / CP group take the same ones.
+        dataset.batches = dataset.batches[mesh.data_rank::mesh.dp]
     loader = DataLoader(dataset, num_workers=2)
     os.makedirs(args.out_dir, exist_ok=True)
 
@@ -71,7 +100,7 @@ def separate(args) -> int:
     def infer(mixture: np.ndarray):
         """Enqueue one forward; returns (host tensor, event to wait on)."""
         mix = torch.from_numpy(mixture).to(device, non_blocking=True)
-        est, _ = forward(params, state, cfg, mix, train=False)
+        est = fwd(mix)
         if device.type != "cuda":
             return est, None
         host = torch.empty(est.shape, dtype=est.dtype, pin_memory=True)
@@ -97,7 +126,7 @@ def separate(args) -> int:
 
     written = 0
     for batch, est in batches_with_async_infer():  # est: [B, C, T]
-        for b, filename in enumerate(batch.filenames):
+        for b, filename in enumerate(batch.filenames if writes else ()):
             n = int(batch.lengths[b])
             base = os.path.basename(filename)
             if base.endswith(".wav"):

@@ -10,9 +10,18 @@ train the eager chain under autograd, hybrid the whole-TCN training op
 recompute op; the CV forward runs the inference kernels under any of them
 but 0. Runs on CUDA unless --device cpu is given.
 
+Several cards (one process each; parallel/mesh.py):
+
+    torchrun --nproc_per_node 4 -m convtasnet_torch.cli.train --dp 4 ...
+    torchrun --nproc_per_node 4 -m convtasnet_torch.cli.train --dp 2 --tp 2 ...
+
+or the JAX CLI's rendezvous flags (--multihost 1 --coordinator_address
+host:port --num_processes N --process_id i). Under DP each rank trains its
+rows with the --use_kernels form; under TP or CP the chain is eager, as in
+the JAX package.
+
 Parsed but not ported yet (a non-default value raises): --remat,
---scan_unroll, --dp / --tp / --cp, --multihost / --coordinator_address /
---num_processes / --process_id, --visualize.
+--scan_unroll, --visualize.
 """
 
 from __future__ import annotations
@@ -23,14 +32,14 @@ import torch
 
 from ..config import ConvTasNetConfig, TrainConfig
 from ..data.dataset import AudioDataset, DataLoader
-from ..models.conv_tasnet import ConvTasNet, resolve_device
+from ..models.conv_tasnet import ConvTasNet
+from ..parallel.distributed import shutdown
 from ..training.solver import Solver
-from .common import add_device_flag, add_later_flags, add_use_kernels_flag, check_later_flags
+from .common import (add_device_flag, add_later_flags, add_parallel_flags, add_use_kernels_flag,
+                     check_later_flags, resolve_mesh_kernels, setup_parallel)
 
 # Flags of the JAX CLI that wait for a later slice, with their defaults.
-LATER_FLAGS = {"remat": "0", "scan_unroll": 1, "dp": 0, "tp": 1, "cp": 1,
-               "multihost": 0, "coordinator_address": None, "num_processes": None,
-               "process_id": None, "visualize": 0}
+LATER_FLAGS = {"remat": "0", "scan_unroll": 1, "visualize": 0}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,6 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_device_flag(p)
     p.add_argument("--pad_to_multiple", default=1, type=int,
                    help="pad CV batches to a sample multiple")
+    add_parallel_flags(p, dp_default=0)
     add_later_flags(p, LATER_FLAGS)
     return p
 
@@ -93,7 +103,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     print(args)
     check_later_flags(args, LATER_FLAGS)
-    device = resolve_device(args.device)
+    device, mesh, joined = setup_parallel(args)
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _train(args, device, mesh):
     model_cfg = ConvTasNetConfig(
         N=args.N, L=args.L, B=args.B, H=args.H, P=args.P, X=args.X, R=args.R, C=args.C,
         norm_type=args.norm_type, causal=bool(args.causal),
@@ -106,11 +124,17 @@ def main(argv=None):
         segment=args.segment, cv_maxlen=args.cv_maxlen, shuffle=bool(args.shuffle),
         save_folder=args.save_folder, checkpoint=bool(args.checkpoint),
         continue_from=args.continue_from, save_every_steps=args.save_every_steps,
-        model_path=args.model_path, print_freq=args.print_freq, seed=args.seed)
+        model_path=args.model_path, print_freq=args.print_freq, seed=args.seed,
+        dp=mesh.dp if mesh else 1, tp=args.tp, cp=args.cp)
+    if mesh is not None:
+        model_cfg = resolve_mesh_kernels(model_cfg, mesh.tp, mesh.cp)
 
     tr_dataset = AudioDataset(args.train_dir, args.batch_size, sample_rate=args.sample_rate,
                               segment=args.segment, num_speakers=args.C)
-    cv_dataset = AudioDataset(args.valid_dir, batch_size=max(1, args.cv_batch_size),
+    cv_bs = args.cv_batch_size
+    if cv_bs <= 0:  # one utterance per data rank (the JAX CLI's rule)
+        cv_bs = mesh.dp if mesh is not None and mesh.cp == 1 else 1
+    cv_dataset = AudioDataset(args.valid_dir, batch_size=cv_bs,
                               sample_rate=args.sample_rate, segment=-1,
                               cv_maxlen=args.cv_maxlen, num_speakers=args.C,
                               pad_to_multiple=args.pad_to_multiple)
@@ -120,7 +144,7 @@ def main(argv=None):
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = ConvTasNet(model_cfg, device=device, generator=gen)
-    return Solver(model, train_cfg, tr_loader, cv_loader).train()
+    return Solver(model, train_cfg, tr_loader, cv_loader, mesh=mesh).train()
 
 
 if __name__ == "__main__":

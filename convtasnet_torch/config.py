@@ -133,7 +133,7 @@ class ConvTasNetConfig:
 
 
 # TrainConfig fields whose non-default values wait for a later slice.
-_LATER = {"dp": 1, "tp": 1, "cp": 1, "visualize": False}
+_LATER = {"visualize": False}
 
 
 @dataclasses.dataclass(frozen=True)

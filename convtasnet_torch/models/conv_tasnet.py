@@ -19,6 +19,21 @@ per-block recompute op (ops/kernels/whole_block_vjp.py); else the eager
 `_temporal_block` chain under autograd, which BN always takes. The
 stacked [R, X, ...] block parameters reach the ops as [NB, ...] views, so
 their gradients flow back to the leaves.
+
+`par` (parallel/comm.ParallelContext, default None) carries the process
+groups of a parallel run. Under TP (its model group) every rank holds the
+pieces parallel/mesh._TP_RULES cut: the input cLN runs on the whole w and
+is then cut over N, the bottleneck is row-parallel over N (one
+all-reduce), each block is column-parallel over H into PReLU, the norms
+(statistics all-reduced) and the depthwise conv, and row-parallel out of
+it (one all-reduce), the mask is cut over N inside each speaker, and the
+decoder contracts its N piece (one all-reduce). Under CP (its context
+group) the frames are cut (parallel/context.py): gLN statistics reduce
+over the group and the depthwise convs exchange halos. Either runs the
+eager chain, as the JAX package does under TP and CP. Its data group
+only reaches BN (batch statistics over the global batch); without TP or
+CP the path, the dispatch and the kernel launches are the single-card
+ones.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from ..ops.kernels.whole_block_vjp import whole_block_train
 from ..ops.kernels.whole_tcn import alloc_scratch, whole_tcn
 from ..ops.kernels.whole_tcn_hybrid import whole_tcn_train
 from ..ops.norms import apply_norm
+from ..parallel.comm import ParallelContext, copy_to, group_rank, group_size, reduce_from
 from ..utils.initializers import xavier_normal
 
 Params = Dict[str, Any]
@@ -172,27 +188,35 @@ def encode(params: Params, cfg: ConvTasNetConfig, mixture: torch.Tensor) -> torc
 
 def _temporal_block(x: torch.Tensor, bp: Dict[str, torch.Tensor],
                     bstate: Optional[Dict[str, torch.Tensor]],
-                    cfg: ConvTasNetConfig, dilation: int, train: bool
-                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+                    cfg: ConvTasNetConfig, dilation: int, train: bool,
+                    par: ParallelContext) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One residual block, op by op (conv_tasnet.py:212-272): 1x1 -> PReLU
     -> norm -> dilated depthwise -> PReLU -> norm -> 1x1, + residual."""
     dt = cfg.dtype
-    y = pointwise(x, bp["in_w"], dt).to(dt)
-    y = prelu(y, bp["in_prelu"])
+    tp = par.model
+    a1, a2 = bp["in_prelu"], bp["dw_prelu"]
+    xin = x
+    if tp is not None:  # replicated x and slopes feed the H-cut work
+        xin, a1, a2 = copy_to(x, tp), copy_to(a1, tp), copy_to(a2, tp)
+    groups = par.norm_groups(cfg.norm_type)
+    y = pointwise(xin, bp["in_w"], dt).to(dt)
+    y = prelu(y, a1)
     s_in = None if bstate is None else {"mean": bstate["in_mean"], "var": bstate["in_var"]}
     y, s_in = apply_norm(cfg.norm_type, y, {"gamma": bp["in_gamma"],
-                                            "beta": bp["in_beta"]}, s_in, train)
-    y = depthwise_dilated(y, bp["dw_w"], dilation, cfg.causal)
-    y = prelu(y, bp["dw_prelu"])
+                                            "beta": bp["in_beta"]}, s_in, train, groups)
+    y = depthwise_dilated(y, bp["dw_w"], dilation, cfg.causal, par.context)
+    y = prelu(y, a2)
     s_dw = None if bstate is None else {"mean": bstate["dw_mean"], "var": bstate["dw_var"]}
     y, s_dw = apply_norm(cfg.norm_type, y, {"gamma": bp["dw_gamma"],
-                                            "beta": bp["dw_beta"]}, s_dw, train)
+                                            "beta": bp["dw_beta"]}, s_dw, train, groups)
     new_state = None
     if bstate is not None:
         new_state = {"in_mean": s_in["mean"], "in_var": s_in["var"],
                      "dw_mean": s_dw["mean"], "dw_var": s_dw["var"]}
-    y = pointwise(y, bp["out_w"], dt).to(dt)
-    return x + y, new_state
+    y = pointwise(y, bp["out_w"], dt)
+    if tp is not None:
+        y = reduce_from(y, tp)
+    return x + y.to(dt), new_state
 
 
 def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
@@ -230,19 +254,32 @@ def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
     return x[:, :K]
 
 
+def _n_piece(x: torch.Tensor, tp) -> torch.Tensor:
+    """This TP rank's chunk of the last (N) axis of a replicated x."""
+    n = x.shape[-1] // group_size(tp)
+    r = group_rank(tp)
+    return copy_to(x, tp)[..., r * n:(r + 1) * n]
+
+
 def separate(params: Params, state: State, cfg: ConvTasNetConfig,
-             mixture_w: torch.Tensor, train: bool = False
-             ) -> Tuple[torch.Tensor, State]:
-    """Mask estimation TCN: [M, K, N] -> ([M, K, C, N] mask, new_state)."""
+             mixture_w: torch.Tensor, train: bool = False,
+             par: Optional[ParallelContext] = None) -> Tuple[torch.Tensor, State]:
+    """Mask estimation TCN: [M, K, N] -> ([M, K, C, N] mask, new_state);
+    under TP the mask is this rank's [M, K, C, N / tp] piece."""
+    par = par or ParallelContext()
     sp = params["separator"]
     dt = cfg.dtype
-    M, K, N = mixture_w.shape
+    tp = par.model
+    M, K, _ = mixture_w.shape
     # The input norm is always cLN whatever norm_type (conv_tasnet.py:167).
     x, _ = apply_norm("cLN", mixture_w, sp["ln"], None, train)
-    x = pointwise(x, sp["bottleneck"]["w"], dt).to(dt)  # [M, K, B]
+    if tp is not None:
+        x = reduce_from(pointwise(_n_piece(x, tp), sp["bottleneck"]["w"], dt), tp).to(dt)
+    else:
+        x = pointwise(x, sp["bottleneck"]["w"], dt).to(dt)  # [M, K, B]
 
     new_state = state
-    form = cfg.kernel_form(train, mixture_w.device)
+    form = "eager" if par.sharded else cfg.kernel_form(train, mixture_w.device)
     if form != "eager":
         x = _kernel_chain(x, sp["blocks"], cfg, form)
     else:
@@ -254,14 +291,16 @@ def separate(params: Params, state: State, cfg: ConvTasNetConfig,
                 bp = {k: v[r, xi] for k, v in sp["blocks"].items()}
                 bs = ({k: v[r, xi] for k, v in block_state.items()}
                       if block_state is not None else None)
-                x, nbs = _temporal_block(x, bp, bs, cfg, 2 ** xi, train)
+                x, nbs = _temporal_block(x, bp, bs, cfg, 2 ** xi, train, par)
                 for k, v in (nbs or {}).items():
                     new_bs.setdefault(k, []).append(v)
         if has_bn:
             new_state = {"blocks": {k: torch.stack(v).reshape(cfg.R, cfg.X, -1)
                                     for k, v in new_bs.items()}}
 
-    score = pointwise(x, sp["mask"]["w"], dt).reshape(M, K, cfg.C, N)  # f32
+    if tp is not None:
+        x = copy_to(x, tp)
+    score = pointwise(x, sp["mask"]["w"], dt).reshape(M, K, cfg.C, -1)  # f32
     if cfg.mask_nonlinear == "softmax":
         mask = torch.softmax(score, dim=2)
     else:
@@ -269,26 +308,38 @@ def separate(params: Params, state: State, cfg: ConvTasNetConfig,
     return mask.to(dt), new_state
 
 
-def decode(params: Params, cfg: ConvTasNetConfig, mixture_w: torch.Tensor,
-           est_mask: torch.Tensor) -> torch.Tensor:
-    """Masked synthesis + overlap-add: -> [M, C, (K-1)*S + L] float32.
+def decode_frames(params: Params, cfg: ConvTasNetConfig, mixture_w: torch.Tensor,
+                  est_mask: torch.Tensor, par: Optional[ParallelContext] = None
+                  ) -> torch.Tensor:
+    """Masked synthesis before the overlap-add: -> [M, C, K, L] float32.
 
     JAX multiplies in the compute dtype and contracts with
     preferred_element_type=f32; here the rounded product is up-cast and
-    the contraction runs in f32 (same rounding points)."""
+    the contraction runs in f32 (same rounding points). Under TP each rank
+    contracts its N piece and the pieces are summed."""
     dt = cfg.dtype
+    tp = None if par is None else par.model
+    if tp is not None:
+        mixture_w = _n_piece(mixture_w, tp)
     source_w = (mixture_w[:, :, None, :] * est_mask).to(dt)  # [M, K, C, N]
     V = params["decoder"]["V"].to(dt).float()
     est_frames = torch.matmul(source_w.float().permute(0, 2, 1, 3), V)  # [M, C, K, L]
-    return overlap_and_add(est_frames, cfg.stride)
+    return est_frames if tp is None else reduce_from(est_frames, tp)
+
+
+def decode(params: Params, cfg: ConvTasNetConfig, mixture_w: torch.Tensor,
+           est_mask: torch.Tensor, par: Optional[ParallelContext] = None) -> torch.Tensor:
+    """Masked synthesis + overlap-add: -> [M, C, (K-1)*S + L] float32."""
+    return overlap_and_add(decode_frames(params, cfg, mixture_w, est_mask, par), cfg.stride)
 
 
 def forward(params: Params, state: State, cfg: ConvTasNetConfig,
-            mixture: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, State]:
+            mixture: torch.Tensor, train: bool = False,
+            par: Optional[ParallelContext] = None) -> Tuple[torch.Tensor, State]:
     """Full model: [M, T] -> ([M, C, T] float32 estimates, new_state)."""
     mixture_w = encode(params, cfg, mixture)
-    est_mask, new_state = separate(params, state, cfg, mixture_w, train)
-    est_source = decode(params, cfg, mixture_w, est_mask)
+    est_mask, new_state = separate(params, state, cfg, mixture_w, train, par)
+    est_source = decode(params, cfg, mixture_w, est_mask, par)
     T, T_conv = mixture.shape[-1], est_source.shape[-1]
     return F.pad(est_source, (0, T - T_conv)), new_state
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.comm import shift_left, shift_right
+
 
 def pointwise(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """1x1 conv: [M, K, cin] @ [cin, cout] -> [M, K, cout] float32.
@@ -26,17 +28,33 @@ def pointwise(x: torch.Tensor, w: torch.Tensor, compute_dtype=None) -> torch.Ten
 
 
 def depthwise_dilated(x: torch.Tensor, w: torch.Tensor, dilation: int,
-                      causal: bool) -> torch.Tensor:
+                      causal: bool, context=None) -> torch.Tensor:
     """Depthwise dilated conv over time. x [M, K, ch], w [P, ch] -> [M, K, ch].
 
     Causal pads (P-1)*d on the left (the reference's pad-both-then-chomp,
     conv_tasnet.py:251-252); non-causal pads span//2 left and span - span//2
-    right. The taps sum in x's dtype, as in the JAX op."""
+    right. The taps sum in x's dtype, as in the JAX op.
+
+    context: the CP group when the frame axis is cut over ranks; the halos
+    then come from the neighbours (convtasnet_tpu/ops/conv.py:56-80), with
+    zeros only at the sequence's true ends, and a shard shorter than its
+    halo sends itself zero-padded."""
     P = w.shape[0]
     span = (P - 1) * dilation
     left, right = (span, 0) if causal else (span // 2, span - span // 2)
     K = x.shape[1]
-    xp = F.pad(x, (0, 0, left, right))
+    if context is None:
+        xp = F.pad(x, (0, 0, left, right))
+    else:
+        parts = []
+        if left > 0:
+            send = x[:, K - left:] if left <= K else F.pad(x, (0, 0, left - K, 0))
+            parts.append(shift_right(send, context))
+        parts.append(x)
+        if right > 0:
+            send = x[:, :right] if right <= K else F.pad(x, (0, 0, 0, right - K))
+            parts.append(shift_left(send, context))
+        xp = torch.cat(parts, dim=1)
     wd = w.to(x.dtype)
     out = None
     for p in range(P):

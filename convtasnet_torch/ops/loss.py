@@ -15,6 +15,11 @@ The reference's quirks are kept:
   * the reorder uses the argmax permutation directly, not its inverse
     (pit_criterion.py:91-97): the same for C=2, kept for C>=3;
   * rows of length 0 (batch padding) get weight 0 in the mean.
+
+Under DP (`group`, the data group) each rank holds some rows of the
+global padded batch; its loss is its rows' numerator over the global count
+of real rows (one all-reduce, never read to the host), so the ranks'
+losses sum to the global mean (a padded rank may hold fewer real rows).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import EPS
+from ..parallel.comm import all_reduce_
 
 
 def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
@@ -102,10 +108,14 @@ def reorder_source(source: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 
 def cal_loss(source: torch.Tensor, estimate: torch.Tensor, lengths: torch.Tensor,
-             method: str = "direct"):
+             method: str = "direct", group=None):
     """Reference-compatible entry (pit_criterion.py:12-24): returns (loss,
-    max_snr [B], masked_estimate, reordered_estimate)."""
+    max_snr [B], masked_estimate, reordered_estimate); with `group` the
+    loss is this rank's share of the global mean."""
     max_snr, best_perm, masked_est = si_snr_with_pit(source, estimate, lengths, method)
     w = (lengths > 0).to(max_snr.dtype)
-    loss = -(max_snr * w).sum() / torch.clamp(w.sum(), min=1.0)
+    count = w.sum()
+    if group is not None:
+        count = all_reduce_(count.detach().clone(), group)
+    loss = -(max_snr * w).sum() / torch.clamp(count, min=1.0)
     return loss, max_snr, masked_est, reorder_source(masked_est, best_perm)

@@ -6,7 +6,8 @@ train.py:72-80 and solver.py:184-185):
     AdamW), bias correction, and eps outside the sqrt;
   * SGD in torch's form, buf = momentum * buf + g, p -= lr * buf;
   * clip_by_global_norm as torch's clip_grad_norm_: scale by
-    max_norm / (||g|| + 1e-6) only when the norm exceeds max_norm.
+    max_norm / (||g|| + 1e-6) only when the norm exceeds max_norm; under
+    TP the norm sums the squares of the cut leaves over the model group.
 
 Trees are nested dicts of tensors. The state keeps the JAX package's leaf
 structure (`step`, `lr`, `mu/...`, `nu/...`; SGD without momentum keeps
@@ -17,9 +18,11 @@ learning-rate change needs no rebuild.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
+
+from ..parallel.comm import all_reduce_
 
 Tree = Any
 
@@ -44,13 +47,40 @@ class OptState(NamedTuple):
     nu: Dict[str, Any]  # second moment (adam) or placeholders
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in tree_leaves(tree)))
+def tree_map_paths(fn: Callable[[str, Any], Any], tree: Tree, prefix: str = "") -> Tree:
+    """tree_map with each leaf's path (keys joined by "/") as fn's first argument."""
+    if isinstance(tree, dict):
+        return {k: tree_map_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    return fn(prefix, tree)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+def tree_paths(tree: Tree) -> List[Tuple[str, torch.Tensor]]:
+    """(path, leaf) pairs in tree_leaves' order."""
+    pairs: List[Tuple[str, torch.Tensor]] = []
+    tree_map_paths(lambda p, t: pairs.append((p, t)), tree)
+    return sorted(pairs, key=lambda pair: pair[0].split("/"))
+
+
+def global_norm(tree: Tree, group=None, sharded: Sequence[str] = ()) -> torch.Tensor:
+    """The L2 norm of every leaf. Under TP (`group`, the model group) the
+    leaves at the `sharded` paths are this rank's pieces: their squares
+    are summed over the group (one all-reduce) and the replicated leaves
+    count once."""
+    if group is None:
+        return torch.sqrt(sum((g.float() ** 2).sum() for g in tree_leaves(tree)))
+    parts = {True: [], False: []}
+    for path, g in tree_paths(tree):
+        parts[path in sharded].append((g.float() ** 2).sum())
+    zero = tree_leaves(tree)[0].new_zeros((), dtype=torch.float32)
+    cut = all_reduce_(sum(parts[True], zero).clone(), group)
+    return torch.sqrt(cut + sum(parts[False], zero))
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float, group=None,
+                        sharded: Sequence[str] = ()) -> Tuple[Tree, torch.Tensor]:
     """clip_grad_norm_ semantics: (grads * min(1, max_norm / (norm + 1e-6)), norm)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, group, sharded)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 

@@ -14,6 +14,17 @@ solver.py:12-210):
 * the CV mean weights each batch by its real utterance count;
 * device scalars (loss) are read back only at print_freq points and at
   the end of an epoch, so the host keeps queueing steps.
+
+On a process mesh (parallel/mesh.py; one process per card) every rank
+loads the same global batch and keeps its rows (`shard_batch`), and its
+pieces of the parameters under TP (`shard_params`). The parameters are
+broadcast from rank 0 at the start and after `continue_from`. A train
+step runs the forward on the rank's rows, divides its loss by the global
+count of real rows, and sums the gradients over the ranks that share its
+model coordinate in one flat-bucket all-reduce, with the loss riding in
+the same bucket; a CV step sums its loss over the data group. Only the
+coordinator logs and writes, and under TP it writes the whole tree, so
+the checkpoint loads at tp 1 in either package.
 """
 
 from __future__ import annotations
@@ -28,35 +39,74 @@ import torch
 from ..config import ConvTasNetConfig, TrainConfig
 from ..models.conv_tasnet import ConvTasNet, forward
 from ..ops.loss import cal_loss
+from ..parallel.comm import GradBucket, all_reduce_
+from ..parallel.context import make_cp_eval_step, make_cp_train_step
+from ..parallel.distributed import is_coordinator
+from ..parallel.mesh import (broadcast_tree, gather_params, shard_batch_fn, shard_params_fn,
+                             tp_sharded_paths)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .optim import Optimizer, clip_by_global_norm, set_lr, tree_leaves, tree_map
 
 
-def make_train_step(cfg: ConvTasNetConfig, opt: Optimizer, max_norm: float) -> Callable:
+def _forward_fn(cfg: ConvTasNetConfig, mesh, train: bool) -> Callable:
+    par = None if mesh is None else mesh.par
+    return lambda p, s, m: forward(p, s, cfg, m, train=train, par=par)
+
+
+def make_train_step(cfg: ConvTasNetConfig, opt: Optimizer, max_norm: float,
+                    mesh=None, forward_fn: Optional[Callable] = None) -> Callable:
     """step(params, opt_state, state, mixture, source, lengths) ->
-    (params, opt_state, state, loss, grad_norm), all on the device."""
+    (params, opt_state, state, loss, grad_norm), all on the device.
+
+    With a mesh (parallel/mesh.py) the step is one rank's: its rows, its
+    TP pieces, and per step one all-reduce of the real-row count and one
+    of the gradient bucket (which also sums the loss to the global mean),
+    plus the collectives of TP, CP and BN. forward_fn(params, state,
+    mixture) -> (est, new_state) replaces the forward (the CP step)."""
+    forward_fn = forward_fn or _forward_fn(cfg, mesh, True)
+    bucket: List[GradBucket] = []
+    sharded: tuple = ()
 
     def step(params, opt_state, state, mixture, source, lengths):
+        nonlocal sharded
         leaves_tree = tree_map(lambda p: p.detach().requires_grad_(True), params)
         leaves = tree_leaves(leaves_tree)
-        est, new_state = forward(leaves_tree, state, cfg, mixture, train=True)
-        loss, *_ = cal_loss(source, est, lengths)
-        grad_of = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+        est, new_state = forward_fn(leaves_tree, state, mixture)
+        loss, *_ = cal_loss(source, est, lengths, group=None if mesh is None else mesh.data)
+        grad_list = torch.autograd.grad(loss, leaves)
+        loss = loss.detach()
+        model_group = None
+        if mesh is not None:
+            if not bucket:
+                bucket.append(GradBucket(leaves, mesh.replica, extra=1))
+                sharded = tp_sharded_paths(params) if mesh.tp > 1 else ()
+            # The context ranks of a row share one loss: count it once.
+            share = loss if mesh.context_rank == 0 else torch.zeros_like(loss)
+            grad_list, summed = bucket[0].reduce(grad_list, [share])
+            loss = summed[0].clone()  # summed is a view of the reused bucket
+            model_group = mesh.model if mesh.tp > 1 else None
+        grad_of = dict(zip(map(id, leaves), grad_list))
         grads = tree_map(lambda p: grad_of[id(p)], leaves_tree)
-        grads, grad_norm = clip_by_global_norm(grads, max_norm)
+        grads, grad_norm = clip_by_global_norm(grads, max_norm, model_group, sharded)
         params, opt_state = opt.update(grads, opt_state, params)
         new_state = tree_map(lambda t: t.detach(), new_state)
-        return params, opt_state, new_state, loss.detach(), grad_norm
+        return params, opt_state, new_state, loss, grad_norm
 
+    step.bucket = bucket
     return step
 
 
-def make_eval_step(cfg: ConvTasNetConfig) -> Callable:
+def make_eval_step(cfg: ConvTasNetConfig, mesh=None,
+                   forward_fn: Optional[Callable] = None) -> Callable:
+    """step(params, state, mixture, source, lengths) -> loss; with a mesh
+    the loss of the global batch (its shares summed over the data group)."""
+    forward_fn = forward_fn or _forward_fn(cfg, mesh, False)
+
     @torch.no_grad()
     def step(params, state, mixture, source, lengths):
-        est, _ = forward(params, state, cfg, mixture, train=False)
-        loss, *_ = cal_loss(source, est, lengths)
-        return loss
+        est, _ = forward_fn(params, state, mixture)
+        loss, *_ = cal_loss(source, est, lengths, group=None if mesh is None else mesh.data)
+        return loss if mesh is None else all_reduce_(loss, mesh.data)
 
     return step
 
@@ -71,12 +121,21 @@ class Solver:
     def __init__(self, model: ConvTasNet, train_cfg: TrainConfig, tr_loader, cv_loader,
                  log: Optional[Callable[[str], None]] = None, metric_logger=None,
                  train_step: Optional[Callable] = None,
-                 eval_step: Optional[Callable] = None):
+                 eval_step: Optional[Callable] = None,
+                 mesh=None, shard_batch: Optional[Callable] = None,
+                 shard_params: Optional[Callable] = None):
         self.model = model
         self.cfg = train_cfg
         self.tr_loader = tr_loader
         self.cv_loader = cv_loader
         self.device = next(model.parameters()).device
+        self.mesh = mesh
+        self.shard_batch = shard_batch
+        if mesh is not None:
+            self.shard_batch = shard_batch or shard_batch_fn(mesh)
+            shard_params = shard_params or shard_params_fn(mesh, mesh.tp, model.cfg.C)
+            if not is_coordinator():
+                log, metric_logger = (lambda msg: None), None
         if metric_logger is None and log is None:
             from ..utils.observability import MetricLogger
 
@@ -111,10 +170,19 @@ class Solver:
             if self.resume_step:
                 self.resume_loss = float(extra.get("running_loss", 0.0))
                 self.resume_audio = float(extra.get("running_audio_sec", 0.0))
+        if mesh is not None:
+            broadcast_tree({"params": params, "state": state, "mu": opt_state.mu,
+                            "nu": opt_state.nu, "step": opt_state.step, "lr": opt_state.lr})
+        if shard_params is not None:
+            params, state, opt_state = shard_params(params, state, opt_state)
         self.params, self.state, self.opt_state = params, state, opt_state
+        if mesh is not None and mesh.cp > 1:
+            train_step = train_step or make_cp_train_step(model.cfg, self.opt, mesh,
+                                                          train_cfg.max_norm)
+            eval_step = eval_step or make_cp_eval_step(model.cfg, mesh)
         self.train_step = train_step or make_train_step(model.cfg, self.opt,
-                                                        train_cfg.max_norm)
-        self.eval_step = eval_step or make_eval_step(model.cfg)
+                                                        train_cfg.max_norm, mesh)
+        self.eval_step = eval_step or make_eval_step(model.cfg, mesh)
         self.prev_val_loss = float("inf")
         self.best_val_loss = float("inf")
         self.halving = False
@@ -178,8 +246,9 @@ class Solver:
                 self.log(f"Find better validated model, saving to {path}")
             if stop:
                 break
+        params, _, _ = self._whole()
         with torch.no_grad():
-            for p, new in zip(tree_leaves(self.model.params()), tree_leaves(self.params)):
+            for p, new in zip(tree_leaves(self.model.params()), tree_leaves(params)):
                 p.copy_(new)
         return {"tr_loss": self.tr_loss, "cv_loss": self.cv_loss,
                 "best_val_loss": self.best_val_loss, "history": self.history,
@@ -187,6 +256,9 @@ class Solver:
 
     # ------------------------------------------------------------------
     def _to_device(self, batch):
+        if self.shard_batch is not None:
+            return self.shard_batch(batch.mixture, batch.lengths, batch.source)
+
         def dev(a):
             return torch.from_numpy(np.asarray(a)).to(self.device, non_blocking=True)
 
@@ -244,7 +316,17 @@ class Solver:
         audio_sps = total_audio_sec / max(time.time() - start, 1e-9)
         return epoch_loss / n, audio_sps
 
+    def _whole(self):
+        """(params, state, opt_state) whole: gathered over the TP group."""
+        if self.mesh is None or self.mesh.tp == 1:
+            return self.params, self.state, self.opt_state
+        return gather_params(self.mesh, self.model.cfg.C, self.params, self.state,
+                             self.opt_state)
+
     def _save(self, path: str, epoch: int, extra: Optional[dict] = None) -> None:
-        save_checkpoint(path, self.model.cfg, self.params, self.state,
-                        opt_state=self.opt_state, epoch=epoch, tr_loss=self.tr_loss,
+        params, state, opt_state = self._whole()  # every rank takes part
+        if self.mesh is not None and not is_coordinator():
+            return
+        save_checkpoint(path, self.model.cfg, params, state,
+                        opt_state=opt_state, epoch=epoch, tr_loss=self.tr_loss,
                         cv_loss=self.cv_loss, extra=extra)

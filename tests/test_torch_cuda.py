@@ -674,3 +674,48 @@ def test_graphed_reset_zeroes_state_in_place(dev):
     fresh_a, _ = _streamed(StreamingSeparator(cfg, params, batch=2, device=dev), a, 32)
     fresh_b, _ = _streamed(StreamingSeparator(cfg, params, batch=2, device=dev), b, 32)
     assert torch.equal(first, fresh_a) and torch.equal(second, fresh_b)
+
+
+def test_world1_nccl_dp_step_equals_plain_step(dev, tmp_path):
+    """The DP train step of a one-rank NCCL mesh (count and bucket
+    all-reduces, the hybrid kernels) gives the plain step's loss, norm and
+    parameters bit for bit, in two collectives."""
+    import torch.distributed as dist
+
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.parallel import comm
+    from convtasnet_torch.parallel.mesh import make_mesh
+    from convtasnet_torch.training.optim import Optimizer, tree_leaves
+    from convtasnet_torch.training.solver import make_train_step
+
+    cfg = ConvTasNetConfig(N=64, L=16, B=128, H=256, X=3, R=1, use_kernels="hybrid")
+    params, state = init_params(torch.Generator(device=dev).manual_seed(4), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    src = torch.randn((3, 2, 4000), generator=gen, device=dev) * 0.3
+    mix, lens = src.sum(1), torch.tensor([4000, 4000, 3000], device=dev)
+    opt = Optimizer("adam", lr=1e-3)
+    plain = make_train_step(cfg, opt, 5.0)(params, opt.init(params), state, mix, src, lens)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        step = make_train_step(cfg, opt, 5.0, make_mesh(device=dev))
+        comm.reset_counts()
+        got = step(params, opt.init(params), state, mix, src, lens)
+        torch.cuda.synchronize()
+        assert comm.counts()["collectives"] == 2
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got[3], plain[3]) and torch.equal(got[4], plain[4])
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(plain[0])):
+        assert torch.equal(a, b)
+
+
+def test_profiler_sees_device_time_around_process_groups(dev):
+    """torch.profiler records the card's kernels before, inside and after
+    an NCCL group (file store and torchrun's variables), after a profile
+    of collectives and after two gloo ranks spawned on the same card."""
+    from convtasnet_torch.tools import check_profiler
+
+    assert check_profiler.main(["--scenarios", "nccl", "nccl_env",
+                                "nccl_profiled_collective", "spawn_gloo2"]) == 0

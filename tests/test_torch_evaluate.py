@@ -76,9 +76,12 @@ def test_sdr_backend_auto_is_host_on_cpu(setup):
 
 def test_evaluate_later_flags_and_device(setup):
     args, _ = setup
-    for flag in (["--dp", "2"], ["--tp", "2"], ["--multihost", "1"]):
-        with pytest.raises(SystemExit, match="later slice"):
+    # Parallel flags need one process per card: in one process they raise.
+    for flag in (["--dp", "2"], ["--tp", "2"]):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
             _port(args, "--device", "cpu", *flag)
+    with pytest.raises(RuntimeError, match="no process group to join"):
+        _port(args, "--device", "cpu", "--multihost", "1")
     assert t_eval.build_parser().parse_args(args).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

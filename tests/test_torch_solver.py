@@ -93,11 +93,14 @@ def test_mid_epoch_resume_equals_uninterrupted_run(data, tmp_path):
 
 
 def test_later_slice_flags_raise(data, tmp_path):
-    for flag in (["--remat", "block"], ["--dp", "2"], ["--visualize", "1"]):
+    for flag in (["--remat", "block"], ["--visualize", "1"]):
         with pytest.raises(SystemExit, match="later slice"):
             train_main(_args(data, tmp_path, *flag))
+    # --dp 2 needs two processes (one per card): in one it names torchrun.
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        train_main(_args(data, tmp_path, "--dp", "2"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TrainConfig(tp=2)
+        TrainConfig(visualize=True)
 
 
 CV_SCRIPT = [5.0, 4.0, 4.5, 4.6, 4.7, 3.0, 3.1, 3.2, 3.3, 3.4, 3.5, 3.6, 3.7, 3.8, 3.9, 4.0,
