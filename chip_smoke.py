@@ -76,7 +76,25 @@
    kernels' own time: a wrapper's host time can exceed it), `event_ms` the
    CUDA-event time per call of back-to-back calls, `host_us` the host's
    enqueue time per call;
-10. parallel phase (parallel/, over torch.distributed) at the paper config,
+10. options phase: (a) the eager train step at the paper config (bf16,
+   batch 5 x 4 s) per remat mode (none, repeat, block, dots): loss and
+   per-leaf gradients against remat none (and whether they are equal bit
+   for bit), step ms by CUDA events, and the forward + backward peak of
+   max_memory_allocated, which must order none > dots > block (repeat's is
+   printed, not ordered); (b) `convtasnet_torch.cli.train --visualize 1`
+   for one epoch (--use_kernels hybrid): loss.png written or "visualize
+   failed" logged, a checkpoint either way, the launches of the run; (c)
+   the scaled config (BASELINE.json configs[4]: N=256, L=32, B=256,
+   H=1024, P=3, X=10, R=6, gLN, 16 kHz; on the kernels' launch limits H =
+   1024 and conv span 1024) through convtasnet_torch/tools/
+   bench_scaled_config.py: every training tier (eager_noremat, eager_dots,
+   whole, hybrid) at batch 2 and 8 x 8 s, ok / out of memory, step ms and
+   peak GB, with the launches of whole and hybrid against the counters (60
+   blocks, dilations up to 512); one hybrid and one whole step's loss and
+   gradients against the eager step at batch 2 (bf16); the forward at
+   batch 1 and 2; the kernels line carries each kernel's launches on these
+   runs (`scaled_launches`);
+11. parallel phase (parallel/, over torch.distributed) at the paper config,
    last, on the train phase's dataset: two ranks spawned on cuda:0 over
    gloo (NCCL refuses two ranks on one card; gloo carries all-reduce and
    broadcast of CUDA tensors through the host) run the DP train step
@@ -92,7 +110,7 @@
    path) against forward, and the DP step timed against the plain step in
    turns (CUDA events, device busy from torch.profiler). The world-2 step
    times go through the host and are printed as such;
-11. prints the card again, a {"kernels": [...]} line (each kernel with its
+12. prints the card again, a {"kernels": [...]} line (each kernel with its
    `design`) and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. It imports nothing
@@ -1627,6 +1645,215 @@ def backward_timing(stacked, cfg, dev, M=5, K=3199):
     return out
 
 
+REMAT_MODES = ("none", "repeat", "block", "dots")
+SCALED_SEG_S = 8.0      # the scaled tool's default segment at 16 kHz
+SCALED_STEPS = 3        # timed steps per tier (after the tool's 2 warm-up steps)
+SCALED_INFER_ITERS = 23  # bench_infer: 3 warm-up + 20 timed forwards
+
+
+def _grad_checks(chk, what, loss, grads, ref_loss, ref, ltol, gtol):
+    """Loss and per-leaf gradients against a reference, as the train phase
+    holds them; returns whether both are equal bit for bit."""
+    chk(f"{what}: loss ({loss:.5f} vs {ref_loss:.5f})",
+        abs(loss - ref_loss) / max(abs(ref_loss), 1e-6), ltol)
+    worst = max((rel_l2(a, b), i) for i, (a, b) in enumerate(zip(grads, ref)))
+    chk(f"{what}: gradients, worst leaf #{worst[1]} (relative L2)", worst[0], gtol)
+    return loss == ref_loss and all(torch.equal(a, b) for a, b in zip(grads, ref))
+
+
+def remat_phase(cfg, dev, chk):
+    """(a) the eager train step (bf16, batch 5 x 4 s, paper config) per
+    remat mode: loss and gradients against remat none, bit equality, step
+    ms and the peak memory of forward + backward above what was held."""
+    import dataclasses
+
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.tools._bench import device_batch
+    from convtasnet_torch.training.optim import Optimizer
+    from convtasnet_torch.training.solver import make_train_step
+
+    params, state = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    mix, lens, src = device_batch(0, 5, cfg.C, 4 * SR, SR, dev)
+    out, ref = {}, None
+    for mode in REMAT_MODES:
+        c = dataclasses.replace(cfg, use_kernels="0", remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_all_counts()
+        loss, grads = step_grads(params, state, c, mix, src, lens)
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        chk(f"remat {mode}: kernel launches (eager chain)", float(sum(all_counts().values())), 0)
+        if ref is None:
+            ref, bits = (loss, grads), True
+        else:
+            bits = _grad_checks(chk, f"remat {mode} vs none, bf16", loss, grads, *ref,
+                                TOL_LOSS_BF16, TOL_GRAD_BF16)
+        opt = Optimizer("adam", lr=1e-3)
+        step = make_train_step(c, opt, 5.0)
+        opt_state = opt.init(params)
+        ms, n = forward_ms(lambda: step(params, opt_state, state, mix, src, lens), iters=5,
+                           warm=1)
+        out[mode] = {"step_ms": ms, "peak_gb": peak_gb, "bit_equal_to_none": bits,
+                     "loss": loss}
+        log(f"  remat {mode}: train step batch 5 x 4 s bf16 median {ms:.3f} ms of {n}, "
+            f"forward + backward peak {peak_gb:.3f} GB above {held / 1e9:.3f} GB held, "
+            f"loss {loss:.6f}, bit-equal to none: {bits}")
+        del grads
+    peaks = [out[m]["peak_gb"] for m in ("none", "dots", "block")]
+    chk(f"remat peak memory none > dots > block ({peaks})",
+        float(not peaks[0] > peaks[1] > peaks[2]), 0)
+    return out
+
+
+def visualize_phase(cfg, dev, chk, hybrid_run, tmp):
+    """(b) the train CLI with --visualize 1 for one epoch (the main path,
+    --use_kernels hybrid): it writes loss.png or logs "visualize failed",
+    and finishes with a checkpoint either way."""
+    from convtasnet_torch.cli.train import main as train_main
+    from convtasnet_torch.training.checkpoint import load_checkpoint
+
+    NB = cfg.R * cfg.X
+    folder = os.path.join(tmp, "exp_visualize")
+    argv = hybrid_run["argv"] + ["--visualize", "1", "--save_folder", folder]
+    reset_all_counts()
+    out = train_main(argv)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    per = per_step_launches("hybrid", NB)
+    cv = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+    n_cv = 4  # the train phase's cv utterances, one forward each
+    chk(f"visualize run: launches of every kernel vs its counter {counts}",
+        max(abs(v - out["steps"] * per.get(k, 0) - n_cv * cv.get(k, 0))
+            for k, v in counts.items()), 0)
+    with open(os.path.join(folder, "train.log")) as f:
+        failed = [line.strip() for line in f if "visualize failed" in line]
+    png = {n: os.path.exists(os.path.join(folder, n)) for n in ("loss.png", "loss_iter.png")}
+    ck = load_checkpoint(os.path.join(folder, "final.ckpt"), dev)
+    chk("visualize run: losses finite",
+        float(not np.all(np.isfinite(out["tr_loss"] + out["cv_loss"]))), 0)
+    chk("visualize run: loss.png written or the failure logged",
+        float(not (png["loss.png"] or failed)), 0)
+    chk("visualize run: final.ckpt has optimizer state", float(not ck["header"]["has_opt"]), 0)
+    log(f"  train --visualize 1: {out['steps']} steps, tr_loss {out['tr_loss']}, "
+        f"rendered {png}, logged failures {failed[:2]}")
+    return {"rendered": png, "failures": failed[:2]}
+
+
+def scaled_phase(dev, chk):
+    """(c) the scaled config (BASELINE.json configs[4]: H=1024, X=10, R=6,
+    L=32, 16 kHz) through tools/bench_scaled_config: every training tier at
+    batch 2 and 8 x 8 s (ok / oom, step ms, peak GB), with the kernel
+    launches of whole and hybrid against their counters (60 blocks,
+    dilations up to 512); the hybrid and whole step's loss and gradients
+    against the eager step at batch 2 (bf16); the forward at batch 1 and 2.
+    Returns (rows, launches summed over the phase's runs)."""
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.tools import bench_scaled_config as bsc
+    from convtasnet_torch.tools._bench import device_batch
+
+    base = bsc.scaled_cfg()
+    NB = base.R * base.X  # 60
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    rows = []
+    for batch in (2, 8):
+        for tier in bsc.TIERS:
+            torch.cuda.synchronize()
+            reset_all_counts()
+            row = bsc.bench_train(tier, batch, SCALED_SEG_S, SCALED_STEPS, dev)
+            torch.cuda.synchronize()
+            counts = all_counts()
+            add(counts)
+            rows.append(row)
+            state = (f"{row['step_ms']:.2f} ms/step, {row['audio_sps']:.1f} audio-s/s"
+                     if row["ok"] else f"OOM ({row['error'][:120]})")
+            log(f"  scaled train {tier} batch {batch}: form {row['form']}, {state}, "
+                f"peak {row['peak_gb']:.2f} GB ({row['held_gb']:.2f} held before), "
+                f"launches {counts}")
+            if not row["ok"]:
+                chk(f"scaled {tier} batch {batch}: failure is an out-of-memory error",
+                    float(not row["oom"]), 0)
+                continue
+            chk(f"scaled {tier} batch {batch}: loss finite", float(not np.isfinite(row["loss"])), 0)
+            form = {"hybrid": "hybrid", "whole": "whole"}.get(tier)
+            per = per_step_launches(form, NB) if form else {}
+            if form:
+                chk(f"scaled {tier} batch {batch}: form {row['form']}",
+                    float(row["form"] != {"hybrid": "whole_tcn_train",
+                                          "whole": "whole_block_train"}[tier]), 0)
+            chk(f"scaled {tier} batch {batch}: launches of every kernel vs its counter",
+                max(abs(v - row["steps_run"] * per.get(k, 0)) for k, v in counts.items()), 0)
+    for tier in ("hybrid", "whole"):
+        chk(f"scaled {tier}: fits at batch 8", float(not next(
+            r for r in rows if r["tier"] == tier and r["batch"] == 8)["ok"]), 0)
+
+    # The kernels against eager autograd at H=1024 and span 1024: one step's
+    # loss and gradients at batch 2 x 8 s, bf16.
+    params, state = init_params(torch.Generator(device=dev).manual_seed(0), base, device=dev)
+    mix, lens, src = device_batch(0, 2, base.C, int(SCALED_SEG_S * bsc.SR), bsc.SR, dev)
+    torch.cuda.empty_cache()
+    ref_loss, ref = step_grads(params, state, bsc.scaled_cfg(**bsc.TIERS["eager_noremat"]),
+                               mix, src, lens)
+    grads_check = {}
+    for tier in ("hybrid", "whole"):
+        reset_all_counts()
+        loss, grads = step_grads(params, state, bsc.scaled_cfg(**bsc.TIERS[tier]), mix, src,
+                                 lens)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        add(counts)
+        per = per_step_launches(tier, NB)
+        chk(f"scaled step {tier}: launches of every kernel vs its counter {counts}",
+            max(abs(v - per.get(k, 0)) for k, v in counts.items()), 0)
+        _grad_checks(chk, f"scaled step {tier} vs eager, bf16, batch 2 x 8 s", loss, grads,
+                     ref_loss, ref, TOL_LOSS_BF16, TOL_GRAD_BF16)
+        grads_check[tier] = {"loss": loss, "eager_loss": ref_loss,
+                             "worst_leaf_rel_l2": max(rel_l2(a, b) for a, b in zip(grads, ref))}
+        del grads
+    del ref, params, state
+    torch.cuda.empty_cache()
+
+    for batch in (1, 2):
+        reset_all_counts()
+        row = bsc.bench_infer(batch, SCALED_SEG_S, dev)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        add(counts)
+        rows.append(row)
+        log(f"  scaled infer batch {batch}: form {row['kernel_tier']}, {row['latency_ms']:.3f} ms "
+            f"({row['audio_sps']:.1f} audio-s/s), matmul floor {row['matmul_floor_ms']:.3f} ms "
+            f"({row['matmul_floor_frac']:.3f} of it), peak {row['peak_gb']:.2f} GB")
+        chk(f"scaled infer batch {batch}: form", float(row["kernel_tier"] != "whole_tcn"), 0)
+        want = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+        chk(f"scaled infer batch {batch}: launches of every kernel vs its counter {counts}",
+            max(abs(v - SCALED_INFER_ITERS * want.get(k, 0)) for k, v in counts.items()), 0)
+    torch.cuda.empty_cache()
+    return {"rows": rows, "grads": grads_check}, total
+
+
+def options_phase(cfg, dev, hybrid_run, tmp):
+    """The training options and the scaled config: (a) remat modes, (b)
+    --visualize, (c) the scaled config's tiers. Returns (results, the
+    kernel launches of the scaled config's runs)."""
+    chk = Checks("options phase")
+    torch.cuda.empty_cache()
+    log(" (a) remat modes, eager train step at the paper config:")
+    res = {"remat": remat_phase(cfg, dev, chk)}
+    log(" (b) train --visualize 1:")
+    res["visualize"] = visualize_phase(cfg, dev, chk, hybrid_run, tmp)
+    log(" (c) the scaled config (H=1024, X=10, R=6, 16 kHz):")
+    res["scaled"], scaled_launches = scaled_phase(dev, chk)
+    chk.done()
+    return res, scaled_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -2019,6 +2246,16 @@ def main() -> int:
 
     train_timing.update(backward_timing(stacked, cfg, dev, M=M5, K=K))
 
+    # ---- options phase: remat, --visualize, the scaled config ---------------
+    log("options phase:")
+    t0 = time.perf_counter()
+    opt_res, scaled_launches = options_phase(cfg, dev, hybrid_run, train_tmp.name)
+    opt_res["phase_s"] = time.perf_counter() - t0
+    for k in kernels:
+        k["scaled_launches"] = scaled_launches.get(k["name"], 0)
+        if k["scaled_launches"] <= 0:
+            raise AssertionError(f"{k['name']} was not launched on the scaled config's path")
+
     # ---- parallel phase: DP / TP over torch.distributed ---------------------
     # Last, so that no kernel time above depends on it: one H100 run had
     # torch.profiler record no device time after this phase, which neither
@@ -2030,7 +2267,7 @@ def main() -> int:
         par_timing = parallel_phase(cfg, dev, train_tmp.name, hybrid_run)
     par_timing["phase_s"] = time.perf_counter() - t0
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
-                    "evaluate": eval_timing, "stream": stream_timing,
+                    "evaluate": eval_timing, "stream": stream_timing, "options": opt_res,
                     "parallel": par_timing}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))

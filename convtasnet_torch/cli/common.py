@@ -87,22 +87,3 @@ def resolve_mesh_kernels(cfg, tp: int, cp: int):
         return dataclasses.replace(cfg, use_kernels="0")
     return cfg
 
-
-# Type of each JAX CLI flag that waits for a later slice of the port.
-_LATER_TYPES = {"remat": str, "scan_unroll": int, "visualize": int}
-
-
-def add_later_flags(p: argparse.ArgumentParser, defaults: dict) -> None:
-    """Parse the JAX CLI's flags that wait for a later slice of the port
-    (remat, scan_unroll, visualize), each with that CLI's default;
-    check_later_flags raises on any other value."""
-    for flag, default in defaults.items():
-        p.add_argument(f"--{flag}", default=default, type=_LATER_TYPES[flag],
-                       help="not ported yet: only the default is accepted")
-
-
-def check_later_flags(args: argparse.Namespace, defaults: dict) -> None:
-    for flag, default in defaults.items():
-        if getattr(args, flag) != default:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: waits for a later slice of "
-                             "the port (ROADMAP.md)")

@@ -20,8 +20,11 @@ host:port --num_processes N --process_id i). Under DP each rank trains its
 rows with the --use_kernels form; under TP or CP the chain is eager, as in
 the JAX package.
 
-Parsed but not ported yet (a non-default value raises): --remat,
---scan_unroll, --visualize.
+--remat {0,none,1,repeat,block,dots} rematerialises the eager chain in
+backward (config.py; the kernel forms ignore it, as the JAX Pallas tiers
+do), --scan_unroll is accepted for the JAX CLI's sake and changes nothing,
+--visualize 1 re-renders <save_folder>/loss.png each epoch and
+loss_iter.png from every iteration's loss (utils/visualize.py).
 """
 
 from __future__ import annotations
@@ -35,11 +38,8 @@ from ..data.dataset import AudioDataset, DataLoader
 from ..models.conv_tasnet import ConvTasNet
 from ..parallel.distributed import shutdown
 from ..training.solver import Solver
-from .common import (add_device_flag, add_later_flags, add_parallel_flags, add_use_kernels_flag,
-                     check_later_flags, resolve_mesh_kernels, setup_parallel)
-
-# Flags of the JAX CLI that wait for a later slice, with their defaults.
-LATER_FLAGS = {"remat": "0", "scan_unroll": 1, "visualize": 0}
+from .common import (add_device_flag, add_parallel_flags, add_use_kernels_flag,
+                     resolve_mesh_kernels, setup_parallel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,21 +88,27 @@ def build_parser() -> argparse.ArgumentParser:
     # Logging
     p.add_argument("--print_freq", default=10, type=int)
     p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--visualize", default=0, type=int,
+                   help="re-render <save_folder>/loss.png each epoch (visdom analogue)")
     # Device and kernels
     p.add_argument("--compute_dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--remat", default="0", type=str,
+                   choices=["0", "none", "1", "repeat", "block", "dots"],
+                   help="backprop rematerialisation of the eager chain: 1 / repeat per "
+                        "repeat, block per block, dots per block keeping the matmul outputs")
+    p.add_argument("--scan_unroll", default=1, type=int,
+                   help="the JAX CLI's unroll of the scan over the R repeats (no effect)")
     add_use_kernels_flag(p)
     add_device_flag(p)
     p.add_argument("--pad_to_multiple", default=1, type=int,
                    help="pad CV batches to a sample multiple")
     add_parallel_flags(p, dp_default=0)
-    add_later_flags(p, LATER_FLAGS)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     print(args)
-    check_later_flags(args, LATER_FLAGS)
     device, mesh, joined = setup_parallel(args)
     try:
         return _train(args, device, mesh)
@@ -116,7 +122,9 @@ def _train(args, device, mesh):
         N=args.N, L=args.L, B=args.B, H=args.H, P=args.P, X=args.X, R=args.R, C=args.C,
         norm_type=args.norm_type, causal=bool(args.causal),
         mask_nonlinear=args.mask_nonlinear, compute_dtype=args.compute_dtype,
-        use_kernels=args.use_kernels)
+        use_kernels=args.use_kernels,
+        remat={"0": False, "none": False, "1": "repeat"}.get(args.remat, args.remat),
+        scan_unroll=args.scan_unroll)
     train_cfg = TrainConfig(
         epochs=args.epochs, half_lr=bool(args.half_lr), early_stop=bool(args.early_stop),
         max_norm=args.max_norm, batch_size=args.batch_size, optimizer=args.optimizer,
@@ -125,7 +133,7 @@ def _train(args, device, mesh):
         save_folder=args.save_folder, checkpoint=bool(args.checkpoint),
         continue_from=args.continue_from, save_every_steps=args.save_every_steps,
         model_path=args.model_path, print_freq=args.print_freq, seed=args.seed,
-        dp=mesh.dp if mesh else 1, tp=args.tp, cp=args.cp)
+        visualize=bool(args.visualize), dp=mesh.dp if mesh else 1, tp=args.tp, cp=args.cp)
     if mesh is not None:
         model_cfg = resolve_mesh_kernels(model_cfg, mesh.tp, mesh.cp)
 

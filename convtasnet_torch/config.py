@@ -24,6 +24,14 @@ the rules of convtasnet_tpu/models/conv_tasnet.py:182-233):
   conv span of the largest dilation, KB2's taps and span in training).
 
 A CPU tensor takes each kernel's plain PyTorch version.
+
+`remat` applies to the eager chain only, as in the JAX package, whose
+Pallas tiers run before it (convtasnet_tpu/models/conv_tasnet.py:324-370):
+False / "none" keeps every activation; True / "repeat" checkpoints each of
+the R repeats, "block" each residual block, and "dots" each block with a
+selective policy that keeps its two pointwise matmul outputs
+(models/conv_tasnet.py `_remat_chain`). `scan_unroll` has no meaning
+without a scan: any int is taken as max(1, v), and nothing changes.
 """
 
 from __future__ import annotations
@@ -40,7 +48,21 @@ EPS = 1e-8
 USE_KERNELS_CHOICES = ("auto", "block", "hybrid", "whole", "0")
 
 # Keys a JAX checkpoint header carries that have no meaning here.
-_JAX_ONLY_KEYS = ("use_pallas", "remat", "scan_unroll")
+_JAX_ONLY_KEYS = ("use_pallas",)
+
+REMAT_CHOICES = ("none", "repeat", "block", "dots")
+
+
+def remat_mode(remat) -> str:
+    """The JAX package's remat values as one of REMAT_CHOICES: False and
+    "none" keep everything, True is "repeat"."""
+    if remat is False or remat is None or remat == "none":
+        return "none"
+    if remat is True or remat == "repeat":
+        return "repeat"
+    if remat in ("block", "dots"):
+        return remat
+    raise ValueError(f"unsupported remat: {remat!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +94,11 @@ class ConvTasNetConfig:
     # init loop does (conv_tasnet.py:41-43).
     reference_norm_init: bool = True
     use_kernels: object = "auto"
+    # Rematerialisation of the eager chain in backward (module docstring).
+    remat: object = False
+    # The JAX package's unroll of its scan over the R repeats; kept for
+    # the checkpoint header and the CLI, no effect here.
+    scan_unroll: int = 1
 
     def __post_init__(self):
         if self.norm_type not in ("gLN", "cLN", "BN"):
@@ -84,6 +111,8 @@ class ConvTasNetConfig:
             raise ValueError(f"unsupported compute_dtype: {self.compute_dtype}")
         if str(self.use_kernels).lower() not in USE_KERNELS_CHOICES + ("false",):
             raise ValueError(f"unsupported use_kernels: {self.use_kernels!r}")
+        remat_mode(self.remat)
+        object.__setattr__(self, "scan_unroll", max(1, int(self.scan_unroll)))
 
     @property
     def stride(self) -> int:
@@ -132,9 +161,6 @@ class ConvTasNetConfig:
         return d
 
 
-# TrainConfig fields whose non-default values wait for a later slice.
-_LATER = {"visualize": False}
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
@@ -163,6 +189,8 @@ class TrainConfig:
     model_path: str = "final.ckpt"
     print_freq: int = 10
     seed: int = 0
+    # Re-render <save_folder>/loss.png each epoch and loss_iter.png from
+    # every iteration's loss (utils/visualize.py).
     visualize: bool = False
     dp: int = 1
     tp: int = 1
@@ -171,8 +199,3 @@ class TrainConfig:
     def __post_init__(self):
         if self.optimizer not in ("adam", "sgd"):
             raise ValueError(f"unsupported optimizer: {self.optimizer}")
-        for k, default in _LATER.items():
-            if getattr(self, k) != default:
-                raise NotImplementedError(
-                    f"TrainConfig.{k}={getattr(self, k)!r} is not ported yet "
-                    "(waits for a later slice of the port)")

@@ -44,8 +44,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from ..config import ConvTasNetConfig
+from ..config import ConvTasNetConfig, remat_mode
 from ..ops.activations import prelu
 from ..ops.conv import depthwise_dilated, pointwise
 from ..ops.framing import frame_signal, overlap_and_add
@@ -90,6 +92,18 @@ def residual_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int) -> int:
     """Bytes of the whole-TCN training op's residuals x_nb and c_nb."""
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     return cfg.R * cfg.X * M * K_pad * (cfg.B + cfg.H) * itemsize
+
+
+def chain_form(cfg: ConvTasNetConfig, train: bool, M: int, K: int, device) -> str:
+    """The form the TCN chain of a forward of M rows of K frames takes on
+    `device`: cfg.kernel_form, with "whole_tcn_train" turned into the
+    per-block "whole_block_hybrid" when its residuals exceed the memory
+    gate."""
+    form = cfg.kernel_form(train, device)
+    Kp = -(-K // ROW_ALIGN) * ROW_ALIGN
+    if form == "whole_tcn_train" and residual_bytes(cfg, M, Kp) > residual_budget(device):
+        return "whole_block_hybrid"
+    return form
 
 
 def resolve_device(device=None) -> torch.device:
@@ -219,6 +233,72 @@ def _temporal_block(x: torch.Tensor, bp: Dict[str, torch.Tensor],
     return x + y.to(dt), new_state
 
 
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the matmul outputs, recompute everything else (JAX's
+    dots_saveable). A pointwise's 3-D @ 2-D torch.matmul reaches the
+    dispatcher as aten.mm on a [M*K, cin] view."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _repeat(x: torch.Tensor, blocks_r: Params, state_r: Optional[State],
+            cfg: ConvTasNetConfig, train: bool, par: ParallelContext, mode: str
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The X blocks of one repeat (leaves [X, ...]), each checkpointed
+    under mode "block" / "dots" -> (x, the repeat's new BN state [X, H]
+    or None)."""
+    new: Dict[str, list] = {}
+    for xi in range(cfg.X):
+        bp = {k: v[xi] for k, v in blocks_r.items()}
+        bs = None if state_r is None else {k: v[xi] for k, v in state_r.items()}
+        args = (x, bp, bs, cfg, 2 ** xi, train, par)
+        if mode == "block":
+            x, nbs = checkpoint(_temporal_block, *args, use_reentrant=False)
+        elif mode == "dots":
+            x, nbs = checkpoint(_temporal_block, *args, use_reentrant=False,
+                                context_fn=_dots_context)
+        else:
+            x, nbs = _temporal_block(*args)
+        for k, v in (nbs or {}).items():
+            new.setdefault(k, []).append(v)
+    return x, ({k: torch.stack(v) for k, v in new.items()} if state_r is not None else None)
+
+
+def _eager_chain(x: torch.Tensor, blocks: Params, block_state: Optional[State],
+                 cfg: ConvTasNetConfig, train: bool, par: ParallelContext
+                 ) -> Tuple[torch.Tensor, Optional[State]]:
+    """The R x X `_temporal_block` chain under cfg.remat (the JAX scan body,
+    conv_tasnet.py:346-370): "repeat" checkpoints each repeat, "block" and
+    "dots" each block (torch.utils.checkpoint, non-reentrant: the block
+    parameters reach it inside dicts). A recompute's outputs are dropped,
+    so BN's running statistics are the first forward's and advance once;
+    under TP / CP it issues the block's collectives again in backward.
+    Without autograd (inference) nothing is checkpointed. Returns (x, new
+    BN block state [R, X, H] or None)."""
+    mode = remat_mode(cfg.remat) if torch.is_grad_enabled() else "none"
+    new: Dict[str, list] = {}
+    for r in range(cfg.R):
+        blocks_r = {k: v[r] for k, v in blocks.items()}
+        state_r = None if block_state is None else {k: v[r] for k, v in block_state.items()}
+        if mode == "repeat":
+            x, nbs = checkpoint(_repeat, x, blocks_r, state_r, cfg, train, par, "none",
+                                use_reentrant=False)
+        else:
+            x, nbs = _repeat(x, blocks_r, state_r, cfg, train, par, mode)
+        for k, v in (nbs or {}).items():
+            new.setdefault(k, []).append(v)
+    if block_state is None:
+        return x, None
+    return x, {k: torch.stack(v) for k, v in new.items()}
+
+
 def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
                   form: str) -> torch.Tensor:
     """The TCN chain through ops/kernels in `form` (cfg.kernel_form): K is
@@ -229,8 +309,6 @@ def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
     x = F.pad(x, (0, 0, 0, Kp - K))
     bp = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in blocks.items()}
     args = [bp[k] for k in _BLOCK_ORDER]
-    if form == "whole_tcn_train" and residual_bytes(cfg, M, Kp) > residual_budget(x.device):
-        form = "whole_block_hybrid"
     if form == "whole_tcn":
         x = whole_tcn(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
     elif form == "whole_tcn_train":
@@ -279,24 +357,14 @@ def separate(params: Params, state: State, cfg: ConvTasNetConfig,
         x = pointwise(x, sp["bottleneck"]["w"], dt).to(dt)  # [M, K, B]
 
     new_state = state
-    form = "eager" if par.sharded else cfg.kernel_form(train, mixture_w.device)
+    form = "eager" if par.sharded else chain_form(cfg, train, M, K, mixture_w.device)
     if form != "eager":
         x = _kernel_chain(x, sp["blocks"], cfg, form)
     else:
-        has_bn = cfg.norm_type == "BN"
-        block_state = state.get("blocks") if has_bn else None
-        new_bs: Dict[str, list] = {}
-        for r in range(cfg.R):
-            for xi in range(cfg.X):
-                bp = {k: v[r, xi] for k, v in sp["blocks"].items()}
-                bs = ({k: v[r, xi] for k, v in block_state.items()}
-                      if block_state is not None else None)
-                x, nbs = _temporal_block(x, bp, bs, cfg, 2 ** xi, train, par)
-                for k, v in (nbs or {}).items():
-                    new_bs.setdefault(k, []).append(v)
-        if has_bn:
-            new_state = {"blocks": {k: torch.stack(v).reshape(cfg.R, cfg.X, -1)
-                                    for k, v in new_bs.items()}}
+        block_state = state.get("blocks") if cfg.norm_type == "BN" else None
+        x, new_bs = _eager_chain(x, sp["blocks"], block_state, cfg, train, par)
+        if new_bs is not None:
+            new_state = {"blocks": new_bs}
 
     if tp is not None:
         x = copy_to(x, tp)

@@ -4,8 +4,8 @@ One .npz of flattened parameter / state leaves plus a JSON header, written
 atomically (tmp + rename). Keys are the JAX pytree paths joined by "/"
 (`params/separator/blocks/in_w`, `state/blocks/in_mean`), so a checkpoint
 written by either package loads in the other. The model config is rebuilt
-from the header; the JAX-only keys it may carry (use_pallas, remat,
-scan_unroll) are dropped. The optimizer state is stored under the JAX
+from the header, remat and scan_unroll included; the JAX-only key it may
+carry (use_pallas) is dropped. The optimizer state is stored under the JAX
 `opt/` keys (`opt/step` int32, `opt/lr`, `opt/mu/...`, `opt/nu/...`,
 convtasnet_tpu/training/checkpoint.py:78-86, :130-131), so either package
 resumes from the other's checkpoint with its optimizer state.

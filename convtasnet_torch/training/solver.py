@@ -13,7 +13,13 @@ solver.py:12-210):
   `save_every_steps` mid-epoch resume with the running loss sums;
 * the CV mean weights each batch by its real utterance count;
 * device scalars (loss) are read back only at print_freq points and at
-  the end of an epoch, so the host keeps queueing steps.
+  the end of an epoch, so the host keeps queueing steps;
+* with `visualize`, <save_folder>/loss.png is re-rendered each epoch and
+  loss_iter.png from every iteration's loss (kept as a device scalar,
+  drained at those read-back points, redrawn at most every
+  `iter_plot_interval` seconds and once at the end); a plot that fails is
+  logged ("visualize failed: ...") and training goes on
+  (utils/visualize.py).
 
 On a process mesh (parallel/mesh.py; one process per card) every rank
 loads the same global batch and keeps its rows (`shard_batch`), and its
@@ -189,6 +195,12 @@ class Solver:
         self.val_no_impv = 0
         self.steps = 0
         self.history: List[Dict[str, Any]] = []
+        # Per-iteration loss points of loss_iter.png: (iter, epoch, device
+        # loss) pending until a read-back point, then floats.
+        self.iter_history: List[Dict[str, Any]] = []
+        self._pending_iter: List[tuple] = []
+        self.iter_plot_interval: float = 5.0
+        self._last_iter_plot: float = 0.0
 
     # ------------------------------------------------------------------
     def train(self) -> Dict[str, Any]:
@@ -239,6 +251,8 @@ class Solver:
                                  "lr": float(self.opt_state.lr), "audio_sps": audio_sps})
             if self.metric_logger is not None:
                 self.metric_logger.metrics(**self.history[-1])
+            if cfg.visualize:
+                self._plot("plot_history", self.history, "loss.png")
             if val_loss < self.best_val_loss:
                 self.best_val_loss = val_loss
                 path = os.path.join(cfg.save_folder, cfg.model_path)
@@ -246,6 +260,9 @@ class Solver:
                 self.log(f"Find better validated model, saving to {path}")
             if stop:
                 break
+        # Unthrottled, so loss_iter.png ends with the last iterations.
+        if cfg.visualize and self.iter_history:
+            self._maybe_plot_iter(force=True)
         params, _, _ = self._whole()
         with torch.no_grad():
             for p, new in zip(tree_leaves(self.model.params()), tree_leaves(params)):
@@ -296,6 +313,9 @@ class Solver:
                 total_loss = total_loss + loss
             last_loss = loss
             total_audio_sec += float(np.sum(np.asarray(batch.lengths))) / self.cfg.sample_rate
+            visualize = self.cfg.visualize and not cross_valid
+            if visualize:  # no read-back here: drained at print_freq and epoch end
+                self._pending_iter.append((epoch * len(loader) + i + 1, epoch, loss))
             if i % self.cfg.print_freq == 0:
                 elapsed = time.time() - start
                 denom = total_w if cross_valid else i + 1
@@ -303,6 +323,9 @@ class Solver:
                          f"Average Loss {float(total_loss) / max(denom, 1):.3f} | "
                          f"Current Loss {float(last_loss):.6f} | "
                          f"{1000 * elapsed / max(i + 1 - skip, 1):.1f} ms/batch")
+                if visualize:
+                    self._drain_iter_points()
+                    self._maybe_plot_iter()
             if (not cross_valid and self.cfg.save_every_steps
                     and (i + 1) % self.cfg.save_every_steps == 0):
                 path = os.path.join(self.cfg.save_folder, "latest.ckpt")
@@ -314,7 +337,39 @@ class Solver:
             return float("nan"), 0.0
         epoch_loss = float(total_loss)  # one wait for the epoch's queued steps
         audio_sps = total_audio_sec / max(time.time() - start, 1e-9)
+        if self.cfg.visualize and not cross_valid:
+            self._drain_iter_points()
+            self._maybe_plot_iter()
         return epoch_loss / n, audio_sps
+
+    def _drain_iter_points(self) -> None:
+        """Turn the pending per-iteration device losses into floats."""
+        for it, ep, dev_loss in self._pending_iter:
+            self.iter_history.append({"iter": it, "epoch": ep, "loss": float(dev_loss)})
+        self._pending_iter.clear()
+
+    def _maybe_plot_iter(self, force: bool = False) -> None:
+        """Re-render loss_iter.png at most every iter_plot_interval seconds
+        (a figure costs ~100 ms of host time); force skips the wait."""
+        now = time.time()
+        if not force and now - self._last_iter_plot < self.iter_plot_interval:
+            return
+        self._last_iter_plot = now
+        self._plot("plot_iter_curve", self.iter_history, "loss_iter.png")
+
+    def _plot(self, fn: str, rows: List[Dict[str, Any]], name: str) -> None:
+        """utils/visualize.<fn>(rows, <save_folder>/<name>) on the
+        coordinator; a failure, or no plot (matplotlib missing), is logged
+        and training goes on."""
+        if self.mesh is not None and not is_coordinator():
+            return
+        try:
+            from ..utils import visualize
+
+            if getattr(visualize, fn)(rows, os.path.join(self.cfg.save_folder, name)) is None:
+                self.log(f"visualize failed: {name} not written (is matplotlib installed?)")
+        except Exception as e:  # plotting must never stop training
+            self.log(f"visualize failed: {e}")
 
     def _whole(self):
         """(params, state, opt_state) whole: gathered over the TP group."""

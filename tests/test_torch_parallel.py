@@ -1,7 +1,8 @@
 """The port's mesh, sharding rules, batch sharders and CP padding in one
 process (no spawn): shapes and errors, the TP cut and its inverse, zero-row
 padding, cp_padded_frames against the JAX package's, the kernel gate
-under TP / CP and the flags that still wait for a later slice."""
+under TP / CP, and the flags that once waited for a later slice (--remat,
+--scan_unroll, --visualize), now parsed as the JAX train CLI parses them."""
 
 import dataclasses
 import warnings
@@ -15,7 +16,7 @@ import convtasnet_tpu
 from convtasnet_torch.cli import evaluate as t_eval
 from convtasnet_torch.cli import separate as t_sep
 from convtasnet_torch.cli import train as t_train
-from convtasnet_torch.cli.common import _LATER_TYPES, resolve_mesh_kernels
+from convtasnet_torch.cli.common import resolve_mesh_kernels
 from convtasnet_torch.config import ConvTasNetConfig
 from convtasnet_torch.models.conv_tasnet import init_params
 from convtasnet_torch.parallel import distributed
@@ -24,6 +25,7 @@ from convtasnet_torch.parallel.mesh import (make_mesh, mesh_shape, shard_batch_f
                                             tp_place, tp_rule, tp_slice)
 from convtasnet_torch.training.optim import Optimizer, tree_paths
 from convtasnet_torch.training.solver import make_train_step
+from convtasnet_tpu.cli import train as j_train
 from convtasnet_tpu.parallel.context import cp_padded_frames as j_cp_padded_frames
 
 torch.set_num_threads(1)
@@ -205,9 +207,22 @@ def test_resolve_mesh_kernels(tp, cp, want):
 
 
 def test_later_flags_are_remat_scan_unroll_visualize():
-    assert set(_LATER_TYPES) == {"remat", "scan_unroll", "visualize"}
-    assert set(t_train.LATER_FLAGS) == {"remat", "scan_unroll", "visualize"}
+    """The three flags parse on the train CLI only, with the JAX train
+    CLI's types, defaults and choices, and nothing waits any more."""
+    def actions(build):
+        return {a.dest: a for a in build()._actions}
+
+    ours, jax_ = actions(t_train.build_parser), actions(j_train.build_parser)
+    for flag in ("remat", "scan_unroll", "visualize"):
+        assert (ours[flag].type, ours[flag].default, ours[flag].choices) == (
+            jax_[flag].type, jax_[flag].default, jax_[flag].choices), flag
+    args = t_train.build_parser().parse_args(
+        ["--train_dir", "a", "--valid_dir", "b", "--remat", "dots", "--scan_unroll", "3",
+         "--visualize", "1"])
+    assert (args.remat, args.scan_unroll, args.visualize) == ("dots", 3, 1)
     for mod in (t_eval, t_sep):
+        assert not {"remat", "scan_unroll", "visualize"} & actions(mod.build_parser).keys()
+    for mod in (t_train, t_eval, t_sep):
         assert not hasattr(mod, "LATER_FLAGS")
     for build in (t_train.build_parser, t_eval.build_parser, t_sep.build_parser):
         flags = {a.dest for a in build()._actions}

@@ -55,6 +55,12 @@ CASES = {
         _case("cp_gLN", [1, 1, 2]),
         _case("cp_cLN_causal_K63", [1, 1, 2], K=63, norm_type="cLN", causal=True),
         _case("cp_cLN_short", [1, 1, 2], train=False, K=40, norm_type="cLN", X=5),
+        # The eager chain under remat: the recompute issues the block's
+        # collectives again in backward, and BN's state advances once.
+        _case("tp_gLN_remat_dots", [1, 2, 1], remat="dots"),
+        _case("cp_gLN_remat_block", [1, 1, 2], remat="block"),
+        _case("dp_BN_remat_repeat", [2, 1, 1], M=3, norm_type="BN", use_kernels="0",
+              remat="repeat"),
     ],
     4: [
         _case("cp4_gLN_K63", [1, 1, 4], train=False, K=63),
@@ -262,3 +268,15 @@ def test_forward_world4_against_jax_sharded(world4, name):
     outs = _outputs(world4, name, world)
     want = _jax_sharded_forward(case, world4["data"][name])
     np.testing.assert_allclose(_assemble(case, outs, "est"), want, **FWD)
+
+
+@pytest.mark.parametrize("plain,remat,per_block", [("tp_gLN", "tp_gLN_remat_dots", 4),
+                                                   ("cp_gLN", "cp_gLN_remat_block", 6)])
+def test_remat_reissues_collectives_world2(world2, plain, remat, per_block):
+    """A remat step recomputes its blocks in backward, collectives
+    included: per block the 2 norms' 2 statistics each and, under CP, the
+    conv's 2 halo exchanges (TP: 44 -> 56 per step, CP: 41 -> 59 at X=3).
+    The recompute stops before the block's TP output all-reduce, which
+    backward does not need."""
+    n0, n1 = (int(_outputs(world2, name, 2)[0]["collectives"]) for name in (plain, remat))
+    assert n1 - n0 == per_block * TINY["X"] * TINY["R"], (n0, n1)
