@@ -42,6 +42,19 @@
    native decoder decoded every file and that native/*.so did not change;
    times evaluate per utterance, device BSS-Eval (f64 and f32) per
    utterance and the native and wavio decode per batch;
+6b. graph phase (models/graphed.GraphedForward, the forwards as CUDA
+   graphs, one per input shape): at the paper config, batch 8 and 1 x 4 s,
+   auto and block, and at the scaled config, batch 1 and 2 x 8 s at 16 kHz,
+   the graphed forward against the eager kernel forward, bit for bit, with
+   the same launches per forward; eager and graphed ms (CUDA events), device
+   busy and idle share, capture ms and pool bytes per graph; three keys of
+   one wrapper (one shared pool) replayed in turn, bit for bit; the separate
+   CLI over 40 mixtures in two repeating shapes (--pad_to_multiple 8000),
+   graphed against a run with the cap at 0 (every call eager): byte-equal
+   wavs, one capture per shape seen twice; the evaluate CLI with --cal_sdr 1
+   on the evaluate phase's two tt sets, each padded to one shape: SI-SNRi,
+   SDRi and reordered estimates equal to the eager run's, steady ms per
+   utterance of both;
 7. stream phase: at the causal paper config (cLN, causal; seeded weights
    written as a bf16 checkpoint and an f32 copy) on 4 mixtures of 2-5.9 s,
    two of them a multiple of the 20 ms chunk: `convtasnet_torch.cli.separate`
@@ -969,7 +982,228 @@ def evaluate_phase(cfg, dev, ckpt, tmp):
     chk("native/*.so unchanged", float(_native_so_digests() != so_before), 0)
     log(f"evaluate phase timing: {json.dumps(timing)}")
     chk.done()
-    return timing
+    return timing, sets
+
+
+# The graph phase's separate set: 24 mixtures of 3.6-4.0 s and 16 of
+# 1.6-2.0 s at --batch_size 8 --pad_to_multiple 8000: three batches of
+# [8, 32000] and two of [8, 16000], so both shapes come again.
+GRAPH_SEP_SECS = [4.0 - 0.4 * i / 23 for i in range(24)] + [2.0 - 0.4 * i / 15 for i in range(16)]
+GRAPH_SEP_PAD = 8000
+# Evaluate at batch 1: every harmonic utterance (2.5-10 s) pads to 10 s and
+# every broadband one (3-6 s) to 6 s, so each set is one shape.
+GRAPH_EVAL_PAD = {"harmonic": 80000, "broadband": 48000}
+
+
+def _graph_forward_case(chk, what, fn, mix, tag, NB, want_kernels):
+    """One forward captured and replayed against its eager run: bit for bit,
+    launches per replay, event ms eager / graphed (median of 20), device
+    busy and idle share of each, capture ms and pool bytes."""
+    from convtasnet_torch.models import graphed
+
+    torch.cuda.synchronize()
+    ref = fn(mix)
+    reset_all_counts()
+    fn(mix)
+    torch.cuda.synchronize()
+    per_eager = all_counts()
+    g = graphed.GraphedForward(fn, tag=tag)
+    g(mix)          # eager first call
+    first = g(mix)  # warm-up, capture, replay
+    reset_all_counts()
+    graphed.reset_counts()
+    outs = [g(mix) for _ in range(3)]
+    torch.cuda.synchronize()
+    per_replay, calls = all_counts(), graphed.counts()
+    chk(f"{what}: graphed == eager kernel forward, bit for bit",
+        float(sum(not torch.equal(o, ref) for o in [first] + outs)), 0)
+    chk(f"{what}: 3 replays, no eager call", abs(calls["replays"] - 3) + calls["eager_calls"], 0)
+    chk(f"{what}: launches per replay == per eager forward {per_eager}",
+        max(abs(per_replay[k] - 3 * v) for k, v in per_eager.items()), 0)
+    for k in want_kernels:
+        chk(f"{what}: {k} launches per forward == NB", abs(per_eager[k] - NB), 0)
+    info = next(iter(g.graphs().values()))
+    res = {"eager_ms": forward_ms(lambda: fn(mix))[0], "graphed_ms": forward_ms(lambda: g(mix))[0],
+           "eager_busy_ms": device_ms(lambda: fn(mix), iters=10),
+           "graphed_busy_ms": device_ms(lambda: g(mix), iters=10),
+           "capture_ms": info["capture_ms"], "pool_bytes": info["pool_bytes"],
+           "launches_per_forward": per_eager}
+    for side in ("eager", "graphed"):
+        res[f"{side}_idle_share"] = max(0.0, 1.0 - res[f"{side}_busy_ms"] / res[f"{side}_ms"])
+    log(f"  {what}: eager {res['eager_ms']:.3f} ms (busy {res['eager_busy_ms']:.3f}, idle "
+        f"{res['eager_idle_share']:.3f}), graphed {res['graphed_ms']:.3f} ms (busy "
+        f"{res['graphed_busy_ms']:.3f}, idle {res['graphed_idle_share']:.3f}); capture "
+        f"{res['capture_ms']:.1f} ms, pool {res['pool_bytes'] / 1e6:.1f} MB")
+    del g
+    return res
+
+
+def _graph_shared_pool_case(chk, fn, mixes):
+    """One wrapper over several keys, whose graphs share one pool: each
+    captured, then all replayed in turn in another order, each bit for bit
+    against its eager forward."""
+    from convtasnet_torch.models import graphed
+
+    want = [fn(m) for m in mixes]
+    g = graphed.GraphedForward(fn)
+    for m in mixes:
+        g(m), g(m)  # eager first call, then capture and replay
+    order = [i for _ in range(2) for i in reversed(range(len(mixes)))]
+    wrong = sum(not torch.equal(g(mixes[i]), want[i]) for i in order)
+    torch.cuda.synchronize()
+    chk(f"shared pool: {len(mixes)} keys replayed in turn == eager, bit for bit",
+        float(wrong) + abs(len(g.graphs()) - len(mixes)), 0)
+    pools = [v["pool_bytes"] for v in g.graphs().values()]
+    log(f"  shared pool: bytes added per capture {pools}")
+    return pools
+
+
+def graph_phase(cfg, dev, params, state, ckpt, eval_sets, tmp):
+    """The forwards as CUDA graphs (models/graphed.GraphedForward): (a) the
+    paper config at batch 8 and 1 x 4 s, auto and block, and the scaled
+    config at batch 1 and 2 x 8 s, each graphed against its eager kernel
+    forward, and three paper-config keys of one wrapper replayed in turn;
+    (b) the separate CLI over a set whose shapes repeat, graphed
+    against a run with the cap at 0 (every call eager): byte-equal wavs,
+    captures == shapes seen twice; (c) the evaluate CLI with --cal_sdr 1
+    on the evaluate phase's tt sets, padded to one shape per set, graphed
+    against eager: equal SI-SNRi and SDRi, steady ms per utterance."""
+    from convtasnet_torch.cli.evaluate import build_parser, evaluate
+    from convtasnet_torch.cli.separate import main as separate_main
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.data.wavio import write_wav
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+    from convtasnet_torch.tools import bench_scaled_config as bsc
+    from convtasnet_torch.tools._bench import device_batch
+
+    chk = Checks("graph phase")
+    NB = cfg.R * cfg.X
+    res = {"forward": {}}
+    want = {"auto": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_fold"),
+            "block": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_unfold")}
+    log(" (a) forwards, graphed vs eager kernel forward:")
+    with torch.inference_mode():
+        mixes = []
+        for bs in (8, 1):
+            mix = torch.from_numpy(np.random.default_rng(bs).normal(size=(bs, 4 * SR))
+                                   .astype(np.float32)).to(dev)
+            mixes.append(mix)
+            for form in ("auto", "block"):
+                c = ConvTasNetConfig(use_kernels=form)
+                res["forward"][f"paper_batch{bs}_{form}"] = _graph_forward_case(
+                    chk, f"paper batch {bs} x 4 s {form}",
+                    lambda m, c=c: forward(params, state, c, m)[0], mix,
+                    (c.kernel_form(False, dev),), NB, want[form])
+        c = ConvTasNetConfig(use_kernels="auto")
+        res["shared_pool_bytes"] = _graph_shared_pool_case(
+            chk, lambda m: forward(params, state, c, m)[0],
+            mixes + [mixes[0][:4, :2 * SR].contiguous()])
+        scfg = bsc.scaled_cfg(use_kernels="auto")
+        sparams, sstate = init_params(torch.Generator(device=dev).manual_seed(0), scfg,
+                                      device=dev)
+        for bs in (1, 2):
+            mix = device_batch(1, bs, scfg.C, int(SCALED_SEG_S * bsc.SR), bsc.SR, dev)[0]
+            res["forward"][f"scaled_batch{bs}_auto"] = _graph_forward_case(
+                chk, f"scaled batch {bs} x 8 s auto",
+                lambda m: forward(sparams, sstate, scfg, m)[0], mix,
+                (scfg.kernel_form(False, dev),), scfg.R * scfg.X, want["auto"])
+        del sparams, sstate
+    torch.cuda.empty_cache()
+
+    log(" (b) separate CLI, shapes repeating, graphed vs eager (cap 0):")
+    mix_dir = os.path.join(tmp, "graph_mix")
+    rng = np.random.default_rng(21)
+    for i, sec in enumerate(GRAPH_SEP_SECS):
+        n = int(sec * SR)
+        t = np.arange(n) / SR
+        write_wav(os.path.join(mix_dir, f"g{i:02d}.wav"),
+                  0.3 * np.sin(2 * np.pi * (150 + 11 * i) * t) + 0.05 * rng.normal(size=n), SR)
+    wavs, calls = {}, {}
+    for run, cap in (("eager", 0), ("graphed", graphed.MAX_GRAPHS)):
+        out_dir = os.path.join(tmp, f"graph_out_{run}")
+        saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, cap
+        reset_all_counts()
+        graphed.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            written = separate_main(["--model_path", ckpt, "--mix_dir", mix_dir,
+                                     "--out_dir", out_dir, "--batch_size", "8",
+                                     "--pad_to_multiple", str(GRAPH_SEP_PAD),
+                                     "--use_kernels", "auto", "--device", "cuda"])
+        finally:
+            graphed.MAX_GRAPHS = saved
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls[run], launches = graphed.counts(), all_counts()
+        log(f"  separate {run}: {written} mixtures in {wall:.2f} s; {calls[run]}; "
+            f"launches {launches}")
+        res[f"separate_{run}_s"] = wall
+        chk(f"separate {run}: mixtures written", abs(written - len(GRAPH_SEP_SECS)), 0)
+        executed = calls[run]["eager_calls"] + calls[run]["replays"] + (
+            graphed.CAPTURE_WARMUP * calls[run]["captures"])
+        for k in want["auto"]:
+            chk(f"separate {run}: {k} launches == NB per executed forward ({executed})",
+                abs(launches[k] - NB * executed), 0)
+        wavs[run] = {}
+        for f in sorted(glob.glob(os.path.join(out_dir, "*.wav"))):
+            with open(f, "rb") as fh:
+                wavs[run][os.path.basename(f)] = fh.read()
+    chk("separate: 3 wavs per mixture", abs(len(wavs["graphed"]) - 3 * len(GRAPH_SEP_SECS)), 0)
+    chk("separate: graphed wavs byte-equal to eager",
+        float(wavs["graphed"] != wavs["eager"]), 0)
+    # 5 batches in two shapes ([8, 32000] three times, [8, 16000] twice).
+    chk("separate eager: every call eager", abs(calls["eager"]["eager_calls"] - 5)
+        + calls["eager"]["captures"], 0)
+    chk("separate graphed: captures == shapes seen twice (2)",
+        abs(calls["graphed"]["captures"] - 2), 0)
+    chk("separate graphed: 2 eager first calls, 3 replays",
+        abs(calls["graphed"]["eager_calls"] - 2) + abs(calls["graphed"]["replays"] - 3), 0)
+
+    log(" (c) evaluate CLI --cal_sdr 1, one shape per set, graphed vs eager (cap 0):")
+    for name, pad in GRAPH_EVAL_PAD.items():
+        data_dir, n_utts = eval_sets[name]
+        got = {}
+        for run, cap in (("eager", 0), ("graphed", graphed.MAX_GRAPHS)):
+            utts, stamps = [], []
+
+            def stamp(line):
+                if line.startswith("Utt "):
+                    stamps.append(time.perf_counter())
+
+            saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, cap
+            graphed.reset_counts()
+            try:
+                out = evaluate(build_parser().parse_args(
+                    ["--model_path", ckpt, "--data_dir", data_dir, "--cal_sdr", "1",
+                     "--sdr_backend", "device", "--use_kernels", "auto",
+                     "--pad_to_multiple", str(pad), "--device", "cuda"]),
+                    log=stamp, utterances=utts)
+            finally:
+                graphed.MAX_GRAPHS = saved
+            torch.cuda.synchronize()
+            n = graphed.counts()
+            steady = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+            res[f"evaluate_{name}_{run}_steady_ms_per_utt"] = steady
+            got[run] = (out, utts, n)
+            log(f"  evaluate {name} {run}: SI-SNRi {out['si_snri']:.6f} dB, SDRi "
+                f"{out['sdri']:.6f} dB, {steady:.2f} ms per utterance after the first; {n}")
+        (e, eu, en), (g_, gu, gn) = got["eager"], got["graphed"]
+        chk(f"evaluate {name}: count", abs(g_["count"] - n_utts) + abs(e["count"] - n_utts), 0)
+        chk(f"evaluate {name}: eager run all eager", abs(en["eager_calls"] - n_utts), 0)
+        chk(f"evaluate {name}: one capture, the rest replays",
+            abs(gn["captures"] - 1) + abs(gn["replays"] - (n_utts - 1)), 0)
+        worst = max(max(abs(a["si_snri"] - b["si_snri"]), abs(a["sdri"] - b["sdri"]))
+                    for a, b in zip(gu, eu))
+        chk(f"evaluate {name}: graphed SI-SNRi / SDRi == eager, worst utterance (dB)",
+            worst, 0.0)
+        chk(f"evaluate {name}: graphed reordered estimates == eager",
+            float(sum(not np.array_equal(a["estimate"], b["estimate"])
+                      for a, b in zip(gu, eu))), 0)
+    res["graphs_live_after"] = graphed.counts()["graphs"]
+    log(f"graph phase: {json.dumps(res)}")
+    chk.done()
+    return res
 
 
 # Mixture lengths in samples (2-5.9 s): 16000 and 47200 are multiples of the
@@ -1220,9 +1454,10 @@ def _par_worker(rank, world, tmp, dev_type):
     import dataclasses
 
     from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models import graphed
     from convtasnet_torch.parallel import comm, distributed
-    from convtasnet_torch.parallel.mesh import (gather_params, make_mesh, mesh_forward,
-                                                shard_batch_fn, shard_params_fn)
+    from convtasnet_torch.parallel.mesh import (gather_params, graphable, make_mesh,
+                                                mesh_forward, shard_batch_fn, shard_params_fn)
     from convtasnet_torch.training.optim import Optimizer, tree_leaves
     from convtasnet_torch.training.solver import make_train_step
 
@@ -1260,12 +1495,17 @@ def _par_worker(rank, world, tmp, dev_type):
             cfg = dataclasses.replace(base, compute_dtype=dtype, use_kernels="auto")
             with torch.inference_mode():
                 fwd = mesh_forward(cfg, params, {}, mesh)
-                fwd(fmix)
+                assert graphable(mesh)  # tp = cp = 1: graphed, as the CLIs wrap it
+                fwd = graphed.GraphedForward(fwd, tag=(cfg.kernel_form(False, dev),))
+                first = fwd(fmix)  # the key's eager first call
+                fwd(fmix)  # its capture
                 torch.cuda.synchronize()
                 reset_all_counts()
-                est = fwd(fmix)
+                graphed.reset_counts()
+                est = fwd(fmix)  # a replay
                 torch.cuda.synchronize()
-            res[f"dp_fwd_{dtype}"] = {"est": est.cpu(), "launches": all_counts()}
+            res[f"dp_fwd_{dtype}"] = {"est": est.cpu(), "eager_est": first.cpu(),
+                                      "launches": all_counts(), "graph": graphed.counts()}
         tpm = make_mesh(1, 2, 1, dev)
         tmix, tlens, tsrc = (z[k].to(dev) for k in ("tp_mix", "tp_lens", "tp_src"))
         for dtype in ("float32", "bfloat16"):
@@ -1388,10 +1628,18 @@ def parallel_phase(cfg, dev, tmp, hybrid_run):
         got = torch.cat([res[f"dp_fwd_{dtype}"]["est"] for res in ranks])
         chk(f"DP forward {dtype}: 4 + 4 rows vs one process (relative L2)",
             rel_l2(got, ref.cpu()), tol)
+        eager = torch.cat([res[f"dp_fwd_{dtype}"]["eager_est"] for res in ranks])
+        chk(f"DP forward {dtype}: eager first call, 4 + 4 rows vs one process (relative L2)",
+            rel_l2(eager, ref.cpu()), tol)
+        chk(f"DP forward {dtype}: replay == eager first call, bit for bit",
+            float(not torch.equal(got, eager)), 0)
         for r, res in enumerate(ranks):
             for k, v in fwd_want.items():
                 chk(f"DP forward {dtype} rank {r}: {k} launches",
                     abs(res[f"dp_fwd_{dtype}"]["launches"][k] - v), 0)
+            g = res[f"dp_fwd_{dtype}"]["graph"]
+            chk(f"DP forward {dtype} rank {r}: one graph replay, no eager call",
+                abs(g["replays"] - 1) + g["eager_calls"] + g["captures"], 0)
     tmix, tlens, tsrc = (inputs[k].to(dev) for k in ("tp_mix", "tp_lens", "tp_src"))
     for dtype, tol in (("float32", TOL_E2E_F32), ("bfloat16", TOL_E2E_BF16)):
         with torch.inference_mode():
@@ -1822,7 +2070,7 @@ def scaled_phase(dev, chk):
 
     for batch in (1, 2):
         reset_all_counts()
-        row = bsc.bench_infer(batch, SCALED_SEG_S, dev)
+        row = bsc.bench_infer(batch, SCALED_SEG_S, dev, graph=False)  # graphed: graph phase
         torch.cuda.synchronize()
         counts = all_counts()
         add(counts)
@@ -2069,7 +2317,13 @@ def main() -> int:
 
         # ---- evaluate phase: the evaluate CLI on the slice's checkpoint -----
         log("evaluate phase:")
-        eval_timing = evaluate_phase(cfg, dev, ckpt, tmp)
+        eval_timing, eval_sets = evaluate_phase(cfg, dev, ckpt, tmp)
+
+        # ---- graph phase: the forwards as CUDA graphs (models/graphed.py) ----
+        log("graph phase:")
+        t0 = time.perf_counter()
+        graph_timing = graph_phase(cfg, dev, params, state, ckpt, eval_sets, tmp)
+        graph_timing["phase_s"] = time.perf_counter() - t0
 
         # ---- stream phase: the stream CLI and StreamingSeparator ------------
         log("stream phase:")
@@ -2267,8 +2521,8 @@ def main() -> int:
         par_timing = parallel_phase(cfg, dev, train_tmp.name, hybrid_run)
     par_timing["phase_s"] = time.perf_counter() - t0
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
-                    "evaluate": eval_timing, "stream": stream_timing, "options": opt_res,
-                    "parallel": par_timing}))
+                    "evaluate": eval_timing, "graph": graph_timing, "stream": stream_timing,
+                    "options": opt_res, "parallel": par_timing}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,11 @@ given.
 One enqueue per batch runs the forward, cal_loss and, with the device
 SDR backend, the batched BSS-Eval (ops/metrics_device.py, f64), then
 copies the results to pinned host memory behind an event; the host works
-out SI-SNRi (and host SDRi) of batch i while batch i + 1 runs.
+out SI-SNRi (and host SDRi) of batch i while batch i + 1 runs. On a card
+(one process, or DP with tp = cp = 1) that program is one CUDA graph per
+padded shape, captured the second time the shape comes
+(models/graphed.py), as the JAX CLI jits it; --pad_to_multiple bounds the
+number of shapes.
 --sdr_backend auto is the device backend on CUDA and the host one
 (ops/metrics.py, f64 numpy) on the CPU; neither falls back to the other.
 
@@ -35,12 +39,13 @@ from typing import Callable, List, Optional
 import torch
 
 from ..data.dataset import AudioDataset, DataLoader
+from ..models.graphed import GraphedForward
 from ..ops.loss import cal_loss
 from ..ops.metrics import sdr_improvement, si_snr_improvement
 from ..ops.metrics_device import sdr_improvement_batch
 from ..parallel.comm import all_reduce_
 from ..parallel.distributed import shutdown
-from ..parallel.mesh import mesh_forward, shard_batch_fn
+from ..parallel.mesh import graphable, mesh_forward, shard_batch_fn
 from ..training.checkpoint import load_model
 from .common import (add_device_flag, add_parallel_flags, add_use_kernels_flag,
                      resolve_mesh_kernels, setup_parallel)
@@ -112,15 +117,22 @@ def _evaluate(args, device, mesh, log, utterances):
                     for a in (batch.mixture, batch.lengths, batch.source))
         return shard(batch.mixture, batch.lengths, batch.source)
 
+    def program(mix, src, lens):
+        """The JAX CLI's jitted infer: the forward, cal_loss's PIT reorder
+        and, with the device SDR backend, the batched BSS-Eval."""
+        _, _, _, reordered = cal_loss(src, fwd(mix), lens)
+        if use_device_sdr:
+            return reordered, sdr_improvement_batch(src, reordered, mix, lens)
+        return (reordered,)
+
+    if graphable(mesh):  # one CUDA graph per key; TP / CP stay eager
+        program = GraphedForward(program, tag=(cfg.kernel_form(False, device), use_device_sdr))
+
     @torch.inference_mode()
     def infer(batch):
         """Enqueue one batch; returns (host tensors, event to wait on)."""
         mix, lens, src = rows(batch)
-        est = fwd(mix)
-        _, _, _, reordered = cal_loss(src, est, lens)
-        outs = [reordered]
-        if use_device_sdr:
-            outs.append(sdr_improvement_batch(src, reordered, mix, lens))
+        outs = program(mix, src, lens)
         if device.type != "cuda":
             return outs, None
         host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]

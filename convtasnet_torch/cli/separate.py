@@ -4,7 +4,10 @@ Counterpart of convtasnet_tpu/cli/separate.py (the reference's
 separate.py:35-79): loads a checkpoint, builds an EvalDataset from
 --mix_dir or --mix_json, forwards each padded batch, trims the padding and
 writes `<base>.wav` (the mixture) plus `<base>_s{c}.wav` per speaker as
-PCM_16. Runs on CUDA unless --device cpu is given.
+PCM_16. Runs on CUDA unless --device cpu is given. On a card the forward
+of each padded batch shape is captured once as a CUDA graph and replayed
+(models/graphed.py; one card, or DP with tp = cp = 1), as the JAX CLI
+jits it; --pad_to_multiple bounds the number of shapes.
 
 Several cards (one process each, launched with torchrun or the
 --multihost rendezvous flags; cli/common.py): with tp = cp = 1 every rank
@@ -30,8 +33,9 @@ import torch.distributed as dist
 from ..data.dataset import DataLoader, EvalDataset
 from ..data.manifest import preprocess_one_dir
 from ..data.wavio import write_wav
+from ..models.graphed import GraphedForward
 from ..parallel.distributed import shutdown
-from ..parallel.mesh import mesh_forward
+from ..parallel.mesh import graphable, mesh_forward
 from ..training.checkpoint import load_model
 from .common import (add_device_flag, add_parallel_flags, add_use_kernels_flag,
                      resolve_mesh_kernels, setup_parallel)
@@ -84,6 +88,8 @@ def _separate(args, device, mesh) -> int:
             dist.barrier()
             mix_dir, mix_json = None, os.path.join(mix_dir, "mix.json")
     fwd = mesh_forward(cfg, params, state, mesh)
+    if graphable(mesh):  # one CUDA graph per key; TP / CP stay eager
+        fwd = GraphedForward(fwd, tag=(cfg.kernel_form(False, device),))
 
     dataset = EvalDataset(mix_dir, mix_json,
                           batch_size=args.batch_size,

@@ -1,0 +1,236 @@
+"""Inference programs captured once per input shape as CUDA graphs.
+
+Counterpart of `jax.jit` on the JAX package's inference functions
+(convtasnet_tpu/cli/separate.py `infer`, cli/evaluate.py `infer`): XLA
+compiles each once per input shape and then launches the program whole.
+`GraphedForward` wraps a function of device tensors the same way:
+
+* key: the inputs' shapes, dtypes and devices, plus the caller's `tag` of
+  the run-time choices that change the program (the kernel form, cal_sdr);
+* 1st call of a key: eager. It is also the warm-up a capture needs: the
+  kernels' build at first use, their occupancy caches and function
+  attributes, cuBLAS and cuFFT handles and plans;
+* 2nd call: the inputs are copied into static buffers (allocated outside
+  any capture), the function runs once on a side stream, is captured
+  under torch.cuda.graph into the memory pool that all of the wrapper's
+  graphs share, and the graph is replayed;
+* later calls: the inputs are copied into the static buffers, the graph is
+  replayed.
+
+A replay returns clones of the static outputs, so the next replay never
+overwrites what a caller still holds (both CLIs keep one batch in flight).
+That also makes the shared pool safe: replays run one at a time on one
+stream, and a graph's memory is read only by its own replay and the
+clones right after it, so the pool holds the largest key's activations,
+not the sum over keys.
+At most MAX_GRAPHS keys are captured per wrapper; a key seen a
+second time beyond that runs eagerly for good and nothing is evicted, so a
+cycle of more shapes than the cap costs what eager costs. A capture or
+replay that fails raises GraphError naming the key, and the key is never
+captured again; nothing retries eagerly. On the CPU every call runs
+eagerly: graphs are a CUDA mechanism.
+
+The kernel wrappers count their launches on the host, which a replay
+never reaches. The launches counted while a key is captured (recorded, not
+executed) are taken off the counters again and added back on every
+replay, so `tcn_block.counts()` keeps counting kernel executions: the
+side-stream warm-up's, the eager calls' and each replay's.
+"""
+
+from __future__ import annotations
+
+import time
+import weakref
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops.kernels import tcn_block, tcn_block_bwd
+
+# Graphs kept per wrapper, read at each new key. Its graphs share one pool,
+# which grows to the largest key's activations plus every key's static
+# outputs; each key also keeps static copies of its inputs. chip_smoke.py's
+# graph phase measured (H100 80GB HBM3, 700 W) 0.04-0.30 GB of pool for a
+# paper-config key alone (batch 1 and 8 x 4 s) and 0.25-0.33 GB for a
+# scaled-config key (batch 1 and 2 x 8 s at 16 kHz). What the cap bounds is
+# the static tensors: at batch 8 x 30 s of 8 kHz, 23 MB of mixture and
+# estimates per separate key (46 MB with evaluate's sources and reordered
+# estimates), so 16 keys hold under 0.8 GB beside the one pool.
+MAX_GRAPHS = 16
+
+# Runs on a side stream before a capture (torch.cuda.graph's warm-up rule;
+# the key's eager first call has already done the one-time set-up).
+CAPTURE_WARMUP = 1
+
+_COUNTS = {"captures": 0, "replays": 0, "eager_calls": 0}
+_LIVE: "weakref.WeakSet[GraphedForward]" = weakref.WeakSet()
+
+
+class GraphError(RuntimeError):
+    """A capture or replay failed; the message names the key."""
+
+
+class Program(NamedTuple):
+    """A captured function: replay() reruns it on the current stream,
+    writing `outputs` (tensors) in place. `pool` is the memory pool it was
+    captured into, passed to the wrapper's next capture; `pool_bytes` what
+    this capture added to it."""
+
+    replay: Callable[[], None]
+    outputs: object
+    pool: object
+    pool_bytes: int
+
+
+class CudaGraphs:
+    """The capture backend of a CUDA device."""
+
+    @staticmethod
+    def warm_up(fn: Callable, inputs: Sequence[torch.Tensor]) -> None:
+        dev = inputs[0].device
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                fn(*inputs)
+        current.wait_stream(side)
+
+    @staticmethod
+    def capture(fn: Callable, inputs: Sequence[torch.Tensor], pool=None) -> Program:
+        """Capture into `pool` (None: a new one)."""
+        dev = inputs[0].device
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            # After the context's empty_cache: what is reserved from here on
+            # is added to the pool.
+            before = torch.cuda.memory_reserved(dev)
+            out = fn(*inputs)
+        return Program(graph.replay, out, graph.pool(),
+                       torch.cuda.memory_reserved(dev) - before)
+
+
+def backend_for(device: torch.device):
+    """The capture backend of `device`: CUDA graphs on a card, None (every
+    call eager) on the CPU."""
+    return CudaGraphs() if device.type == "cuda" else None
+
+
+def _launches() -> Dict[str, int]:
+    return {**tcn_block.counts(), **tcn_block_bwd.counts()}
+
+
+def _add_launches(delta: Dict[str, int]) -> None:
+    tcn_block.add_counts(delta)
+    tcn_block_bwd.add_counts(delta)
+
+
+class _Graph(NamedTuple):
+    program: Program
+    inputs: Tuple[torch.Tensor, ...]
+    single: bool                   # the function returned one tensor
+    launches: Dict[str, int]       # kernel launches per replay
+    capture_ms: float
+
+
+_SEEN = object()     # one eager call so far
+_EAGER = object()    # beyond the cap: eager for good
+
+
+class GraphedForward:
+    """fn(*tensors) -> tensor or tuple of tensors, captured per key as
+    described in the module docstring. `tag` joins every key."""
+
+    def __init__(self, fn: Callable, tag: Tuple = ()):
+        self.fn = fn
+        self.tag = tuple(tag)
+        self._state: Dict[tuple, object] = {}
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._pool = None  # the pool of the first capture, shared by the rest
+        _LIVE.add(self)
+
+    def key(self, inputs: Sequence[torch.Tensor]) -> tuple:
+        return tuple((tuple(t.shape), t.dtype, t.device) for t in inputs) + self.tag
+
+    def __call__(self, *inputs: torch.Tensor):
+        if not inputs or not all(isinstance(t, torch.Tensor) for t in inputs):
+            raise TypeError("GraphedForward takes tensors only")
+        backend = backend_for(inputs[0].device)
+        key = self.key(inputs)
+        state = self._state.get(key)
+        if isinstance(state, _Graph):
+            return self._replay(key, state, inputs)
+        if isinstance(state, GraphError):
+            raise GraphError(f"key {key} failed before: {state}")
+        if backend is not None and state is _SEEN:
+            if len(self._graphs) < MAX_GRAPHS:
+                return self._capture(key, backend, inputs)
+            self._state[key] = _EAGER
+        elif backend is not None and state is None:
+            self._state[key] = _SEEN
+        _COUNTS["eager_calls"] += 1
+        return self.fn(*inputs)
+
+    def _capture(self, key, backend, inputs):
+        static = tuple(t.clone() for t in inputs)
+        t0 = time.perf_counter()
+        try:
+            backend.warm_up(self.fn, static)
+            before = _launches()
+            program = backend.capture(self.fn, static, self._pool)
+        except Exception as e:
+            err = GraphError(f"capture of key {key} failed: {type(e).__name__}: {e}")
+            self._state[key] = err
+            raise err from e
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
+        _add_launches({k: -v for k, v in launches.items()})  # recorded, not run
+        single = isinstance(program.outputs, torch.Tensor)
+        outs = (program.outputs,) if single else tuple(program.outputs)
+        graph = _Graph(program._replace(outputs=outs), static, single, launches, capture_ms)
+        self._state[key] = self._graphs[key] = graph
+        self._pool = program.pool
+        _COUNTS["captures"] += 1
+        return self._replay(key, graph, inputs)
+
+    def _replay(self, key, graph: _Graph, inputs):
+        try:
+            for dst, src in zip(graph.inputs, inputs):
+                dst.copy_(src)
+            graph.program.replay()
+        except Exception as e:
+            raise GraphError(f"replay of key {key} failed: {type(e).__name__}: {e}") from e
+        _add_launches(graph.launches)
+        _COUNTS["replays"] += 1
+        outs = tuple(o.clone() for o in graph.program.outputs)
+        return outs[0] if graph.single else outs
+
+    def graphs(self) -> Dict[tuple, dict]:
+        """Per captured key: capture_ms (host time of the warm-up and the
+        capture), pool_bytes (what its capture added to the shared pool)
+        and the kernel launches per replay."""
+        return {k: {"capture_ms": g.capture_ms, "pool_bytes": g.program.pool_bytes,
+                    "launches": dict(g.launches)} for k, g in self._graphs.items()}
+
+
+def graph_row(fn: Optional[GraphedForward]) -> dict:
+    """The keys a measuring tool's row carries for `fn` (None: no wrapper):
+    whether a graph was captured, and the capture ms and pool bytes of its
+    graphs (the tools time one key)."""
+    graphs = list(fn.graphs().values()) if fn is not None else []
+    return {"graphed": bool(graphs),
+            "capture_ms": sum(g["capture_ms"] for g in graphs) if graphs else None,
+            "pool_bytes": sum(g["pool_bytes"] for g in graphs) if graphs else None}
+
+
+def counts() -> dict:
+    """captures, replays and eager_calls since reset_counts(); graphs and
+    pool_bytes held now by the live wrappers."""
+    live = [g for f in list(_LIVE) for g in f._graphs.values()]
+    return {**_COUNTS, "graphs": len(live),
+            "pool_bytes": sum(g.program.pool_bytes for g in live)}
+
+
+def reset_counts() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0

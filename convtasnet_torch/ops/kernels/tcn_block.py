@@ -529,6 +529,16 @@ def reset_counts() -> None:
     tcn_out_gemm.launches_unfold = 0
 
 
+def add_counts(delta: dict) -> None:
+    """Add launches executed without passing through a wrapper (a CUDA
+    graph's replay, models/graphed.py); names of other modules are skipped."""
+    tcn_in_gemm.launches += delta.get("tcn_in_gemm", 0)
+    tcn_dwconv.launches += delta.get("tcn_dwconv", 0)
+    tcn_dwconv.launches_save += delta.get("tcn_dwconv_save", 0)
+    tcn_out_gemm.launches_fold += delta.get("tcn_out_gemm_fold", 0)
+    tcn_out_gemm.launches_unfold += delta.get("tcn_out_gemm_unfold", 0)
+
+
 def counts() -> dict:
     return {"tcn_in_gemm": tcn_in_gemm.launches,
             "tcn_dwconv": tcn_dwconv.launches,

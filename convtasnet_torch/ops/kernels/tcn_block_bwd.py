@@ -144,6 +144,13 @@ def reset_counts() -> None:
         _LAUNCHES[k] = 0
 
 
+def add_counts(delta: dict) -> None:
+    """Add launches executed without passing through a wrapper (a CUDA
+    graph's replay, models/graphed.py); names of other modules are skipped."""
+    for k in _LAUNCHES:
+        _LAUNCHES[k] += delta.get(k, 0)
+
+
 # ---------------------------------------------------------------------------
 # KB1: dz and the norm2-backward partials
 # ---------------------------------------------------------------------------

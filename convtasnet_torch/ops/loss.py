@@ -24,6 +24,7 @@ losses sum to the global mean (a padded rank may hold fewer real rows).
 
 from __future__ import annotations
 
+import functools
 from itertools import permutations
 from typing import Tuple
 
@@ -43,6 +44,15 @@ def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
 def perm_matrix(C: int) -> np.ndarray:
     """All permutations of range(C) as a [C!, C] int array."""
     return np.array(list(permutations(range(C))), dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _perm_tensor(C: int, device: torch.device) -> torch.Tensor:
+    """perm_matrix(C) on `device`, copied once: a copy from pageable host
+    memory per call would synchronise, which a CUDA graph capture refuses.
+    Made outside inference mode, so autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(perm_matrix(C), device=device)
 
 
 def _pair_snr_direct(zm_est, zm_src):
@@ -92,7 +102,7 @@ def si_snr_with_pit(source: torch.Tensor, estimate: torch.Tensor,
     zm_est = (estimate - estimate.sum(2, keepdim=True) / n) * mask
     pair_fn = _pair_snr_gram if method == "gram" else _pair_snr_direct
     pair_snr = pair_fn(zm_est, zm_src)  # [B, i_est, j_src]
-    perms = torch.as_tensor(perm_matrix(C), device=source.device)  # [C!, C]
+    perms = _perm_tensor(C, source.device)  # [C!, C]
     # snr_set[b, p] = sum_i pair_snr[b, i, perms[p, i]]
     idx = perms[None, :, :, None].expand(B, -1, -1, 1)
     snr_set = torch.gather(pair_snr[:, None].expand(-1, perms.shape[0], -1, -1), 3,

@@ -20,6 +20,7 @@ Pipeline (the JAX module's, step for step):
   lambda_max, and for each matrix whose factor broke down
   (torch.linalg.cholesky_ex's info, read on the device: no host sync) a
   second factor with the big ridge _JITTER_BIG;
+- the factors and solves on cuSOLVER on a card (see _cusolver);
 - each solve refined 4 times against the raw Gram (iterated Tikhonov: it
   converges to the unregularised solution in well-conditioned directions
   and stays regularised in the near-null space of tonal references);
@@ -77,6 +78,24 @@ def _full_precision(dtype: torch.dtype):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """On a card, cuSOLVER for the factors and solves inside the block
+    (restored after). PyTorch's default sends a batched cholesky_solve to
+    MAGMA, whose queue set-up aborts the process while a CUDA graph is
+    being captured (magma_queue::setup_ptrArray assertion; evaluate
+    captures this function in its graph, models/graphed.py)."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,7 +177,7 @@ def _bss_eval_impl(refs, ests, mix, lengths, filt_len: int, dtype: torch.dtype):
     diag = torch.arange(C, device=dev)
     Gd = blocks[:, diag, diag]                                          # [B, C, f, f]
 
-    with _full_precision(dtype):
+    with _full_precision(dtype), _cusolver(dev):
         L = _robust_cholesky(G, eps)
         Ld = _robust_cholesky(Gd, eps)
 

@@ -255,6 +255,15 @@ def shard_batch_fn(mesh: Mesh) -> Callable:
     return shard
 
 
+def graphable(mesh: Optional[Mesh]) -> bool:
+    """Whether the inference forward of `mesh` (None: one card) has no
+    collective on its path and may be captured as a CUDA graph: one card,
+    or DP with tp = cp = 1 (each rank runs the single-card forward on its
+    rows). TP and CP run collectives inside the forward; their graphs wait
+    for a machine with two cards."""
+    return mesh is None or (mesh.tp == 1 and mesh.cp == 1)
+
+
 def mesh_forward(cfg, params, state, mesh: Optional[Mesh]) -> Callable:
     """The inference forward of one card or of this rank's part of a mesh:
     fn(mixture rows [M, T]) -> est [M, C, T]. Under CP the rank runs its

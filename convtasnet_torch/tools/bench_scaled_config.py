@@ -3,7 +3,7 @@ tiers fit its memory, and at what step time; and the forward's latency.
 
     python -m convtasnet_torch.tools.bench_scaled_config train [--batch 2] \\
         [--seg_sec 8] [--tiers eager_noremat,eager_dots,whole,hybrid] [--steps 10]
-    python -m convtasnet_torch.tools.bench_scaled_config infer [--batch 1]
+    python -m convtasnet_torch.tools.bench_scaled_config infer [--batch 1] [--graph 0|1]
 
 The config: N=256, L=32, B=256, H=1024, P=3, X=10, R=6, C=2, gLN,
 non-causal, bf16, on 16 kHz audio (8 s = K 7,999 frames). It sits on the
@@ -23,7 +23,9 @@ such as chip_smoke.py's, the peak includes it), `steps_run` the steps it
 launched (warm-up included).
 
 infer: the forward (--use_kernels auto) at --batch, under inference mode,
-timed with CUDA events over 20 calls; `kernel_tier` is the form
+timed with CUDA events over 20 calls (with --graph 1, the default, as the
+CLIs run it: replays of its CUDA graph, models/graphed.GraphedForward,
+captured in the warm-up; --graph 0 the eager forward); `kernel_tier` is the form
 cfg.kernel_form(False, device) picks, `matmul_floor_ms` the time of its
 contractions at the H100's bf16 peak (`floor_peak`) and
 `matmul_floor_frac` that floor over the measured latency.
@@ -43,6 +45,7 @@ import torch
 
 from ..config import ConvTasNetConfig
 from ..models.conv_tasnet import chain_form, forward, init_params, resolve_device
+from ..models.graphed import GraphedForward, graph_row
 from ..training.optim import Optimizer
 from ..training.solver import make_train_step
 from ._bench import (H100_BF16_FLOPS, H100_PEAK_NAME, TINY, device_batch, device_name,
@@ -112,7 +115,7 @@ def bench_train(tier: str, batch: int, seg_sec: float, steps: int, dev: torch.de
 
 
 def bench_infer(batch: int, seg_sec: float, dev: torch.device, tiny: bool = False,
-                iters: int = 20) -> dict:
+                iters: int = 20, graph: bool = True) -> dict:
     cfg = scaled_cfg(tiny, use_kernels="auto")
     T = int(seg_sec * SR)
     params, state = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
@@ -120,8 +123,13 @@ def bench_infer(batch: int, seg_sec: float, dev: torch.device, tiny: bool = Fals
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
+
+    def fwd(m):
+        return forward(params, state, cfg, m)[0]
+
+    fn = GraphedForward(fwd, tag=(cfg.kernel_form(False, dev),)) if graph else fwd
     with torch.inference_mode():
-        ms = timed_ms(lambda: forward(params, state, cfg, mix), iters, 3, dev)
+        ms = timed_ms(lambda: fn(mix), iters, 3, dev)
     floor_ms = forward_matmul_flops(cfg, batch, T) / H100_BF16_FLOPS * 1e3
     return {"metric": "scaled_config_infer", "batch": batch, "seg_sec": seg_sec, "sr": SR,
             "config": _describe(cfg), "kernel_tier": cfg.kernel_form(False, dev),
@@ -129,7 +137,7 @@ def bench_infer(batch: int, seg_sec: float, dev: torch.device, tiny: bool = Fals
             "matmul_floor_ms": floor_ms, "floor_peak": H100_PEAK_NAME,
             "matmul_floor_frac": floor_ms / ms if on_card else None,
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None,
-            "device": device_name(dev)}
+            **graph_row(fn if graph else None), "device": device_name(dev)}
 
 
 def main(argv=None):
@@ -139,6 +147,9 @@ def main(argv=None):
     ap.add_argument("--seg_sec", type=float, default=8.0)
     ap.add_argument("--tiers", type=str, default=",".join(TIERS))
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--graph", type=int, default=1, choices=(0, 1),
+                    help="infer: 1 times replays of the forward's CUDA graph, 0 the eager "
+                         "forward")
     ap.add_argument("--tiny", action="store_true", help="a small f32 config (CPU tests)")
     ap.add_argument("--device", default="cuda", type=str,
                     help="torch device (default cuda; fails without a GPU unless cpu)")
@@ -150,7 +161,8 @@ def main(argv=None):
             rows.append(bench_train(tier, args.batch, args.seg_sec, args.steps, dev, args.tiny))
             print(json.dumps(rows[-1]), flush=True)
     else:
-        rows.append(bench_infer(args.batch, args.seg_sec, dev, args.tiny))
+        rows.append(bench_infer(args.batch, args.seg_sec, dev, args.tiny,
+                                graph=bool(args.graph)))
         print(json.dumps(rows[-1]), flush=True)
     return rows
 

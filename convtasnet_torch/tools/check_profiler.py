@@ -6,7 +6,10 @@ stages a probe profiles a fixed loop of matmuls with torch.profiler
 recorded no kernel. The scenarios take apart what the parallel phase of
 chip_smoke.py does in one process: an NCCL group joined from a file
 store or from torchrun's variables, collectives inside and outside a
-profile, destroy_process_group, two gloo ranks spawned on the same card.
+profile, destroy_process_group, two gloo ranks spawned on the same card. The
+"graph" scenario captures the paper-config forward (`auto`, batch 1 x 4 s)
+as a CUDA graph (models/graphed.py), then profiles three replays and three
+eager forwards; each must show device time.
 
     python -m convtasnet_torch.tools.check_profiler [--scenarios nccl gloo_cuda ...]
 
@@ -25,21 +28,62 @@ import sys
 import tempfile
 
 SCENARIOS = ("baseline", "many_profiles", "nccl", "nccl_cold", "nccl_env",
-             "nccl_profiled_collective", "gloo_cuda", "spawn_gloo2")
+             "nccl_profiled_collective", "gloo_cuda", "spawn_gloo2", "graph")
+
+
+def _profiled(fn, calls: int):
+    """(device us, kernel names) torch.profiler records over `calls` of fn."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events), len(events)
 
 
 def _probe():
     import torch
 
-    a = torch.randn(1024, 1024, device="cuda")
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            a = a @ a
-            a = a / a.norm()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in events), len(events)
+    a = [torch.randn(1024, 1024, device="cuda")]
+
+    def step():
+        a[0] = a[0] @ a[0]
+        a[0] = a[0] / a[0].norm()
+
+    return _profiled(step, 5)
+
+
+def _graph_scenario(stages):
+    """A graphed paper-config forward: eager, capture, then a profile of
+    replays and one of eager forwards."""
+    import torch
+
+    from ..config import ConvTasNetConfig
+    from ..models import graphed
+    from ..models.conv_tasnet import forward, init_params
+
+    cfg = ConvTasNetConfig()
+    params, state = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                device="cuda")
+    mix = torch.randn((1, 32000), device="cuda")
+
+    def eager():
+        return forward(params, state, cfg, mix)[0]
+
+    g = graphed.GraphedForward(lambda m: forward(params, state, cfg, m)[0])
+    with torch.inference_mode():
+        g(mix)
+        g(mix)  # the capture
+        graphed.reset_counts()
+        us, n = _profiled(lambda: g(mix), 3)
+        stages.append(["profile of 3 replays", us, n])
+        if graphed.counts()["replays"] != 3:
+            raise RuntimeError(f"expected 3 replays, got {graphed.counts()}")
+        us, n = _profiled(eager, 3)
+        stages.append(["profile of 3 eager forwards", us, n])
 
 
 def _gloo_rank(rank, world, store):
@@ -118,6 +162,8 @@ def _one(name: str, tmp: str) -> dict:
             p.join(120)
         stages.append(["ranks exited", [p.exitcode for p in procs], 0])
         probe("after the spawned ranks")
+    elif name == "graph":
+        _graph_scenario(stages)
     elif name != "baseline":
         raise SystemExit(f"unknown scenario {name}")
     probe("end")

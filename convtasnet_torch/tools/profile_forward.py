@@ -1,7 +1,7 @@
 """Where the time of one separation forward, or one train step, goes on
 one CUDA device.
 
-    python -m convtasnet_torch.tools.profile_forward --batch 8 --use_kernels auto
+    python -m convtasnet_torch.tools.profile_forward --batch 8 --use_kernels auto [--graph 0|1]
     python -m convtasnet_torch.tools.profile_forward --train --batch 5 --use_kernels hybrid
 
 Seeded paper-config weights, random mixtures (and, with --train, random
@@ -12,6 +12,12 @@ back-to-back calls (no synchronisation), the CUDA-event time, the device time by
 kernel from torch.profiler over 10 calls, and the device's idle share:
 1 - (device time per call) / (CUDA-event time per call). With --out the
 same JSON is also written to a file.
+
+The forward runs as the separate and evaluate CLIs run it, through
+models/graphed.GraphedForward (--graph 1, the default): the first warm-up
+call is eager, the second captures the CUDA graph, and every call timed or
+profiled after it is a replay (`replays` counts them; `eager_calls` must
+be 0). --graph 0 profiles the eager forward. The train step is not graphed.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import USE_KERNELS_CHOICES, ConvTasNetConfig
+from ..models import graphed
 from ..models.conv_tasnet import forward, init_params, resolve_device
 from ..training.optim import Optimizer
 from ..training.solver import make_train_step
@@ -34,7 +41,9 @@ from ..training.solver import make_train_step
 SECONDS, ITERS = 4.0, 10
 
 
-def profile(batch: int, use_kernels: str, train: bool = False) -> dict:
+def profile(batch: int, use_kernels: str, train: bool = False, graph: bool = True) -> dict:
+    if train and graph:
+        raise ValueError("--graph 1 applies to the forward; pass --graph 0 with --train")
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(ConvTasNetConfig(), use_kernels=use_kernels)
     params, state = init_params(torch.Generator(device=dev).manual_seed(1234),
@@ -52,13 +61,20 @@ def profile(batch: int, use_kernels: str, train: bool = False) -> dict:
         def fwd():
             return step(params, opt_state, state, mix, src, lens)[3]
     else:
+        def eager(m):
+            return forward(params, state, cfg, m)[0]
+
+        run = graphed.GraphedForward(eager, tag=(cfg.kernel_form(False, dev),)) if graph \
+            else eager
+
         def fwd():
-            return forward(params, state, cfg, mix)[0]
+            return run(mix)
 
     with contextlib.nullcontext() if train else torch.inference_mode():
         for _ in range(3):
             fwd()
         torch.cuda.synchronize()
+        graphed.reset_counts()
         host = []
         for _ in range(ITERS):
             t0 = time.perf_counter()
@@ -92,6 +108,7 @@ def profile(batch: int, use_kernels: str, train: bool = False) -> dict:
                 and not evt.is_user_annotation and us > 0):
             by_name[evt.key] = {"device_ms_per_call": us / 1e3 / ITERS,
                                 "launches_per_call": evt.count / ITERS}
+    calls = graphed.counts()
     busy_ms = sum(v["device_ms_per_call"] for v in by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms_per_call"]))
     return {
@@ -99,6 +116,9 @@ def profile(batch: int, use_kernels: str, train: bool = False) -> dict:
         "work": "train_step" if train else "forward",
         "batch": batch, "seconds": SECONDS, "use_kernels": use_kernels,
         "compute_dtype": cfg.compute_dtype, "iters": ITERS,
+        "graph": not train and graph, "replays": calls["replays"],
+        "eager_calls": calls["eager_calls"],
+        **(graphed.graph_row(run) if not train and graph else {}),
         "host_ms_median": float(np.median(host)), "event_ms": event_ms,
         # host time to enqueue one call back to back, no synchronisation: the
         # host's share; where it exceeds device busy, the host sets event_ms
@@ -117,9 +137,13 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--use_kernels", default="auto", choices=USE_KERNELS_CHOICES)
     p.add_argument("--train", action="store_true", help="profile one train step")
+    p.add_argument("--graph", type=int, default=None, choices=(0, 1),
+                   help="1 (the default for the forward): profile replays of the forward's "
+                        "CUDA graph; 0: the eager forward")
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
-    res = profile(args.batch, args.use_kernels, args.train)
+    graph = (not args.train) if args.graph is None else bool(args.graph)
+    res = profile(args.batch, args.use_kernels, args.train, graph)
     line = json.dumps(res)
     print(line)
     if args.out:

@@ -133,6 +133,7 @@ def test_separate_cli_without_cuda_raises(separated, tmp_path):
 
 def test_port_never_imports_jax():
     code = ("import sys, convtasnet_torch, convtasnet_torch.cli.separate, "
+            "convtasnet_torch.cli.evaluate, convtasnet_torch.models.graphed, "
             "convtasnet_torch.models.conv_tasnet, convtasnet_torch.training.checkpoint\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m.startswith('convtasnet_tpu')]\n"

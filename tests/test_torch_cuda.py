@@ -719,3 +719,101 @@ def test_profiler_sees_device_time_around_process_groups(dev):
 
     assert check_profiler.main(["--scenarios", "nccl", "nccl_env",
                                 "nccl_profiled_collective", "spawn_gloo2"]) == 0
+
+
+# ---- the graphed inference programs (models/graphed.py) ---------------------
+
+GRAPH_CFG = dict(N=64, L=16, B=128, H=256, P=3, X=3, R=2, C=2)
+
+
+@pytest.mark.parametrize("use_kernels", ["auto", "block"])
+def test_graphed_forward_gives_the_eager_kernel_forward_bytes(dev, use_kernels):
+    """Every kernel sums in a fixed order, so a replay repeats the eager
+    forward's bytes, with the eager forward's launches per replay."""
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+
+    cfg = ConvTasNetConfig(use_kernels=use_kernels, **GRAPH_CFG)
+    params, state = init_params(torch.Generator(device=dev).manual_seed(6), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs = [torch.randn((2, 4000), generator=gen, device=dev) for _ in range(4)]
+    with torch.inference_mode():
+        fn = lambda mix: forward(params, state, cfg, mix)[0]  # noqa: E731
+        tcn_block.reset_counts()
+        want = [fn(x) for x in xs]
+        torch.cuda.synchronize()
+        eager_launches = {k: v // len(xs) for k, v in tcn_block.counts().items()}
+        g = graphed.GraphedForward(fn, tag=(cfg.kernel_form(False, dev),))
+        got = [g(x) for x in xs[:2]]        # eager, then capture and replay
+        tcn_block.reset_counts()
+        graphed.reset_counts()
+        got += [g(x) for x in xs[2:]]       # replays
+        torch.cuda.synchronize()
+    assert graphed.counts()["replays"] == 2 and graphed.counts()["eager_calls"] == 0
+    assert tcn_block.counts() == {k: 2 * v for k, v in eager_launches.items()}
+    assert eager_launches["tcn_in_gemm"] == cfg.R * cfg.X
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_graphed_keys_sharing_a_pool_replay_in_any_order(dev):
+    """The graphs of one wrapper share a memory pool: replaying the keys in
+    turn, in an order other than their captures', repeats each key's eager
+    bytes."""
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+
+    cfg = ConvTasNetConfig(use_kernels="auto", **GRAPH_CFG)
+    params, state = init_params(torch.Generator(device=dev).manual_seed(6), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    xs = [torch.randn(shape, generator=gen, device=dev) for shape in ((2, 4000), (3, 6000))]
+    with torch.inference_mode():
+        fn = lambda mix: forward(params, state, cfg, mix)[0]  # noqa: E731
+        want = [fn(x) for x in xs]
+        g = graphed.GraphedForward(fn, tag=(cfg.kernel_form(False, dev),))
+        for x in xs:
+            g(x), g(x)                      # eager, then capture and replay
+        got = [(i, g(xs[i])) for i in (0, 1, 1, 0, 0, 1)]
+        torch.cuda.synchronize()
+    assert len(g.graphs()) == 2
+    for i, out in got:
+        assert torch.equal(out, want[i]), i
+
+
+def test_a_capture_that_synchronises_the_host_raises(dev):
+    """A function that reads a value to the host cannot be captured: the
+    capture raises GraphError naming the key. In a fresh process, since a
+    failed capture can leave the CUDA context unusable."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from convtasnet_torch.models import graphed\n"
+        "g = graphed.GraphedForward(lambda x: x * float(x.sum()), tag=('whole_tcn',))\n"
+        "x = torch.ones(8, device='cuda')\n"
+        "g(x)\n"
+        "try:\n"
+        "    g(x)\n"
+        "except graphed.GraphError as e:\n"
+        "    print('raised', e)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert "raised capture of key" in out.stdout and "whole_tcn" in out.stdout, (
+        out.stdout + out.stderr)
+
+
+def test_graphed_outputs_survive_the_next_replay(dev):
+    from convtasnet_torch.models import graphed
+
+    g = graphed.GraphedForward(lambda a, b: (a + b, a * b))
+    xs = [torch.full((1024,), float(v), device=dev) for v in range(5)]
+    two = torch.full((1024,), 2.0, device=dev)
+    held = [g(x, two) for x in xs]
+    torch.cuda.synchronize()
+    assert graphed.counts()["graphs"] >= 1 and len(g.graphs()) == 1
+    for x, (s, p) in zip(xs, held):
+        assert torch.equal(s, x + 2) and torch.equal(p, x * 2)

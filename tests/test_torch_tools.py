@@ -10,7 +10,7 @@ import torch
 
 from convtasnet_torch.config import ConvTasNetConfig
 from convtasnet_torch.tools import (bench_infer_paths, bench_scaled_config, bench_scaling,
-                                    bench_sdr, bench_train_paths)
+                                    bench_sdr, bench_train_paths, profile_forward)
 from convtasnet_torch.tools._bench import forward_matmul_flops
 from convtasnet_tpu.config import ConvTasNetConfig as JConfig
 
@@ -96,6 +96,22 @@ def test_bench_infer_paths(capsys):
     assert [(r["path"], r["form"]) for r in rows] == [
         ("auto", "whole_tcn"), ("block", "whole_block"), ("0", "eager")]
     assert all(r["fwd_ms"] > 0 and r["device"] == "cpu" for r in rows)
+
+
+@pytest.mark.parametrize("graph", ["0", "1"])
+def test_bench_infer_paths_graph_flag(capsys, graph):
+    """--graph 1 times the forward through GraphedForward (eager on the
+    CPU: graphs are a CUDA mechanism), --graph 0 the bare forward; the
+    scaled config's infer mode takes the same flag."""
+    rows = bench_infer_paths.main(["auto", "--tiny", "--device", "cpu", "--batch", "1",
+                                   "--steps", "1", "--graph", graph])
+    rows += bench_scaled_config.main(["infer", "--tiny", "--device", "cpu", "--batch", "1",
+                                      "--seg_sec", "0.25", "--graph", graph])
+    assert _printed(capsys) == rows
+    for r in rows:
+        assert r["graphed"] is False and r["capture_ms"] is None and r["pool_bytes"] is None
+    with pytest.raises(ValueError, match="--graph 1 applies to the forward"):
+        profile_forward.profile(5, "hybrid", train=True, graph=True)
 
 
 def test_bench_sdr(capsys):
