@@ -72,9 +72,25 @@
    `convtasnet_torch.cli.train` on cuda at the paper config, --batch_size
    5, with --use_kernels hybrid (the main path), whole and 0: finite
    losses, checkpoints that load, a --continue_from resume, and the launch
-   counts of the run; then one train step of each form from the same
-   seed: the launches per step, the loss, and the gradients against the
-   eager autograd step in f32 and bf16;
+   counts of the run (on one card the CLI's train and CV steps are CUDA
+   graphs, training/solver.GraphedStep: a CV key's capture runs one more
+   forward, its side-stream warm-up); then one train step of each form
+   from the same seed: the launches per step, the loss, and the gradients
+   against the eager autograd step in f32 and bf16;
+8b. train-graph phase (training/solver.GraphedStep, the train step as a
+   CUDA graph with its trees updated in place) at the paper config, bf16,
+   batch 5 x 4 s on the train phase's set: 10 steps graphed against 10
+   with graphed.MAX_GRAPHS = 0 (every call eager) for hybrid, whole, 0,
+   0 with remat block and dots, and hybrid at BN (the eager chain): loss
+   per step and every parameter, moment and BN-state leaf (bit for bit
+   where two eager runs are), opt_state.step, launches, capture ms, pool
+   bytes, peak memory, and step ms (CUDA events; device busy and idle
+   share for hybrid, in turns, and the remat modes); set_lr between two
+   replays against eager and against the full rate; the train CLI
+   (hybrid) two epochs graphed against eager (histories, launches), then
+   graphed --continue_from epoch1.ckpt and a resume from a latest.ckpt
+   cut mid-epoch (batch 2, step 3 of 5) against the uncut run; the scaled
+   config's hybrid step at batch 2 x 8 s graphed against eager, timed;
 9. times the forward at batch 8 and batch 1 (4 s at 8 kHz), the train
    step at batch 5 x 4 s, each kernel per launch beside its plain
    version, one PyTorch call where there is one (torch.matmul of a GEMM
@@ -675,10 +691,18 @@ def per_step_launches(form, NB):
     return {}
 
 
+def cv_forwards(out, n_cv):
+    """CV forwards a train CLI run executed over `n_cv` CV batches: one per
+    batch, plus the side-stream warm-up of each captured CV key
+    (models/graphed.py; a train step's warm-up is its one update)."""
+    from convtasnet_torch.models import graphed
+
+    return n_cv + graphed.CAPTURE_WARMUP * out["graphs"]["cv_step"]["captures"]
+
+
 def train_phase(cfg, dev, tmp):
     """The train CLI at the paper config and one train step of each form;
-    returns (launch counts of the main path's run, step-time medians, the
-    hybrid run: its argv and result)."""
+    returns (step-time medians, the hybrid run: its argv and result)."""
     import dataclasses
 
     from convtasnet_torch.cli.train import main as train_main
@@ -721,8 +745,9 @@ def train_phase(cfg, dev, tmp):
         chk(f"train {form}: losses finite",
             float(not np.all(np.isfinite(out["tr_loss"] + out["cv_loss"]))), 0)
         per = per_step_launches(form, NB)
+        cv_runs = cv_forwards(out, n_cv)
         for k, v in counts.items():
-            want = steps * per.get(k, 0) + (n_cv * cv_launch.get(k, 0) if form != "0" else 0)
+            want = steps * per.get(k, 0) + (cv_runs * cv_launch.get(k, 0) if form != "0" else 0)
             chk(f"train {form}: {k} launches", abs(v - want), 0)
         for name in ("epoch1.ckpt", "final.ckpt", "latest.ckpt"):
             ck = load_checkpoint(os.path.join(folder, name), dev)
@@ -773,7 +798,7 @@ def train_phase(cfg, dev, tmp):
             f"({5 * 4.0 / (ms / 1e3):.1f} audio-s/s)")
     torch.cuda.synchronize()
     chk.done()
-    return path_counts["hybrid"], timing, runs["hybrid"]
+    return timing, runs["hybrid"]
 
 def _band_noise(rng, n, lo, hi):
     """White noise band-passed to [lo, hi] Hz by an FFT mask, unit RMS."""
@@ -1893,6 +1918,313 @@ def backward_timing(stacked, cfg, dev, M=5, K=3199):
     return out
 
 
+# Train-graph phase: the train step as a CUDA graph (training/solver.
+# GraphedStep) against the same steps with graphed.MAX_GRAPHS = 0 (every
+# call eager), per training form; BN takes the eager chain (the kernels
+# have no BN mode). (label, --use_kernels, remat, norm_type).
+TRAIN_GRAPH_FORMS = (("hybrid", "hybrid", False, "gLN"), ("whole", "whole", False, "gLN"),
+                     ("0", "0", False, "gLN"), ("0+block", "0", "block", "gLN"),
+                     ("0+dots", "0", "dots", "gLN"), ("hybrid BN", "hybrid", False, "BN"))
+TRAIN_GRAPH_STEPS = 10
+# After set_lr halves the rate between two replays, the next replayed Adam
+# step's parameter change over the same step at the full rate: 0.5, up to
+# the f32 rounding of p - lr * u (|lr * u| ~ 1e-3 of |p| ~ 0.1: a few
+# 1e-6 relative).
+TOL_LR_RATIO = 1e-3
+
+
+def _graph_step_run(cfg, dev, params, state, batches, n, cap, lr_at=None):
+    """n Adam steps (clip 5) through a GraphedStep from copies of the
+    seeded trees, cycling over `batches`, with graphed.MAX_GRAPHS = cap (0:
+    every call eager); with lr_at, the rate is halved the solver's way
+    (set_lr) before that call. Returns (step, losses, peak GB above what
+    was held, parameters before the last call)."""
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.training.optim import Optimizer, set_lr, tree_leaves, tree_map
+    from convtasnet_torch.training.solver import GraphedStep, make_train_step
+
+    p = tree_map(lambda t: t.clone(), params)
+    s = tree_map(lambda t: t.clone(), state)
+    opt = Optimizer("adam", lr=1e-3)
+    o = opt.init(p)
+    step = GraphedStep(make_train_step(cfg, opt, 5.0), p, o, s,
+                       tag=(cfg.kernel_form(True, dev),))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, cap
+    losses, before = [], None
+    try:
+        for i in range(n):
+            if i == lr_at:
+                o = set_lr(o, float(o.lr) / 2.0)
+            if i == n - 1:
+                before = [t.clone() for t in tree_leaves(p)]
+            mix, lens, src = batches[i % len(batches)]
+            p, o, s, loss, _ = step(p, o, s, mix, src, lens)
+            losses.append(loss)
+        torch.cuda.synchronize()
+    finally:
+        graphed.MAX_GRAPHS = saved
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    return step, [float(x) for x in losses], peak, before
+
+
+def _step_trees(step):
+    from convtasnet_torch.training.optim import tree_leaves
+
+    o = step.opt_state
+    return (tree_leaves(step.params) + tree_leaves(o.mu) + tree_leaves(o.nu)
+            + tree_leaves(step.state))
+
+
+def _same_bits(a, b):
+    return a[1] == b[1] and all(torch.equal(x, y) for x, y in zip(_step_trees(a[0]),
+                                                                    _step_trees(b[0])))
+
+
+def _graph_vs_eager(chk, what, g, e, eager_bits):
+    """A graphed run against an eager one: losses per step (TOL_LOSS_BF16,
+    relative), every parameter, moment and state leaf (TOL_GRAD_BF16,
+    relative L2), and bit for bit where two eager runs are."""
+    bits = _same_bits(g, e)
+    chk(f"{what}: loss per step, graphed vs eager (relative)",
+        max(abs(x - y) / max(abs(y), 1e-6) for x, y in zip(g[1], e[1])), TOL_LOSS_BF16)
+    worst = max((rel_l2(x, y), i) for i, (x, y) in enumerate(zip(_step_trees(g[0]),
+                                                                 _step_trees(e[0]))))
+    chk(f"{what}: parameter / moment / state leaves, graphed vs eager, worst #{worst[1]} "
+        "(relative L2)", worst[0], TOL_GRAD_BF16)
+    if eager_bits:
+        chk(f"{what}: graphed == eager bit for bit (two eager runs are)", float(not bits), 0)
+    return bits
+
+
+def _step_timing(step, batch, busy=True, iters=5):
+    """Event ms (median of `iters`) and, with `busy`, device busy ms
+    (torch.profiler) and idle share of further calls of `step` on one
+    batch."""
+    mix, lens, src = batch
+
+    def one():
+        step(step.params, step.opt_state, step.state, mix, src, lens)
+
+    ms = forward_ms(one, iters=iters, warm=1)[0]
+    if not busy:
+        return {"ms": ms}
+    b = device_ms(one, iters=3, warm=0)
+    return {"ms": ms, "busy_ms": b, "idle_share": max(0.0, 1.0 - b / ms)}
+
+
+def _train_graph_form(chk, label, c, dev, batches, NB, in_turns=False, busy=True):
+    """One training form: two eager runs and a graphed one, checked, then
+    timed: eager, graphed (in_turns: then graphed, eager); device busy
+    with `busy`."""
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import init_params
+
+    n = TRAIN_GRAPH_STEPS
+    params, state = init_params(torch.Generator(device=dev).manual_seed(0), c, device=dev)
+    e = _graph_step_run(c, dev, params, state, batches, n, 0)
+    eager_bits = _same_bits(e, _graph_step_run(c, dev, params, state, batches, n, 0))
+    reset_all_counts()
+    g = _graph_step_run(c, dev, params, state, batches, n, graphed.MAX_GRAPHS)
+    counts = all_counts()
+    bits = _graph_vs_eager(chk, label, g, e, eager_bits)
+    gs = g[0].graphed.stats()
+    chk(f"{label}: opt_state.step == {n}", abs(int(g[0].opt_state.step) - n), 0)
+    chk(f"{label}: 1 eager call, 1 capture, {n - 2} replays",
+        abs(gs["eager_calls"] - 1) + abs(gs["captures"] - 1) + abs(gs["replays"] - (n - 2)), 0)
+    per = per_step_launches(c.use_kernels if c.kernel_form(True, dev) != "eager" else "0", NB)
+    chk(f"{label}: launches == per_step_launches x {n} {counts}",
+        max(abs(v - n * per.get(k, 0)) for k, v in counts.items()), 0)
+    info = next(iter(g[0].graphed.graphs().values()))
+    row = {"eager_bit_equal_to_eager": eager_bits, "graphed_bit_equal_to_eager": bits,
+           "capture_ms": info["capture_ms"], "pool_bytes": info["pool_bytes"],
+           "eager_peak_gb": e[2], "graphed_peak_gb": g[2]}
+    order = [("eager", e[0]), ("graphed", g[0])]
+    if in_turns:
+        order += order[::-1]
+    for side, step in order:
+        for k, v in _step_timing(step, batches[0], busy).items():
+            row.setdefault(f"{side}_{k}", []).append(v)
+    times = {side: f"{row[side + '_ms']} ms" + (f" (busy {row[side + '_busy_ms']}, idle "
+                                                 f"{row[side + '_idle_share']})" if busy else "")
+             for side in ("eager", "graphed")}
+    log(f"  {label}: eager {times['eager']}, graphed {times['graphed']}; capture "
+        f"{row['capture_ms']:.1f} ms, pool {row['pool_bytes'] / 1e9:.3f} GB, peak eager "
+        f"{row['eager_peak_gb']:.3f} / graphed {row['graphed_peak_gb']:.3f} GB; bit-equal "
+        f"{bits} (eager twice {eager_bits})")
+    return row
+
+
+def train_graph_phase(cfg, dev, hybrid_run, tmp):
+    """The train step and the CV step as CUDA graphs (training/solver.
+    GraphedStep): (a) TRAIN_GRAPH_STEPS steps graphed against eager per
+    training form, bit for bit where two eager runs are, with opt_state.step,
+    launches, capture ms, pool bytes, peak memory and step ms (events,
+    device busy, idle share); (b) set_lr between replays; (c) the train CLI
+    two epochs graphed against eager, then graphed: --continue_from
+    epoch1.ckpt against the graphed two-epoch run, and a resume from a
+    latest.ckpt cut mid-epoch (batch 2, 5 steps per epoch, cut at step 3)
+    against the uncut run, histories and parameters; (d) the scaled
+    config's hybrid step at batch
+    2 x 8 s. Returns (results, the kernel launches of the graphed
+    two-epoch CLI run: the main path's training launches, replays
+    included)."""
+    import dataclasses
+
+    from convtasnet_torch.cli.train import main as train_main
+    from convtasnet_torch.data.dataset import AudioDataset
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.tools import bench_scaled_config as bsc
+    from convtasnet_torch.tools._bench import device_batch
+    from convtasnet_torch.training.checkpoint import load_checkpoint
+    from convtasnet_torch.training.optim import tree_leaves
+
+    chk = Checks("train-graph phase")
+    NB = cfg.R * cfg.X
+    n = TRAIN_GRAPH_STEPS
+    ds = AudioDataset(hybrid_run["tr"], 5)
+    batches = [tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                     for a in (b.mixture, b.lengths, b.source))
+               for b in (ds.load_batch(i) for i in range(len(ds)))]
+    res = {"steps": {}}
+    log(f" (a) {n} steps graphed vs eager (MAX_GRAPHS 0), bf16, batch 5 x 4 s, "
+        f"{len(batches)} batches in turn:")
+    for label, form, remat, norm in TRAIN_GRAPH_FORMS:
+        c = dataclasses.replace(cfg, use_kernels=form, remat=remat, norm_type=norm)
+        # Device busy where the step's host cost is the question: the
+        # main path and the remat modes.
+        res["steps"][label] = _train_graph_form(chk, label, c, dev, batches, NB,
+                                                in_turns=label == "hybrid",
+                                                busy=label in ("hybrid", "0+block", "0+dots"))
+        torch.cuda.empty_cache()
+
+    log(" (b) set_lr between replays (hybrid):")
+    c = dataclasses.replace(cfg, use_kernels="hybrid")
+    params, state = init_params(torch.Generator(device=dev).manual_seed(0), c, device=dev)
+    runs = {name: _graph_step_run(c, dev, params, state, batches, 4, cap, lr_at)
+            for name, cap, lr_at in (("graphed", graphed.MAX_GRAPHS, 3), ("eager", 0, 3),
+                                     ("full rate", graphed.MAX_GRAPHS, None))}
+
+    def delta(run):
+        return [a - b for a, b in zip(tree_leaves(run[0].params), run[3])]
+
+    dg, de, df = delta(runs["graphed"]), delta(runs["eager"]), delta(runs["full rate"])
+    gs = runs["graphed"][0].graphed.stats()
+    chk("set_lr: the halved step was a replay", float(gs["replays"] != 2), 0)
+    bits = res["steps"]["hybrid"]["eager_bit_equal_to_eager"]
+    chk("set_lr: replayed step's change vs eager's at the halved rate (relative L2)",
+        max(rel_l2(a, b) for a, b in zip(dg, de)), 0.0 if bits else TOL_GRAD_BF16)
+    ratio = float(torch.cat([d.flatten() for d in dg]).norm()
+                  / torch.cat([d.flatten() for d in df]).norm())
+    chk(f"set_lr: change at the halved rate / at the full rate ({ratio:.6f}) - 0.5",
+        abs(ratio - 0.5), TOL_LR_RATIO)
+    res["set_lr_ratio"] = ratio
+    del runs, dg, de, df
+    torch.cuda.empty_cache()
+
+    log(" (c) train CLI --use_kernels hybrid, graphed vs eager (MAX_GRAPHS 0):")
+    argv = hybrid_run["argv"]  # batch 5 (2 steps per epoch), --save_every_steps 1
+    folder = os.path.join(tmp, "graph_cli")
+    cli = {}
+
+    def cli_run(name, cap, *extra):
+        saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, cap
+        reset_all_counts()
+        try:
+            out = train_main(argv + [*extra, "--save_folder", os.path.join(folder, name)])
+        finally:
+            graphed.MAX_GRAPHS = saved
+        torch.cuda.synchronize()
+        cli[name] = (out, all_counts())
+        log(f"  {name}: {out['steps']} steps, tr_loss {out['tr_loss']}, cv_loss "
+            f"{out['cv_loss']}; graphs {out['graphs']}")
+        ck = load_checkpoint(os.path.join(folder, name, "final.ckpt"), dev)
+        chk(f"CLI {name}: final.ckpt loads with optimizer state",
+            float(not ck["header"]["has_opt"]), 0)
+        return out
+
+    cap = graphed.MAX_GRAPHS
+    cli_run("eager", 0, "--epochs", "2")
+    cli_run("graphed", cap, "--epochs", "2")
+    cli_run("continued", cap, "--epochs", "2", "--continue_from",
+            os.path.join(folder, "graphed", "epoch1.ckpt"))
+    # A mid-epoch cut: at batch 2 an epoch has 5 steps, and latest.ckpt is
+    # last written at step 3 of epoch 2.
+    cli_run("batch2", cap, "--epochs", "2", "--batch_size", "2", "--save_every_steps", "3")
+    latest = os.path.join(folder, "batch2", "latest.ckpt")
+    chk("CLI batch2: latest.ckpt cut at step 3",
+        abs(load_checkpoint(latest)["header"]["extra"]["step_in_epoch"] - 3), 0)
+    cli_run("resumed", cap, "--epochs", "2", "--batch_size", "2", "--continue_from", latest)
+    per = per_step_launches("hybrid", NB)
+    cv = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+    for name in ("eager", "graphed"):
+        out, counts = cli[name]
+        chk(f"CLI {name}: launches of the two-epoch run vs its counters {counts}",
+            max(abs(v - out["steps"] * per.get(k, 0) - cv_forwards(out, 8) * cv.get(k, 0))
+                for k, v in counts.items()), 0)
+    (g, _), (e, _) = cli["graphed"], cli["eager"]
+    ts = g["graphs"]["train_step"]
+    chk("CLI graphed: train step 1 key, 1 capture, the rest replays",
+        abs(ts["keys"] - 1) + abs(ts["captures"] - 1) + abs(ts["replays"] - (g["steps"] - 2)), 0)
+    chk("CLI graphed: CV step 1 key, 1 capture",
+        abs(g["graphs"]["cv_step"]["keys"] - 1) + abs(g["graphs"]["cv_step"]["captures"] - 1), 0)
+    chk("CLI eager: every step eager",
+        abs(e["graphs"]["train_step"]["eager_calls"] - e["steps"]), 0)
+    chk("CLI resumed: steps 4 and 5 of epoch 2", abs(cli["resumed"][0]["steps"] - 2), 0)
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.subtract(a, b)) / np.abs(b)))
+
+    pairs = (("graphed", "eager"), ("continued", "graphed"), ("resumed", "batch2"))
+    for a, b in pairs:
+        for k in ("tr_loss", "cv_loss"):
+            chk(f"CLI {a} vs {b}: {k} (relative)", rel(cli[a][0][k], cli[b][0][k]),
+                TOL_LOSS_BF16)
+    want = load_checkpoint(os.path.join(folder, "batch2", "epoch2.ckpt"), dev)["params"]
+    got = load_checkpoint(os.path.join(folder, "resumed", "epoch2.ckpt"), dev)["params"]
+    pairs_p = list(zip(tree_leaves(got), tree_leaves(want)))
+    chk("CLI resumed vs batch2: parameters after epoch 2, worst leaf (relative L2)",
+        max(rel_l2(a, b) for a, b in pairs_p), TOL_GRAD_BF16)
+    res["cli_bit_equal"] = {f"{a}_vs_{b}": all(cli[a][0][k] == cli[b][0][k]
+                                                for k in ("tr_loss", "cv_loss"))
+                            for a, b in pairs}
+    res["cli_bit_equal"]["resumed_vs_batch2_params"] = all(torch.equal(a, b)
+                                                           for a, b in pairs_p)
+    res["cli_graphs"] = g["graphs"]
+    log(f"  CLI histories (and resumed parameters) bit for bit: {res['cli_bit_equal']}")
+
+    log(" (d) scaled config, hybrid, batch 2 x 8 s, graphed vs eager:")
+    scfg = bsc.scaled_cfg(**bsc.TIERS["hybrid"])
+    sparams, sstate = init_params(torch.Generator(device=dev).manual_seed(0), scfg, device=dev)
+    sbatch = [device_batch(0, 2, scfg.C, int(SCALED_SEG_S * bsc.SR), bsc.SR, dev)]
+    e = _graph_step_run(scfg, dev, sparams, sstate, sbatch, 4, 0)
+    eager_bits = _same_bits(e, _graph_step_run(scfg, dev, sparams, sstate, sbatch, 4, 0))
+    reset_all_counts()
+    g = _graph_step_run(scfg, dev, sparams, sstate, sbatch, 4, graphed.MAX_GRAPHS)
+    counts = all_counts()
+    per = per_step_launches("hybrid", scfg.R * scfg.X)
+    chk(f"scaled: launches == per_step_launches x 4 {counts}",
+        max(abs(v - 4 * per.get(k, 0)) for k, v in counts.items()), 0)
+    bits = _graph_vs_eager(chk, "scaled hybrid batch 2 x 8 s", g, e, eager_bits)
+    info = next(iter(g[0].graphed.graphs().values()))
+    row = {"eager_bit_equal_to_eager": eager_bits, "graphed_bit_equal_to_eager": bits,
+           "capture_ms": info["capture_ms"],
+           "pool_bytes": info["pool_bytes"], "eager_peak_gb": e[2], "graphed_peak_gb": g[2]}
+    for side, step in (("eager", e[0]), ("graphed", g[0]), ("graphed", g[0]), ("eager", e[0])):
+        for k, v in _step_timing(step, sbatch[0], iters=5).items():
+            row.setdefault(f"{side}_{k}", []).append(v)
+    res["scaled_hybrid_batch2"] = row
+    log(f"  scaled hybrid: {json.dumps(row)}")
+    del e, g, sparams, sstate
+    torch.cuda.empty_cache()
+    log(f"train-graph phase: {json.dumps(res)}")
+    chk.done()
+    return res, cli["graphed"][1]
+
+
 REMAT_MODES = ("none", "repeat", "block", "dots")
 SCALED_SEG_S = 8.0      # the scaled tool's default segment at 16 kHz
 SCALED_STEPS = 3        # timed steps per tier (after the tool's 2 warm-up steps)
@@ -1974,7 +2306,7 @@ def visualize_phase(cfg, dev, chk, hybrid_run, tmp):
     cv = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
     n_cv = 4  # the train phase's cv utterances, one forward each
     chk(f"visualize run: launches of every kernel vs its counter {counts}",
-        max(abs(v - out["steps"] * per.get(k, 0) - n_cv * cv.get(k, 0))
+        max(abs(v - out["steps"] * per.get(k, 0) - cv_forwards(out, n_cv) * cv.get(k, 0))
             for k, v in counts.items()), 0)
     with open(os.path.join(folder, "train.log")) as f:
         failed = [line.strip() for line in f if "visualize failed" in line]
@@ -2015,7 +2347,8 @@ def scaled_phase(dev, chk):
         for tier in bsc.TIERS:
             torch.cuda.synchronize()
             reset_all_counts()
-            row = bsc.bench_train(tier, batch, SCALED_SEG_S, SCALED_STEPS, dev)
+            row = bsc.bench_train(tier, batch, SCALED_SEG_S, SCALED_STEPS, dev,
+                                  graph=False)  # graphed: the train-graph phase
             torch.cuda.synchronize()
             counts = all_counts()
             add(counts)
@@ -2335,7 +2668,14 @@ def main() -> int:
     log("train phase:")
     # Kept to the end: the parallel phase trains on the same dataset.
     train_tmp = tempfile.TemporaryDirectory()
-    train_counts, train_timing, hybrid_run = train_phase(cfg, dev, train_tmp.name)
+    train_timing, hybrid_run = train_phase(cfg, dev, train_tmp.name)
+
+    # ---- train-graph phase: the train and CV steps as CUDA graphs ----------
+    log("train-graph phase:")
+    t0 = time.perf_counter()
+    # The main path's training launches: its graphed two-epoch CLI run.
+    train_graph, train_counts = train_graph_phase(cfg, dev, hybrid_run, train_tmp.name)
+    train_graph["phase_s"] = time.perf_counter() - t0
 
     # ---- timing -------------------------------------------------------------
     log("timing (CUDA events, after warm-up):")
@@ -2491,7 +2831,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": s["source"], "design": DESIGN[name],
             "replaces": s["replaces"], "launches": train_counts[name],
-            "path": "train --use_kernels hybrid", "max_abs_err": train_errs[name], **t,
+            "path": "train --use_kernels hybrid --epochs 2, steps as CUDA graphs",
+            "max_abs_err": train_errs[name], **t,
         })
         report(name, t, f"M={M5}, K_pad={Kp} ({rows5} rows), B={B}, H={H}")
     for k in kernels:
@@ -2521,8 +2862,8 @@ def main() -> int:
         par_timing = parallel_phase(cfg, dev, train_tmp.name, hybrid_run)
     par_timing["phase_s"] = time.perf_counter() - t0
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
-                    "evaluate": eval_timing, "graph": graph_timing, "stream": stream_timing,
-                    "options": opt_res, "parallel": par_timing}))
+                    "train_graph": train_graph, "evaluate": eval_timing, "graph": graph_timing,
+                    "stream": stream_timing, "options": opt_res, "parallel": par_timing}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

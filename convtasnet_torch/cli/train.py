@@ -20,6 +20,11 @@ host:port --num_processes N --process_id i). Under DP each rank trains its
 rows with the --use_kernels form; under TP or CP the chain is eager, as in
 the JAX package.
 
+On one card the train step and the CV step run as CUDA graphs, one per
+batch shape (training/solver.GraphedStep), with the parameters,
+optimizer state and BN state updated in place; under --dp / --tp / --cp
+both run eagerly. The run ends with each wrapper's counts in the log.
+
 --remat {0,none,1,repeat,block,dots} rematerialises the eager chain in
 backward (config.py; the kernel forms ignore it, as the JAX Pallas tiers
 do), --scan_unroll is accepted for the JAX CLI's sake and changes nothing,
@@ -152,7 +157,13 @@ def _train(args, device, mesh):
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = ConvTasNet(model_cfg, device=device, generator=gen)
-    return Solver(model, train_cfg, tr_loader, cv_loader, mesh=mesh).train()
+    solver = Solver(model, train_cfg, tr_loader, cv_loader, mesh=mesh)
+    out = solver.train()
+    for name, c in (out["graphs"] or {}).items():
+        solver.log(f"{name} graphs: {c['captures']} captures, {c['replays']} replays, "
+                   f"{c['eager_calls']} eager calls, {c['keys']} keys, "
+                   f"{c['pool_bytes']} pool bytes")
+    return out
 
 
 if __name__ == "__main__":

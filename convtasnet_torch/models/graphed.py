@@ -1,9 +1,11 @@
-"""Inference programs captured once per input shape as CUDA graphs.
+"""Programs captured once per input shape as CUDA graphs.
 
 Counterpart of `jax.jit` on the JAX package's inference functions
-(convtasnet_tpu/cli/separate.py `infer`, cli/evaluate.py `infer`): XLA
-compiles each once per input shape and then launches the program whole.
-`GraphedForward` wraps a function of device tensors the same way:
+(convtasnet_tpu/cli/separate.py `infer`, cli/evaluate.py `infer`) and of
+its buffer-donating train step (convtasnet_tpu/training/solver.py
+`make_train_step`): XLA compiles each once per input shape and then
+launches the program whole. `GraphedForward` wraps a function of device
+tensors the same way:
 
 * key: the inputs' shapes, dtypes and devices, plus the caller's `tag` of
   the run-time choices that change the program (the kernel form, cal_sdr);
@@ -16,6 +18,12 @@ compiles each once per input shape and then launches the program whole.
   graphs share, and the graph is replayed;
 * later calls: the inputs are copied into the static buffers, the graph is
   replayed.
+
+A `stateful` function (the train step, training/solver.GraphedStep)
+updates tensors it closes over in place, so it must run exactly once per
+call: on its capturing call the side-stream warm-up is that call's run,
+the capture only records, and the call returns the warm-up's outputs
+without a replay.
 
 A replay returns clones of the static outputs, so the next replay never
 overwrites what a caller still holds (both CLIs keep one batch in flight).
@@ -59,7 +67,8 @@ from ..ops.kernels import tcn_block, tcn_block_bwd
 MAX_GRAPHS = 16
 
 # Runs on a side stream before a capture (torch.cuda.graph's warm-up rule;
-# the key's eager first call has already done the one-time set-up).
+# the key's eager first call has already done the one-time set-up). A
+# stateful function's warm-up is its capturing call's one run.
 CAPTURE_WARMUP = 1
 
 _COUNTS = {"captures": 0, "replays": 0, "eager_calls": 0}
@@ -86,15 +95,17 @@ class CudaGraphs:
     """The capture backend of a CUDA device."""
 
     @staticmethod
-    def warm_up(fn: Callable, inputs: Sequence[torch.Tensor]) -> None:
+    def warm_up(fn: Callable, inputs: Sequence[torch.Tensor]):
+        """fn's outputs (of its last warm-up run)."""
         dev = inputs[0].device
         current = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             for _ in range(CAPTURE_WARMUP):
-                fn(*inputs)
+                out = fn(*inputs)
         current.wait_stream(side)
+        return out
 
     @staticmethod
     def capture(fn: Callable, inputs: Sequence[torch.Tensor], pool=None) -> Program:
@@ -137,17 +148,31 @@ _SEEN = object()     # one eager call so far
 _EAGER = object()    # beyond the cap: eager for good
 
 
+def _clones(outs: Sequence[torch.Tensor], single: bool):
+    """Clones of a function's outputs, as it returned them (`single`: one
+    tensor)."""
+    copies = tuple(o.clone() for o in outs)
+    return copies[0] if single else copies
+
+
 class GraphedForward:
     """fn(*tensors) -> tensor or tuple of tensors, captured per key as
-    described in the module docstring. `tag` joins every key."""
+    described in the module docstring. `tag` joins every key; `stateful`
+    says that fn updates state in place and must run once per call."""
 
-    def __init__(self, fn: Callable, tag: Tuple = ()):
+    def __init__(self, fn: Callable, tag: Tuple = (), stateful: bool = False):
         self.fn = fn
         self.tag = tuple(tag)
+        self.stateful = stateful
+        self.calls = dict.fromkeys(_COUNTS, 0)  # this wrapper's share of _COUNTS
         self._state: Dict[tuple, object] = {}
         self._graphs: Dict[tuple, _Graph] = {}
         self._pool = None  # the pool of the first capture, shared by the rest
         _LIVE.add(self)
+
+    def _count(self, what: str) -> None:
+        _COUNTS[what] += 1
+        self.calls[what] += 1
 
     def key(self, inputs: Sequence[torch.Tensor]) -> tuple:
         return tuple((tuple(t.shape), t.dtype, t.device) for t in inputs) + self.tag
@@ -168,14 +193,14 @@ class GraphedForward:
             self._state[key] = _EAGER
         elif backend is not None and state is None:
             self._state[key] = _SEEN
-        _COUNTS["eager_calls"] += 1
+        self._count("eager_calls")
         return self.fn(*inputs)
 
     def _capture(self, key, backend, inputs):
         static = tuple(t.clone() for t in inputs)
         t0 = time.perf_counter()
         try:
-            backend.warm_up(self.fn, static)
+            warm = backend.warm_up(self.fn, static)
             before = _launches()
             program = backend.capture(self.fn, static, self._pool)
         except Exception as e:
@@ -190,7 +215,9 @@ class GraphedForward:
         graph = _Graph(program._replace(outputs=outs), static, single, launches, capture_ms)
         self._state[key] = self._graphs[key] = graph
         self._pool = program.pool
-        _COUNTS["captures"] += 1
+        self._count("captures")
+        if self.stateful:  # the warm-up was this call's run; the capture only recorded
+            return _clones((warm,) if single else warm, single)
         return self._replay(key, graph, inputs)
 
     def _replay(self, key, graph: _Graph, inputs):
@@ -201,9 +228,8 @@ class GraphedForward:
         except Exception as e:
             raise GraphError(f"replay of key {key} failed: {type(e).__name__}: {e}") from e
         _add_launches(graph.launches)
-        _COUNTS["replays"] += 1
-        outs = tuple(o.clone() for o in graph.program.outputs)
-        return outs[0] if graph.single else outs
+        self._count("replays")
+        return _clones(graph.program.outputs, graph.single)
 
     def graphs(self) -> Dict[tuple, dict]:
         """Per captured key: capture_ms (host time of the warm-up and the
@@ -211,6 +237,12 @@ class GraphedForward:
         and the kernel launches per replay."""
         return {k: {"capture_ms": g.capture_ms, "pool_bytes": g.program.pool_bytes,
                     "launches": dict(g.launches)} for k, g in self._graphs.items()}
+
+    def stats(self) -> dict:
+        """This wrapper's captures, replays and eager_calls, the keys it has
+        seen, its graphs and the bytes of its pool."""
+        return {**self.calls, "keys": len(self._state), "graphs": len(self._graphs),
+                "pool_bytes": sum(g.program.pool_bytes for g in self._graphs.values())}
 
 
 def graph_row(fn: Optional[GraphedForward]) -> dict:

@@ -2,7 +2,8 @@
 tiers fit its memory, and at what step time; and the forward's latency.
 
     python -m convtasnet_torch.tools.bench_scaled_config train [--batch 2] \\
-        [--seg_sec 8] [--tiers eager_noremat,eager_dots,whole,hybrid] [--steps 10]
+        [--seg_sec 8] [--tiers eager_noremat,eager_dots,whole,hybrid] [--steps 10] \\
+        [--graph 0|1]
     python -m convtasnet_torch.tools.bench_scaled_config infer [--batch 1] [--graph 0|1]
 
 The config: N=256, L=32, B=256, H=1024, P=3, X=10, R=6, C=2, gLN,
@@ -20,7 +21,11 @@ out-of-memory error gives a row with ok false and oom true, and the memory
 is freed before the next tier. `peak_gb` is torch.cuda.max_memory_allocated
 over the tier, `held_gb` what the process held before it (in a bigger run,
 such as chip_smoke.py's, the peak includes it), `steps_run` the steps it
-launched (warm-up included).
+launched (warm-up included). With --graph 1 (the default, as the train CLI
+runs on one card) the step is training/solver.GraphedStep, captured in the
+warm-up, so every timed step is a replay; its row carries `graphed`,
+`capture_ms` and `pool_bytes` (`peak_gb` then covers the capture, whose
+activations the graph's pool keeps). --graph 0 times the eager step.
 
 infer: the forward (--use_kernels auto) at --batch, under inference mode,
 timed with CUDA events over 20 calls (with --graph 1, the default, as the
@@ -47,7 +52,7 @@ from ..config import ConvTasNetConfig
 from ..models.conv_tasnet import chain_form, forward, init_params, resolve_device
 from ..models.graphed import GraphedForward, graph_row
 from ..training.optim import Optimizer
-from ..training.solver import make_train_step
+from ..training.solver import GraphedStep, make_train_step
 from ._bench import (H100_BF16_FLOPS, H100_PEAK_NAME, TINY, device_batch, device_name,
                      forward_matmul_flops, timed_ms)
 
@@ -72,24 +77,27 @@ def _describe(cfg: ConvTasNetConfig) -> str:
             f"{cfg.norm_type},{'bf16' if cfg.compute_dtype == 'bfloat16' else 'f32'}")
 
 
-def _train_steps(cfg, batch, T, steps, dev):
-    """(ms per step, last loss) of `steps` timed steps after WARM."""
+def _train_steps(cfg, batch, T, steps, dev, graph=True):
+    """(ms per step, last loss, graph_row of the step) of `steps` timed
+    steps after WARM."""
     params, state = init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
     opt = Optimizer("adam", lr=1e-3)
     step = make_train_step(cfg, opt, 5.0)
     mix, lens, src = device_batch(0, batch, cfg.C, T, SR, dev)
     carry = [params, opt.init(params), state, None]
+    if graph:
+        step = GraphedStep(step, *carry[:3], tag=(cfg.kernel_form(True, dev),))
 
     def one():
         carry[0], carry[1], carry[2], carry[3], _ = step(carry[0], carry[1], carry[2],
                                                          mix, src, lens)
 
     ms = timed_ms(one, steps, WARM, dev)
-    return ms, float(carry[3])
+    return ms, float(carry[3]), graph_row(step.graphed if graph else None)
 
 
 def bench_train(tier: str, batch: int, seg_sec: float, steps: int, dev: torch.device,
-                tiny: bool = False) -> dict:
+                tiny: bool = False, graph: bool = True) -> dict:
     cfg = scaled_cfg(tiny, **TIERS[tier])
     T = int(seg_sec * SR)
     out = {"metric": "scaled_config_train", "tier": tier, "batch": batch, "seg_sec": seg_sec,
@@ -101,12 +109,12 @@ def bench_train(tier: str, batch: int, seg_sec: float, steps: int, dev: torch.de
         torch.cuda.reset_peak_memory_stats(dev)
     out["held_gb"] = torch.cuda.memory_allocated(dev) / 1e9 if on_card else None
     try:
-        ms, loss = _train_steps(cfg, batch, T, steps, dev)
+        ms, loss, row = _train_steps(cfg, batch, T, steps, dev, graph)
     except torch.OutOfMemoryError as e:
-        out.update(ok=False, oom=True, steps_run=None, error=str(e)[:300])
+        out.update(ok=False, oom=True, steps_run=None, error=str(e)[:300], **graph_row(None))
     else:
         out.update(ok=True, oom=False, step_ms=ms, audio_sps=batch * seg_sec / (ms / 1e3),
-                   loss=loss, steps_run=WARM + steps)
+                   loss=loss, steps_run=WARM + steps, **row)
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
     gc.collect()  # the failed tier's tensors, before the next tier allocates
     if on_card:
@@ -148,8 +156,8 @@ def main(argv=None):
     ap.add_argument("--tiers", type=str, default=",".join(TIERS))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--graph", type=int, default=1, choices=(0, 1),
-                    help="infer: 1 times replays of the forward's CUDA graph, 0 the eager "
-                         "forward")
+                    help="1 times replays of the step's or the forward's CUDA graph, 0 the "
+                         "eager step or forward")
     ap.add_argument("--tiny", action="store_true", help="a small f32 config (CPU tests)")
     ap.add_argument("--device", default="cuda", type=str,
                     help="torch device (default cuda; fails without a GPU unless cpu)")
@@ -158,7 +166,8 @@ def main(argv=None):
     rows = []
     if args.mode == "train":
         for tier in args.tiers.split(","):
-            rows.append(bench_train(tier, args.batch, args.seg_sec, args.steps, dev, args.tiny))
+            rows.append(bench_train(tier, args.batch, args.seg_sec, args.steps, dev, args.tiny,
+                                    bool(args.graph)))
             print(json.dumps(rows[-1]), flush=True)
     else:
         rows.append(bench_infer(args.batch, args.seg_sec, dev, args.tiny,

@@ -2,7 +2,8 @@
 one CUDA device.
 
     python -m convtasnet_torch.tools.profile_forward --batch 8 --use_kernels auto [--graph 0|1]
-    python -m convtasnet_torch.tools.profile_forward --train --batch 5 --use_kernels hybrid
+    python -m convtasnet_torch.tools.profile_forward --train --batch 5 --use_kernels hybrid \\
+        [--graph 0|1]
 
 Seeded paper-config weights, random mixtures (and, with --train, random
 sources) of 4 s at 8 kHz; --train profiles make_train_step (forward, uPIT
@@ -14,10 +15,12 @@ kernel from torch.profiler over 10 calls, and the device's idle share:
 same JSON is also written to a file.
 
 The forward runs as the separate and evaluate CLIs run it, through
-models/graphed.GraphedForward (--graph 1, the default): the first warm-up
-call is eager, the second captures the CUDA graph, and every call timed or
-profiled after it is a replay (`replays` counts them; `eager_calls` must
-be 0). --graph 0 profiles the eager forward. The train step is not graphed.
+models/graphed.GraphedForward, and the train step as the train CLI runs
+it on one card, through training/solver.GraphedStep (--graph 1, the
+default): the first warm-up call is eager, the second captures the CUDA
+graph, and every call timed or profiled after it is a replay (`replays`
+counts them; `eager_calls` must be 0). --graph 0 profiles the eager
+forward or step.
 """
 
 from __future__ import annotations
@@ -35,15 +38,13 @@ from ..config import USE_KERNELS_CHOICES, ConvTasNetConfig
 from ..models import graphed
 from ..models.conv_tasnet import forward, init_params, resolve_device
 from ..training.optim import Optimizer
-from ..training.solver import make_train_step
+from ..training.solver import GraphedStep, make_train_step
 
 
 SECONDS, ITERS = 4.0, 10
 
 
 def profile(batch: int, use_kernels: str, train: bool = False, graph: bool = True) -> dict:
-    if train and graph:
-        raise ValueError("--graph 1 applies to the forward; pass --graph 0 with --train")
     dev = resolve_device("cuda")
     cfg = dataclasses.replace(ConvTasNetConfig(), use_kernels=use_kernels)
     params, state = init_params(torch.Generator(device=dev).manual_seed(1234),
@@ -56,10 +57,13 @@ def profile(batch: int, use_kernels: str, train: bool = False, graph: bool = Tru
         opt = Optimizer("adam")
         opt_state = opt.init(params)
         step = make_train_step(cfg, opt, 5.0)
+        carry = [params, opt_state, state]
+        run = GraphedStep(step, *carry, tag=(cfg.kernel_form(True, dev),)) if graph else step
         lens = torch.full((batch,), T, dtype=torch.int32, device=dev)
 
         def fwd():
-            return step(params, opt_state, state, mix, src, lens)[3]
+            carry[0], carry[1], carry[2], loss, _ = run(*carry, mix, src, lens)
+            return loss
     else:
         def eager(m):
             return forward(params, state, cfg, m)[0]
@@ -116,9 +120,9 @@ def profile(batch: int, use_kernels: str, train: bool = False, graph: bool = Tru
         "work": "train_step" if train else "forward",
         "batch": batch, "seconds": SECONDS, "use_kernels": use_kernels,
         "compute_dtype": cfg.compute_dtype, "iters": ITERS,
-        "graph": not train and graph, "replays": calls["replays"],
+        "graph": graph, "replays": calls["replays"],
         "eager_calls": calls["eager_calls"],
-        **(graphed.graph_row(run) if not train and graph else {}),
+        **(graphed.graph_row(run.graphed if train else run) if graph else {}),
         "host_ms_median": float(np.median(host)), "event_ms": event_ms,
         # host time to enqueue one call back to back, no synchronisation: the
         # host's share; where it exceeds device busy, the host sets event_ms
@@ -137,13 +141,12 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--use_kernels", default="auto", choices=USE_KERNELS_CHOICES)
     p.add_argument("--train", action="store_true", help="profile one train step")
-    p.add_argument("--graph", type=int, default=None, choices=(0, 1),
-                   help="1 (the default for the forward): profile replays of the forward's "
-                        "CUDA graph; 0: the eager forward")
+    p.add_argument("--graph", type=int, default=1, choices=(0, 1),
+                   help="1: profile replays of the forward's or the step's CUDA graph; 0: "
+                        "the eager forward or step")
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
-    graph = (not args.train) if args.graph is None else bool(args.graph)
-    res = profile(args.batch, args.use_kernels, args.train, graph)
+    res = profile(args.batch, args.use_kernels, args.train, bool(args.graph))
     line = json.dumps(res)
     print(line)
     if args.out:

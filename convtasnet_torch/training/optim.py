@@ -128,8 +128,9 @@ class Optimizer:
             mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
             nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
             t = step.float()
-            bc1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
-            bc2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
+            # A Python base: no host-to-device copy, so a CUDA graph captures it.
+            bc1 = 1 - torch.pow(b1, t)
+            bc2 = 1 - torch.pow(b2, t)
             new = tree_map(lambda p, m, v: p - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps),
                            params, mu, nu)
             return new, OptState(step, lr, mu, nu)
@@ -142,5 +143,8 @@ class Optimizer:
 
 
 def set_lr(state: OptState, lr) -> OptState:
-    return state._replace(lr=torch.tensor(float(lr), dtype=torch.float32,
-                                          device=state.lr.device))
+    """Write `lr` into the state's device scalar in place and return the
+    state: a captured train step (training/solver.GraphedStep) reads the
+    rate at that address on every replay."""
+    state.lr.fill_(float(lr))
+    return state

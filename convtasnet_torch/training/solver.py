@@ -21,6 +21,15 @@ solver.py:12-210):
   logged ("visualize failed: ...") and training goes on
   (utils/visualize.py).
 
+On one card (no mesh) both steps run as CUDA graphs, one per key of
+batch shapes (`GraphedStep`, models/graphed.py), as the JAX package jits
+them: the parameters, optimizer state and BN state live in static
+buffers that every call (eager first call, capture, replay) updates in
+place, the counterpart of the JAX step's donated buffers. On the CPU the
+same wrappers run every call eagerly. Under a mesh (DP, TP, CP) both
+steps stay eager: the DP step holds two collectives, gloo cannot be
+captured, and NCCL at world >= 2 needs two cards.
+
 On a process mesh (parallel/mesh.py; one process per card) every rank
 loads the same global batch and keeps its rows (`shard_batch`), and its
 pieces of the parameters under TP (`shard_params`). The parameters are
@@ -44,6 +53,7 @@ import torch
 
 from ..config import ConvTasNetConfig, TrainConfig
 from ..models.conv_tasnet import ConvTasNet, forward
+from ..models.graphed import GraphedForward
 from ..ops.loss import cal_loss
 from ..parallel.comm import GradBucket, all_reduce_
 from ..parallel.context import make_cp_eval_step, make_cp_train_step
@@ -117,6 +127,69 @@ def make_eval_step(cfg: ConvTasNetConfig, mesh=None,
     return step
 
 
+def _all_leaves(params, opt_state, state) -> List[torch.Tensor]:
+    return (tree_leaves(params) + [opt_state.step, opt_state.lr] + tree_leaves(opt_state.mu)
+            + tree_leaves(opt_state.nu) + tree_leaves(state))
+
+
+@torch.no_grad()
+def _copy_into(static: List[torch.Tensor], params, opt_state, state) -> None:
+    """Write the trees' leaves into the static leaves that are not they."""
+    for dst, src in zip(static, _all_leaves(params, opt_state, state)):
+        if dst is not src:
+            dst.copy_(src)
+
+
+class GraphedStep:
+    """A train step over static trees, captured per key of (mixture,
+    source, lengths) shapes by models/graphed.GraphedForward (stateful).
+
+    `params`, `opt_state` and `state` become the static trees: every call
+    writes the step's new trees into them in place and returns them
+    themselves, so each call applies exactly one update, an eager call
+    and a replay alike, and a captured graph keeps reading and writing the
+    same addresses (the counterpart of donate_argnums). Trees passed in
+    that are not the static ones (a checkpoint loaded later, a new `lr`
+    tensor) are copied into them first. The returned loss and grad_norm
+    are clones, which the next replay leaves alone."""
+
+    def __init__(self, step: Callable, params, opt_state, state, tag: tuple = ()):
+        self.params, self.opt_state, self.state = params, opt_state, state
+        self._static = static = _all_leaves(params, opt_state, state)
+
+        # Closes over the trees, not over self: the wrapper and its graphs
+        # are freed with the step.
+        def update(mixture, source, lengths):
+            *new, loss, grad_norm = step(params, opt_state, state, mixture, source, lengths)
+            _copy_into(static, *new)
+            return loss, grad_norm
+
+        self.graphed = GraphedForward(update, tag, stateful=True)
+
+    def _adopt(self, params, opt_state, state) -> None:
+        if not (params is self.params and opt_state is self.opt_state and state is self.state):
+            _copy_into(self._static, params, opt_state, state)
+
+    def __call__(self, params, opt_state, state, mixture, source, lengths):
+        self._adopt(params, opt_state, state)
+        loss, grad_norm = self.graphed(mixture, source, lengths)
+        return self.params, self.opt_state, self.state, loss, grad_norm
+
+    def eval_step(self, eval_step: Callable, tag: tuple = ()) -> Callable:
+        """eval_step(params, state, mixture, source, lengths) as a
+        GraphedForward whose program reads the static trees, so a replay
+        sees the latest update; its wrapper is the result's `graphed`."""
+        params, state = self.params, self.state
+        fwd = GraphedForward(lambda m, s, l: eval_step(params, state, m, s, l), tag)
+
+        def step(params, state, mixture, source, lengths):
+            self._adopt(params, self.opt_state, state)
+            return fwd(mixture, source, lengths)
+
+        step.graphed = fwd
+        return step
+
+
 class Solver:
     """Epoch loop with the reference's LR-halving / early-stop state machine.
 
@@ -186,9 +259,14 @@ class Solver:
             train_step = train_step or make_cp_train_step(model.cfg, self.opt, mesh,
                                                           train_cfg.max_norm)
             eval_step = eval_step or make_cp_eval_step(model.cfg, mesh)
-        self.train_step = train_step or make_train_step(model.cfg, self.opt,
-                                                        train_cfg.max_norm, mesh)
-        self.eval_step = eval_step or make_eval_step(model.cfg, mesh)
+        train_step = train_step or make_train_step(model.cfg, self.opt, train_cfg.max_norm, mesh)
+        eval_step = eval_step or make_eval_step(model.cfg, mesh)
+        if mesh is None:  # one card: both steps as CUDA graphs (eager on the CPU)
+            train_step = GraphedStep(train_step, params, opt_state, state,
+                                     tag=(model.cfg.kernel_form(True, self.device),))
+            eval_step = train_step.eval_step(eval_step,
+                                             tag=(model.cfg.kernel_form(False, self.device),))
+        self.train_step, self.eval_step = train_step, eval_step
         self.prev_val_loss = float("inf")
         self.best_val_loss = float("inf")
         self.halving = False
@@ -238,6 +316,8 @@ class Solver:
                 self.log(f"Learning rate adjusted to: {new_lr:.6f}")
                 self.halving = False
             self.prev_val_loss = val_loss
+            if self.mesh is None:
+                self.log(f"Graphs | End of Epoch {epoch + 1} | {self.graph_counts()}")
 
             self.tr_loss.append(tr_avg)
             self.cv_loss.append(val_loss)
@@ -269,7 +349,7 @@ class Solver:
                 p.copy_(new)
         return {"tr_loss": self.tr_loss, "cv_loss": self.cv_loss,
                 "best_val_loss": self.best_val_loss, "history": self.history,
-                "steps": self.steps}
+                "steps": self.steps, "graphs": self.graph_counts()}
 
     # ------------------------------------------------------------------
     def _to_device(self, batch):
@@ -370,6 +450,15 @@ class Solver:
                 self.log(f"visualize failed: {name} not written (is matplotlib installed?)")
         except Exception as e:  # plotting must never stop training
             self.log(f"visualize failed: {e}")
+
+    def graph_counts(self) -> Optional[Dict[str, dict]]:
+        """The graphed steps' counts (GraphedForward.stats): captures,
+        replays, eager calls, keys seen, graphs, pool bytes; None under a
+        mesh, whose steps run eagerly."""
+        if self.mesh is not None:
+            return None
+        return {"train_step": self.train_step.graphed.stats(),
+                "cv_step": self.eval_step.graphed.stats()}
 
     def _whole(self):
         """(params, state, opt_state) whole: gathered over the TP group."""

@@ -817,3 +817,76 @@ def test_graphed_outputs_survive_the_next_replay(dev):
     assert graphed.counts()["graphs"] >= 1 and len(g.graphs()) == 1
     for x, (s, p) in zip(xs, held):
         assert torch.equal(s, x + 2) and torch.equal(p, x * 2)
+
+
+def _graph_step_runs(dev, n, cap, use_kernels="hybrid", lr_at=None):
+    """n Adam steps through a GraphedStep with graphed.MAX_GRAPHS = cap (0:
+    every call eager), halving the rate (set_lr) before call lr_at; returns
+    (the step, losses, parameters before the last call)."""
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.training.optim import Optimizer, set_lr, tree_leaves
+    from convtasnet_torch.training.solver import GraphedStep, make_train_step
+
+    cfg = ConvTasNetConfig(use_kernels=use_kernels, **GRAPH_CFG)
+    params, state = init_params(torch.Generator(device=dev).manual_seed(6), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    batches = []
+    for _ in range(2):
+        src = torch.randn((3, 2, 4000), generator=gen, device=dev) * 0.3
+        batches.append((src.sum(1), src, torch.tensor([4000, 3900, 3000], device=dev,
+                                                      dtype=torch.int32)))
+    opt = Optimizer("adam", lr=1e-3)
+    o = opt.init(params)
+    step = GraphedStep(make_train_step(cfg, opt, 5.0), params, o, state,
+                       tag=(cfg.kernel_form(True, dev),))
+    saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, cap
+    p, s, losses, before = params, state, [], None
+    try:
+        for i in range(n):
+            if i == lr_at:
+                o = set_lr(o, float(o.lr) / 2)
+            before = [t.clone() for t in tree_leaves(p)]
+            mix, src, lens = batches[i % 2]
+            p, o, s, loss, _ = step(p, o, s, mix, src, lens)
+            losses.append(loss)
+        torch.cuda.synchronize()
+    finally:
+        graphed.MAX_GRAPHS = saved
+    return step, losses, before
+
+
+def test_graphed_train_step_gives_the_eager_steps_bytes(dev):
+    """Five hybrid steps (eager, capture, three replays) repeat the eager
+    steps' losses, parameters and moments bit for bit, one update per call
+    and the eager launches per step."""
+    from convtasnet_torch.ops.kernels import tcn_block_bwd
+    from convtasnet_torch.training.optim import tree_leaves
+
+    e = _graph_step_runs(dev, 5, 0)
+    tcn_block.reset_counts()
+    tcn_block_bwd.reset_counts()
+    g = _graph_step_runs(dev, 5, 16)
+    NB = GRAPH_CFG["R"] * GRAPH_CFG["X"]
+    assert g[0].graphed.stats()["replays"] == 3 and int(g[0].opt_state.step) == 5
+    assert tcn_block.counts()["tcn_dwconv_save"] == 5 * NB
+    assert tcn_block_bwd.counts()["tcn_bwd_dwconv"] == 5 * NB
+    assert torch.equal(torch.stack(g[1]), torch.stack(e[1]))
+    for tree in (lambda s: s.params, lambda s: s.opt_state.mu, lambda s: s.opt_state.nu):
+        for a, b in zip(tree_leaves(tree(g[0])), tree_leaves(tree(e[0]))):
+            assert torch.equal(a, b)
+
+
+def test_graphed_train_step_reads_the_lr_set_in_place(dev):
+    """set_lr between two replays: the next replay steps at the halved rate,
+    as the eager step does, and half as far as at the full rate."""
+    from convtasnet_torch.training.optim import tree_leaves
+
+    runs = [_graph_step_runs(dev, 4, cap, lr_at=lr_at) for cap, lr_at in
+            ((16, 3), (0, 3), (16, None))]
+    assert runs[0][0].graphed.stats()["replays"] == 2
+    deltas = [torch.cat([(a - b).flatten() for a, b in zip(tree_leaves(r[0].params), r[2])])
+              for r in runs]
+    assert torch.equal(deltas[0], deltas[1])
+    assert abs(float(deltas[0].norm() / deltas[2].norm()) - 0.5) < 1e-3

@@ -100,18 +100,25 @@ def test_bench_infer_paths(capsys):
 
 @pytest.mark.parametrize("graph", ["0", "1"])
 def test_bench_infer_paths_graph_flag(capsys, graph):
-    """--graph 1 times the forward through GraphedForward (eager on the
-    CPU: graphs are a CUDA mechanism), --graph 0 the bare forward; the
-    scaled config's infer mode takes the same flag."""
+    """--graph 1 times the forward through GraphedForward and the train step
+    through GraphedStep (eager on the CPU: graphs are a CUDA mechanism),
+    --graph 0 the bare forward and step; the scaled config's modes and
+    profile_forward's train step take the same flag."""
     rows = bench_infer_paths.main(["auto", "--tiny", "--device", "cpu", "--batch", "1",
                                    "--steps", "1", "--graph", graph])
     rows += bench_scaled_config.main(["infer", "--tiny", "--device", "cpu", "--batch", "1",
                                       "--seg_sec", "0.25", "--graph", graph])
-    assert _printed(capsys) == rows
+    rows += bench_train_paths.main(["hybrid", "--tiny", "--device", "cpu", "--batch", "1",
+                                    "--steps", "1", "--graph", graph])
+    rows += bench_scaled_config.main(["train", "--tiers", "hybrid", "--tiny", "--device", "cpu",
+                                      "--batch", "1", "--seg_sec", "0.25", "--steps", "1",
+                                      "--graph", graph])
+    assert _printed(capsys) == rows and len(rows) == 4
     for r in rows:
         assert r["graphed"] is False and r["capture_ms"] is None and r["pool_bytes"] is None
-    with pytest.raises(ValueError, match="--graph 1 applies to the forward"):
-        profile_forward.profile(5, "hybrid", train=True, graph=True)
+    # The graphed train step is profiled too: only the card is missing here.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_forward.profile(5, "hybrid", train=True, graph=bool(int(graph)))
 
 
 def test_bench_sdr(capsys):
