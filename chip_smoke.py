@@ -21,7 +21,9 @@
    >= K of c and dz, KB3 tcn_bwd_dx) against
    their plain versions at the training shapes (batch
    5 x 4 s, K=3199 padded to 3200), every dilation, gLN and cLN, causal
-   and not, f32 and bf16; then the 32-block save-form chain and its
+   and not, f32 and bf16, and KF tcn_bwd_finish on those kernels'
+   partials (into row 1 of stacked gradients, row 0 untouched, a second
+   launch bit for bit); then the 32-block save-form chain and its
    backward (whole_tcn_bwd), the per-block recompute and hybrid
    backwards, and requires two backward runs to give identical bytes;
 5. slice phase: writes seeded paper-config weights with the port's
@@ -85,7 +87,10 @@
    per step and every parameter, moment and BN-state leaf (bit for bit
    where two eager runs are), opt_state.step, launches, capture ms, pool
    bytes, peak memory, and step ms (CUDA events; device busy and idle
-   share for hybrid, in turns, and the remat modes); set_lr between two
+   share for hybrid, in turns, and the remat modes); for hybrid and whole
+   the graphed step's device busy and at::native reduce and copy launches
+   per step (torch.profiler), again at R = 2, which they must not exceed
+   (no library op in the per-block loops); set_lr between two
    replays against eager and against the full rate; the train CLI
    (hybrid) two epochs graphed against eager (histories, launches), then
    graphed --continue_from epoch1.ckpt and a resume from a latest.ckpt
@@ -213,10 +218,12 @@ STENCIL = "stencil+bulk"
 DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": STENCIL, "tcn_out_gemm_fold": "wgmma+tma",
           "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": STENCIL,
           "tcn_bwd_dz": "wgmma+tma", "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": STENCIL,
-          "tcn_bwd_dx": "wgmma+tma", "tcn_wgrad_in": "wgmma+tma"}
+          "tcn_bwd_dx": "wgmma+tma", "tcn_wgrad_in": "wgmma+tma",
+          "tcn_bwd_finish": "simt-reduce"}
 SOURCE_DW = "convtasnet_torch/csrc/tcn_dwconv_sm90.cuh"
+SOURCE_KF = "convtasnet_torch/csrc/tcn_bwd_finish.cuh"
 TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
-                 "tcn_bwd_dx", "tcn_wgrad_in")
+                 "tcn_bwd_dx", "tcn_wgrad_in", "tcn_bwd_finish")
 
 
 def log(*a):
@@ -243,11 +250,17 @@ def cuda_ms(fn, iters=20, warm=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Calls of device_ms whose profiles recorded no device time and which
+# returned CUDA event time instead (the summary line's "profiler_blind").
+PROFILER_BLIND = []
+
+
 def device_ms(fn, iters=20, warm=3, tries=3) -> float:
     """Device time per call: the device time of every kernel `fn`
     launches, summed by torch.profiler over `iters` calls. A profile that
-    recorded no device time (it happens now and then on the H100) is taken
-    again, up to `tries` times."""
+    recorded no device time is taken again, up to `tries` times; after
+    that the call is timed with CUDA events (launch gaps included), logged,
+    and counted in PROFILER_BLIND."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -260,7 +273,10 @@ def device_ms(fn, iters=20, warm=3, tries=3) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / iters
-    raise AssertionError("torch.profiler recorded no device time")
+    PROFILER_BLIND.append(getattr(fn, "__qualname__", str(fn)))
+    log(f"  torch.profiler recorded no device time in {tries} profiles "
+        f"(#{len(PROFILER_BLIND)}): CUDA event time instead")
+    return cuda_ms(fn, iters, warm=0)
 
 
 def host_us(fn, iters=20) -> float:
@@ -516,6 +532,39 @@ def nan_pad(t, K):
     return t
 
 
+def kf_check(chk, what, parts):
+    """KF against bwd_finish_plain on the same f32 partials (wz, win,
+    chpart, colpart, da1part, da2part), into row 1 of two stacked
+    gradients (row 0 untouched), and a second launch giving the same bits.
+    Each gradient's error is relative to its largest plain value; d_alpha1
+    and d_alpha2, single sums of partials of mixed sign, relative to the sum
+    of their partials' magnitudes (what a change of summation order moves
+    them by). Returns the max |KF - plain|."""
+    from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb
+
+    _, B, H = parts[1].shape
+    P = parts[2].shape[1] - 2
+    shapes = [(2, B, H), (2,), (2, H), (2, H), (2, P, H), (2,), (2, H), (2, H), (2, H, B)]
+    want, got, again = ([torch.full(sh, float("nan"), device=parts[0].device) for sh in shapes]
+                        for _ in range(3))
+    tbb.bwd_finish_plain(*parts, want, 1)
+    tbb.tcn_bwd_finish(*parts, got, 1)
+    tbb.tcn_bwd_finish(*parts, again, 1)
+    scale = {"da1": float(parts[4].abs().sum()), "da2": float(parts[5].abs().sum())}
+    worst = 0.0
+    for name, a, b in zip(tbb.GRAD_ORDER, got, want):
+        if name in scale:
+            worst = max(worst, float((a[1] - b[1]).abs()) / max(scale[name], 1e-30))
+        else:
+            worst = max(worst, rel_max(a[1], b[1]))
+    chk(f"KF {what}", worst, TOL_F32)
+    chk(f"KF {what} row 0 untouched", float(sum(not bool(torch.isnan(a[0]).all()) for a in got)),
+        0.0)
+    chk(f"KF {what} repeat", float(sum(not torch.equal(a[1], b[1]) for a, b in zip(got, again))),
+        0.0)
+    return max(float((a[1] - b[1]).abs().max()) for a, b in zip(got, want))
+
+
 def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
     """Training kernels against their plain versions; returns the bf16
     max |kernel - plain| of each."""
@@ -623,6 +672,12 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                         chk(f"KW {what} repeat", float(not torch.equal(
                             tbb.tcn_wgrad(x, dy1, K), tbb.tcn_wgrad(x, dy1, K))), 0.0)
                         err("tcn_wgrad_in", wk, wp, dt)
+                        # KF on the kernels' partials of this block
+                        parts = (tbb.tcn_wgrad(c, g, K, z), tbb.tcn_wgrad(x, dy1, K), chpk,
+                                 colk, da1k, da2k)
+                        kf = kf_check(chk, what, parts)
+                        if dt == torch.bfloat16:
+                            errs["tcn_bwd_finish"] = max(errs["tcn_bwd_finish"], kf)
         # The 32-block chain: save-form forward and the backward of every block.
         ctol = TOL_F32 if dt == torch.float32 else TOL_BWD_CHAIN_BF16
         for norm in ("gLN", "cLN"):
@@ -681,7 +736,7 @@ def step_grads(params, state, cfg, mix, src, lens):
 def per_step_launches(form, NB):
     """Kernel launches of one train step of `form` (see ops/kernels)."""
     bwd = {k: NB for k in ("tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv", "tcn_bwd_dx",
-                           "tcn_wgrad_in")}
+                           "tcn_wgrad_in", "tcn_bwd_finish")}
     if form == "hybrid":
         return dict(tcn_in_gemm=2 * NB, tcn_dwconv=0, tcn_dwconv_save=NB,
                     tcn_out_gemm_fold=0, tcn_out_gemm_unfold=NB, **bwd)
@@ -1789,10 +1844,17 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
     y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
     _, s2, c = tb.tcn_dwconv(y1, s1, a1, g1, b1, w, a2, norm, 1, cfg.causal, K, save=True)
     dz, colpart, gs2 = tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K)
-    db, _, gs1, _ = tbb.tcn_bwd_dwconv(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, 1,
-                                       cfg.causal, K)
-    _, dy1, _ = tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
+    db, chpart, gs1, da2part = tbb.tcn_bwd_dwconv(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2,
+                                                  norm, 1, cfg.causal, K)
+    _, dy1, da1part = tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
     z = (s2, a2, g2, b2, norm)
+    # KF: one block's partials into row nb of the stacked f32 gradients
+    kf_parts = (tbb.tcn_wgrad(c, g, K, z), tbb.tcn_wgrad(x, dy1, K), chpart, colpart,
+                da1part, da2part)
+    kf_grads = tbb.alloc_grads([blocks[k] for k in (
+        "in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma", "dw_beta",
+        "out_w")])
+    kf_bytes = 4 * (sum(t.numel() for t in kf_parts) + sum(t[nb].numel() for t in kf_grads))
     gemm = 2.0 * rows * B * H
     # KW's launch plans (Stage B: split partials summed inside clusters) and
     # Stage A of the same splits, one partial per CTA.
@@ -1847,9 +1909,9 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             flops=gemm, per=1),
         "tcn_wgrad_out": dict(
             source=SOURCE_KW, replaces=BWD_BLOCK,
-            kernel=lambda: tbb.tcn_wgrad(c, g, K, z).sum(0),
-            plain=lambda: tbb.wgrad_plain(c, g, K, z).sum(0),
-            stage_a=lambda: tbb.tcn_wgrad(c, g, K, z, plan=(plan_z.splits, 1)).sum(0),
+            kernel=lambda: tbb.tcn_wgrad(c, g, K, z),
+            plain=lambda: tbb.wgrad_plain(c, g, K, z),
+            stage_a=lambda: tbb.tcn_wgrad(c, g, K, z, plan=(plan_z.splits, 1)),
             library=lambda: torch.matmul(c.view(rows, H).t(), g.view(rows, B)),
             bytes=rows * (B + H) * it + H * B * 4, flops=gemm, per=1),
         "tcn_bwd_dwconv": dict(
@@ -1872,22 +1934,33 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             flops=gemm, per=1),
         "tcn_wgrad_in": dict(
             source=SOURCE_KW, replaces=BWD_BLOCK,
-            kernel=lambda: tbb.tcn_wgrad(x, dy1, K).sum(0),
-            plain=lambda: tbb.wgrad_plain(x, dy1, K).sum(0),
-            stage_a=lambda: tbb.tcn_wgrad(x, dy1, K, plan=(plan_in.splits, 1)).sum(0),
+            kernel=lambda: tbb.tcn_wgrad(x, dy1, K),
+            plain=lambda: tbb.wgrad_plain(x, dy1, K),
+            stage_a=lambda: tbb.tcn_wgrad(x, dy1, K, plan=(plan_in.splits, 1)),
             library=lambda: torch.matmul(x.view(rows, B).t(), dy1.view(rows, H)),
             bytes=rows * (B + H) * it + B * H * 4, flops=gemm, per=1),
+        # the bound: each partial read once, each gradient written once; one
+        # f32 add per partial element. The library call: the six .sums KF
+        # replaces (block_bwd before it), without the writes into the rows.
+        "tcn_bwd_finish": dict(
+            source=SOURCE_KF, replaces=BWD_BLOCK,
+            kernel=lambda: tbb.tcn_bwd_finish(*kf_parts, kf_grads, nb),
+            plain=lambda: tbb.bwd_finish_plain(*kf_parts, kf_grads, nb),
+            library=lambda: [t.sum(0) for t in kf_parts],
+            bytes=kf_bytes, flops=float(sum(t.numel() for t in kf_parts)), per=1,
+            dtype=torch.float32),
     }
 
 
 def backward_timing(stacked, cfg, dev, M=5, K=3199):
-    """ms of the backward of the three training ops at the main path's
-    shapes (bf16, gLN, dilation 1 for the per-block ones), beside their
-    plain versions: row 3 over all NB blocks, rows 4 and 5 for one block."""
+    """ms of the backward of the training ops at the main path's shapes
+    (bf16, gLN, dilation 1 for the per-block ones), beside their plain
+    versions: row 3 and the whole form's chain over all NB blocks, rows 4
+    and 5 for one block."""
     from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
     from convtasnet_torch.ops.kernels.whole_block_hybrid import hybrid_bwd_math
     from convtasnet_torch.ops.kernels.whole_block_vjp import recompute_bwd
-    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import chain_save, whole_tcn_bwd
+    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import chain_bwd, chain_save, whole_tcn_bwd
 
     Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
     dt, norm = torch.bfloat16, "gLN"
@@ -1907,6 +1980,8 @@ def backward_timing(stacked, cfg, dev, M=5, K=3199):
         "bwd_chain_hybrid_plain": lambda: whole_tcn_bwd(g, x_res, c_res, s2, *stacked, norm,
                                                         False, cfg.X, K, tb.in_gemm_plain,
                                                         tbb.PLAIN_BWD),
+        "bwd_chain_whole": lambda: chain_bwd(g, x_res, None, None, stacked, norm, False,
+                                             [2 ** (i % cfg.X) for i in range(len(x_res))], K),
         "bwd_block_whole": lambda: recompute_bwd(g, x, *one, norm, 1, False, K),
         "bwd_block_whole_plain": lambda: recompute_bwd(g, x, *one, norm, 1, False, K,
                                                        plain=True),
@@ -2015,10 +2090,67 @@ def _step_timing(step, batch, busy=True, iters=5):
     return {"ms": ms, "busy_ms": b, "idle_share": max(0.0, 1.0 - b / ms)}
 
 
-def _train_graph_form(chk, label, c, dev, batches, NB, in_turns=False, busy=True):
+# A depth below the paper config's, at which the graphed hybrid and whole
+# steps are profiled again: their library reduce and copy launches per step
+# must not grow with the number of blocks.
+SMALL_R = 2
+
+
+def _library_launches(step, batch, iters=3, tries=3):
+    """Device busy ms and the at::native reduce-kernel and copy launches per
+    call of `step` (replays of its CUDA graph), from torch.profiler."""
+    mix, lens, src = batch
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                step(step.params, step.opt_state, step.state, mix, src, lens)
+            torch.cuda.synchronize()
+        busy = reduce = copy = 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+                continue
+            busy += e.self_device_time_total
+            if "at::native" in e.key and "reduce_kernel" in e.key:
+                reduce += e.count
+            elif "at::native" in e.key and "copy" in e.key.lower():
+                copy += e.count
+        if busy > 0:
+            return {"busy_ms": busy / 1e3 / iters, "reduce_launches": reduce / iters,
+                    "copy_launches": copy / iters}
+    raise AssertionError("torch.profiler recorded no device time")
+
+
+def _library_by_depth(chk, label, c, dev, batches, step):
+    """The library launches of the graphed step at the paper depth and at
+    R = SMALL_R, which must not exceed it: the per-block loops of the
+    kernel forms launch no library op."""
+    import dataclasses
+
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import init_params
+
+    NB = c.R * c.X
+    big = _library_launches(step, batches[0])
+    cs = dataclasses.replace(c, R=SMALL_R)
+    params, state = init_params(torch.Generator(device=dev).manual_seed(0), cs, device=dev)
+    small = _library_launches(_graph_step_run(cs, dev, params, state, batches, 3,
+                                              graphed.MAX_GRAPHS)[0], batches[0])
+    for k in ("reduce_launches", "copy_launches"):
+        chk(f"{label}: graphed step's at::native {k} at NB={NB} ({big[k]}) <= at NB="
+            f"{SMALL_R * c.X} ({small[k]})", max(0.0, big[k] - small[k]), 0.0)
+    log(f"  {label} graphed, per step: device busy {big['busy_ms']} ms, at::native reduce "
+        f"{big['reduce_launches']}, copy {big['copy_launches']} launches at NB={NB}; at NB="
+        f"{SMALL_R * c.X}: busy {small['busy_ms']} ms, reduce {small['reduce_launches']}, copy "
+        f"{small['copy_launches']}")
+    return {f"nb{NB}": big, f"nb{SMALL_R * c.X}": small}
+
+
+def _train_graph_form(chk, label, c, dev, batches, NB, in_turns=False, busy=True,
+                      library=False):
     """One training form: two eager runs and a graphed one, checked, then
     timed: eager, graphed (in_turns: then graphed, eager); device busy
-    with `busy`."""
+    with `busy`; with `library`, the graphed step's library launches by
+    depth (_library_by_depth)."""
     from convtasnet_torch.models import graphed
     from convtasnet_torch.models.conv_tasnet import init_params
 
@@ -2054,6 +2186,8 @@ def _train_graph_form(chk, label, c, dev, batches, NB, in_turns=False, busy=True
         f"{row['capture_ms']:.1f} ms, pool {row['pool_bytes'] / 1e9:.3f} GB, peak eager "
         f"{row['eager_peak_gb']:.3f} / graphed {row['graphed_peak_gb']:.3f} GB; bit-equal "
         f"{bits} (eager twice {eager_bits})")
+    if library:
+        row["graphed_library_launches"] = _library_by_depth(chk, label, c, dev, batches, g[0])
     return row
 
 
@@ -2098,7 +2232,8 @@ def train_graph_phase(cfg, dev, hybrid_run, tmp):
         # main path and the remat modes.
         res["steps"][label] = _train_graph_form(chk, label, c, dev, batches, NB,
                                                 in_turns=label == "hybrid",
-                                                busy=label in ("hybrid", "0+block", "0+dots"))
+                                                busy=label in ("hybrid", "0+block", "0+dots"),
+                                                library=label in ("hybrid", "whole"))
         torch.cuda.empty_cache()
 
     log(" (b) set_lr between replays (hybrid):")
@@ -2440,6 +2575,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     from convtasnet_torch.config import ConvTasNetConfig
     from convtasnet_torch.data.wavio import read_wav, write_wav
+    from convtasnet_torch.models import graphed
     from convtasnet_torch.models.conv_tasnet import forward, init_params
     from convtasnet_torch.ops.kernels import _build, tcn_block as tb
     from convtasnet_torch.ops.kernels.whole_block import whole_block
@@ -2450,6 +2586,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # This process captures CUDA graphs and profiles hundreds of times:
+    # CUPTI stays attached from its first profile on.
+    graphed.keep_cupti()
     dev = torch.device("cuda")
     card = card_line()
     log(card)
@@ -2770,7 +2909,7 @@ def main() -> int:
         library call's device times, and its bound (all per launch)."""
         per = s["per"]
         t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = s["flops"] / PEAK_FLOPS[dt] * 1e3
+        t_ops = s["flops"] / PEAK_FLOPS[s.get("dtype", dt)] * 1e3
         return {
             "ms": device_ms(s["kernel"]) / per, "plain_ms": device_ms(s["plain"]) / per,
             "library_ms": device_ms(s["library"]) / per if s["library"] else None,
@@ -2825,7 +2964,7 @@ def main() -> int:
             # the same splits with one partial per CTA (no cluster sums)
             t["stage_a_ms"] = device_ms(s["stage_a"])
             log(f"  {name}: Stage A {t['stage_a_ms']:.4f} ms, Stage B {t['ms']:.4f} ms per "
-                "tcn_wgrad(...).sum(0) call")
+                "tcn_wgrad call (its partials; KF sums them)")
         if "per_d" in s:
             t["per_dilation"] = per_dilation_times(name, s, f"M={M5}, K_pad={Kp}, H={H}")
         kernels.append({
@@ -2863,7 +3002,8 @@ def main() -> int:
     par_timing["phase_s"] = time.perf_counter() - t0
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
                     "train_graph": train_graph, "evaluate": eval_timing, "graph": graph_timing,
-                    "stream": stream_timing, "options": opt_res, "parallel": par_timing}))
+                    "stream": stream_timing, "options": opt_res, "parallel": par_timing,
+                    "profiler_blind": PROFILER_BLIND}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

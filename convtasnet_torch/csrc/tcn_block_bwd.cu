@@ -27,6 +27,9 @@
 //                       >= K exactly zero
 //   KW  tcn_wgrad       din_w = x^T dy1, split over ranges of rows
 //
+// and then KF tcn_bwd_finish (tcn_bwd_finish.cuh) sums every weight-gradient
+// partial of the five into row nb of the stacked f32 gradients.
+//
 // Replaces the TPU kernels convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py
 // (_bwd_block_kernel, :64) and ops/pallas/whole_block_vjp.py (_bwd_kernel,
 // :69). Those hold a whole item's [K, H] slabs in VMEM and carry the f32
@@ -34,9 +37,9 @@
 // CTAs run in no order, so here the block's backward passes dz, db and dy1
 // [rows, H] through device memory, every cross-CTA sum (the gLN backward
 // means over all K*H elements of an item, the weight gradients over all
-// M*K rows) is written as per-tile partials that the next kernel or the
-// wrapper sums in a fixed order, and no float atomic is used: gradients
-// repeat bit for bit.
+// M*K rows) is written as per-tile partials that the next kernel or KF
+// sums in a fixed order, and no float atomic is used: gradients repeat bit
+// for bit.
 //
 // Rounding points follow the TPU kernel: the wide streams dz, de, dc, db,
 // da, dy1 and dx are rounded to the activation type; statistics,
@@ -59,6 +62,7 @@
 #include <type_traits>
 
 #include "tcn_block.cuh"
+#include "tcn_bwd_finish.cuh"
 #include "tcn_dwconv_sm90.cuh"
 #include "tcn_gemm_sm90.cuh"
 #include "tcn_wgrad_sm90.cuh"
@@ -569,5 +573,35 @@ extern "C" int tcn_bwd_dx(int device, int dtype, const void* db, const void* y1,
   DxArgs a{db, y1, wt, g, stats1, n1, gs1, ng1, alpha1, g1, dx, dy1, da1part,
            kpad, k_valid, B, H, gln};
   bwd_dx_kernel<<<dim3(rows / BM, B / BN), GEMM_THREADS, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// KF: the nine weight gradients of block nb from the partials of KW (z:
+// wz [nz, H, B]; din: win [nin, B, H]), KB2 (chpart [nch, P + 2, H],
+// da2part [nda2]), KB1 (colpart [ncol, 2, H]) and KB3 (da1part [nda1]),
+// written at the given row pointers of the stacked gradients (din_w [B, H],
+// da1 [1], dg1 / db1 [H], dw [P, H], da2 [1], dg2 / db2 [H], dout_w [H, B]).
+extern "C" int tcn_bwd_finish(int device, const float* wz, int nz, const float* win, int nin,
+                              const float* chpart, int nch, const float* colpart, int ncol,
+                              const float* da1part, int nda1, const float* da2part, int nda2,
+                              int B, int H, int P, float* din_w, float* da1, float* dg1,
+                              float* db1, float* dw, float* da2, float* dg2, float* db2,
+                              float* dout_w, void* stream) {
+  cudaSetDevice(device);
+  FinArgs a{};
+  int ctas = 0;
+  const int ch = (P + 2) * H;
+  // Tall jobs first: their CTAs take longest.
+  if (!fin_add(&a, &ctas, chpart, nch, ch, P * H, dw) ||
+      !fin_add(&a, &ctas, chpart + (size_t)P * H, nch, ch, H, dg1) ||
+      !fin_add(&a, &ctas, chpart + (size_t)(P + 1) * H, nch, ch, H, db1) ||
+      !fin_add(&a, &ctas, colpart, ncol, 2 * H, H, dg2) ||
+      !fin_add(&a, &ctas, colpart + H, ncol, 2 * H, H, db2) ||
+      !fin_add(&a, &ctas, da1part, nda1, 1, 1, da1) ||
+      !fin_add(&a, &ctas, da2part, nda2, 1, 1, da2) ||
+      !fin_add(&a, &ctas, win, nin, B * H, B * H, din_w) ||
+      !fin_add(&a, &ctas, wz, nz, H * B, H * B, dout_w))
+    return cudaErrorInvalidValue;
+  bwd_finish_kernel<<<ctas, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }

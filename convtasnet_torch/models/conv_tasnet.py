@@ -54,7 +54,7 @@ from ..ops.framing import frame_signal, overlap_and_add
 from ..ops.kernels.tcn_block import ROW_ALIGN
 from ..ops.kernels.whole_block import whole_block
 from ..ops.kernels.whole_block_hybrid import whole_block_hybrid
-from ..ops.kernels.whole_block_vjp import whole_block_train
+from ..ops.kernels.whole_block_vjp import whole_chain_train
 from ..ops.kernels.whole_tcn import alloc_scratch, whole_tcn
 from ..ops.kernels.whole_tcn_hybrid import whole_tcn_train
 from ..ops.norms import apply_norm
@@ -313,11 +313,12 @@ def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
         x = whole_tcn(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
     elif form == "whole_tcn_train":
         x = whole_tcn_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
-    elif form in ("whole_block_train", "whole_block_hybrid"):
-        op = whole_block_train if form == "whole_block_train" else whole_block_hybrid
+    elif form == "whole_block_train":
+        x = whole_chain_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
+    elif form == "whole_block_hybrid":
         for nb in range(cfg.R * cfg.X):
-            x = op(x, *[a[nb] for a in args], cfg.norm_type, 2 ** (nb % cfg.X),
-                   cfg.causal, valid_k=K)
+            x = whole_block_hybrid(x, *[a[nb] for a in args], cfg.norm_type,
+                                   2 ** (nb % cfg.X), cfg.causal, valid_k=K)
     else:
         scratch = (alloc_scratch(M, Kp, cfg.H, x.dtype, x.device)
                    if x.is_cuda else None)

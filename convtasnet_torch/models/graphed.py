@@ -43,10 +43,16 @@ never reaches. The launches counted while a key is captured (recorded, not
 executed) are taken off the counters again and added back on every
 replay, so `tcn_block.counts()` keeps counting kernel executions: the
 side-stream warm-up's, the eager calls' and each replay's.
+
+A process that holds CUDA graphs keeps CUPTI attached between
+torch.profiler sessions (`keep_cupti`), PyTorch's own remedy for graphs
+under the profiler: tearing CUPTI down after each session and starting it
+again can leave every later session of the process without device time.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
@@ -91,6 +97,16 @@ class Program(NamedTuple):
     pool_bytes: int
 
 
+def keep_cupti() -> None:
+    """Keep CUPTI attached from one torch.profiler session to the next.
+    torch.profiler sets the same two variables itself when torch.compile
+    captures graphs, with the comment that CUPTI's teardown and re-init
+    break under CUDA graphs; it does not know of graphs captured by hand.
+    A value the caller set stays."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+
+
 class CudaGraphs:
     """The capture backend of a CUDA device."""
 
@@ -110,6 +126,7 @@ class CudaGraphs:
     @staticmethod
     def capture(fn: Callable, inputs: Sequence[torch.Tensor], pool=None) -> Program:
         """Capture into `pool` (None: a new one)."""
+        keep_cupti()
         dev = inputs[0].device
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool):

@@ -329,12 +329,29 @@ tcn_in_gemm.launches = 0
 # K2: norm1 -> dilated depthwise conv -> PReLU, partial sums of e
 # ---------------------------------------------------------------------------
 
+def dwconv_stats_shape(M: int, Kp: int, H: int, P: int, dilation: int, itemsize: int,
+                       norm_type: str, plain: bool) -> Tuple[int, ...]:
+    """Shape of the norm2 partials K2 returns for y1 [M, K_pad, H] of
+    `itemsize` bytes (one per CTA tile of dw_plan for gLN, per row and
+    channel tile for cLN); plain: those of dwconv_plain (one per item or
+    row)."""
+    if plain:
+        nct, tiles = 1, 1
+    else:
+        plan = dw_plan(P, dilation, H, itemsize)
+        nct = H // plan.cols
+        tiles = Kp // plan.rows * nct
+    return (M, tiles, 2) if norm_type == "gLN" else (M, Kp, nct, 2)
+
+
 def dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
                  causal, valid_k, e: Optional[torch.Tensor] = None,
-                 save: bool = False, c: Optional[torch.Tensor] = None):
+                 save: bool = False, c: Optional[torch.Tensor] = None,
+                 stats: Optional[torch.Tensor] = None):
     """Plain version of K2 (whole_tcn.py:139-188 with the conv halo of
     rows outside [0, K) zero). save=True also returns round(c)
-    (whole_tcn.py:277-280, fused_whole_block.py:250-253)."""
+    (whole_tcn.py:277-280, fused_whole_block.py:250-253). e, c and the
+    partials `stats` (dwconv_stats_shape) may be given."""
     M, Kp, H = y1.shape
     dt = y1.dtype
     a = _prelu_f32(y1.float(), alpha1)
@@ -357,7 +374,8 @@ def dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
         cv = tap if cv is None else cv + tap
     ev = _prelu_f32(cv, alpha2)
     em = torch.where(rows, ev, 0.0)
-    stats = _sums(em, (1, 2))[:, None, :] if norm_type == "gLN" else _sums(em, -1)[:, :, None, :]
+    stats = _into(stats, _sums(em, (1, 2))[:, None, :] if norm_type == "gLN"
+                  else _sums(em, -1)[:, :, None, :])
     if save:
         return _into(e, ev.to(dt)), stats, _into(c, cv.to(dt))
     return _into(e, ev.to(dt)), stats
@@ -371,14 +389,15 @@ def _check_dw_plan(plan: DwPlan, H: int) -> None:
 def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
                causal, valid_k, e: Optional[torch.Tensor] = None,
                save: bool = False, c: Optional[torch.Tensor] = None,
-               plan: Optional[DwPlan] = None):
+               plan: Optional[DwPlan] = None, stats: Optional[torch.Tensor] = None):
     """K2. Returns (e [M, K_pad, H], partial sums: one pair per CTA tile of
     `dw_plan` (gLN) or per row and channel tile (cLN)), and c [M, K_pad, H]
-    third with save=True; e and c may be given. `plan` forces a tile
-    (dw_tile); the default is dw_plan's."""
+    third with save=True; e, c and the partials `stats` (of
+    dwconv_stats_shape) may be given. `plan` forces a tile (dw_tile); the
+    default is dw_plan's."""
     if y1.device.type == "cpu":
         return dwconv_plain(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type,
-                            dilation, causal, valid_k, e, save, c)
+                            dilation, causal, valid_k, e, save, c, stats)
     M, Kp, H = y1.shape
     P = w.shape[0]
     dt = y1.dtype
@@ -397,8 +416,11 @@ def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
     plan = plan or dw_plan(P, dilation, H, y1.element_size())
     _check_dw_plan(plan, H)
     nct = H // plan.cols
-    stats = torch.empty((M, Kp // plan.rows * nct, 2) if gln else (M, Kp, nct, 2),
-                        dtype=torch.float32, device=y1.device)
+    shape = (M, Kp // plan.rows * nct, 2) if gln else (M, Kp, nct, 2)
+    if stats is None:
+        stats = torch.empty(shape, dtype=torch.float32, device=y1.device)
+    _require(stats.shape == shape and stats.dtype == torch.float32,
+             "K2's partials do not match its tile")
     _check_cuda(y1, e, dtype=dt)
     if save:
         _check_cuda(y1, c, dtype=dt)

@@ -25,10 +25,15 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
                        row splits (`wgrad_plan`) are summed in a fixed
                        order inside clusters of CTAs;
 
-and `block_bwd` sums the f32 partials over their first axis. Rows >= K
-of g are ignored. The partial layouts follow tcn_block.py: gLN [M, n, 2]
-per item, cLN [M, K_pad, n, 2] per row, and the reader sums whatever n it
-is given; the plain versions write n = 1.
+  KF  tcn_bwd_finish:  sums every f32 weight-gradient partial of the five
+                       over its first axis, in a fixed order spread over
+                       the grid (csrc/tcn_bwd_finish.cuh), into row nb of
+                       the stacked [NB, ...] f32 gradients.
+
+`block_bwd` runs the six and returns dx. Rows >= K of g are ignored. The
+partial layouts follow tcn_block.py: gLN [M, n, 2] per item, cLN [M,
+K_pad, n, 2] per row, and the reader sums whatever n it is given; the
+plain versions write n = 1.
 
 Counterpart of the TPU kernels whole_tcn_hybrid.py `_bwd_block_kernel`
 and whole_block_vjp.py `_bwd_kernel`; the math is their norm / PReLU /
@@ -64,6 +69,8 @@ _SIGNATURES = {
     "tcn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
+    "tcn_bwd_finish": [_I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
+                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -132,7 +139,7 @@ def _check_params(*ts):
 
 
 _LAUNCHES = {"tcn_bwd_dz": 0, "tcn_wgrad_out": 0, "tcn_bwd_dwconv": 0,
-             "tcn_bwd_dx": 0, "tcn_wgrad_in": 0}
+             "tcn_bwd_dx": 0, "tcn_wgrad_in": 0, "tcn_bwd_finish": 0}
 
 
 def counts() -> dict:
@@ -535,32 +542,85 @@ def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
 
 
 # ---------------------------------------------------------------------------
+# KF: the weight gradients from their partials
+# ---------------------------------------------------------------------------
+
+# The stacked gradients in the JAX VJP's order (after dx).
+GRAD_ORDER = ("din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "dout_w")
+
+
+def bwd_finish_plain(wz, win, chpart, colpart, da1part, da2part, grads, nb):
+    """Plain version of KF: row nb of the nine stacked f32 gradients
+    `grads` (GRAD_ORDER) from the partials of KW z [n, H, B], KW din
+    [n, B, H], KB2 (chpart [n, P + 2, H], da2part [n]), KB1 (colpart
+    [n, 2, H]) and KB3 (da1part [n]), each summed over its first axis."""
+    din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = grads
+    P = dw.shape[1]
+    chs = chpart.sum(0)
+    cols = colpart.sum(0)
+    for dst, val in ((din_w, win.sum(0)), (da1, da1part.sum()), (dg1, chs[P]),
+                     (db1, chs[P + 1]), (dw, chs[:P]), (da2, da2part.sum()),
+                     (dg2, cols[0]), (db2, cols[1]), (dout_w, wz.sum(0))):
+        dst[nb] = val
+
+
+def tcn_bwd_finish(wz, win, chpart, colpart, da1part, da2part, grads, nb):
+    """KF. Same arguments and result as bwd_finish_plain, one launch; the
+    partials may hold any count along their first axis."""
+    if wz.device.type == "cpu":
+        return bwd_finish_plain(wz, win, chpart, colpart, da1part, da2part, grads, nb)
+    din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = grads
+    NB, B, H = din_w.shape
+    P = dw.shape[1]
+    _require(0 <= nb < NB, f"block {nb} outside the {NB} stacked gradients")
+    _require(wz.shape[1:] == (H, B) and win.shape[1:] == (B, H)
+             and chpart.shape[1:] == (P + 2, H) and colpart.shape[1:] == (2, H)
+             and da1part.dim() == 1 and da2part.dim() == 1,
+             "KF partial shapes do not match the gradients")
+    _require(dout_w.shape == (NB, H, B) and dw.shape == (NB, P, H)
+             and all(t.shape == (NB, H) for t in (dg1, db1, dg2, db2))
+             and da1.numel() == NB and da2.numel() == NB,
+             "the stacked gradients' shapes do not match")
+    _check_cuda(wz, win, chpart, colpart, da1part, da2part, *grads, dtype=torch.float32)
+    rows = [t[nb] for t in grads]
+    rc = _lib().tcn_bwd_finish(wz.device.index, wz.data_ptr(), wz.shape[0], win.data_ptr(),
+                               win.shape[0], chpart.data_ptr(), chpart.shape[0],
+                               colpart.data_ptr(), colpart.shape[0], da1part.data_ptr(),
+                               da1part.shape[0], da2part.data_ptr(), da2part.shape[0], B, H,
+                               P, *[r.data_ptr() for r in rows], _stream(wz))
+    _build.check(rc, "tcn_bwd_finish")
+    _LAUNCHES["tcn_bwd_finish"] += 1
+
+
+# ---------------------------------------------------------------------------
 # One block's backward
 # ---------------------------------------------------------------------------
 
-PLAIN_BWD = (bwd_dz_plain, wgrad_plain, bwd_dwconv_plain, bwd_dx_plain)
-KERNEL_BWD = (tcn_bwd_dz, tcn_wgrad, tcn_bwd_dwconv, tcn_bwd_dx)
+PLAIN_BWD = (bwd_dz_plain, wgrad_plain, bwd_dwconv_plain, bwd_dx_plain, bwd_finish_plain)
+KERNEL_BWD = (tcn_bwd_dz, tcn_wgrad, tcn_bwd_dwconv, tcn_bwd_dx, tcn_bwd_finish)
 
 
-def block_bwd(g, x, y1, s1, c, s2, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
-              norm_type, dilation, causal, valid_k, stages=KERNEL_BWD
-              ) -> Tuple[torch.Tensor, ...]:
-    """Backward of one block. g, x [M, K_pad, B] and y1, c [M, K_pad, H] in
-    the activation dtype; in_w [B, H], out_w [H, B] in the activation
-    dtype; the rest f32. Returns (dx, din_w, da1, dg1, db1, dw, da2, dg2,
-    db2, dout_w), the JAX VJP's order; weight gradients f32, dx with
+def alloc_grads(params) -> list:
+    """The nine stacked f32 gradients [NB, ...] of the stacked block
+    parameters (in_w, a1, g1, b1, w, a2, g2, b2, out_w), each row written by
+    one block's KF."""
+    return [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in params]
+
+
+def block_bwd(g, x, y1, s1, c, s2, in_wt, a1, g1, b1, w, a2, g2, b2, out_wt,
+              norm_type, dilation, causal, valid_k, grads, nb, stages=KERNEL_BWD
+              ) -> torch.Tensor:
+    """Backward of block nb. g, x [M, K_pad, B] and y1, c [M, K_pad, H] in
+    the activation dtype; in_wt = in_w^T [H, B] and out_wt = out_w^T [B, H]
+    in the activation dtype; the rest f32. Writes the weight gradients
+    (GRAD_ORDER, f32) into row nb of the stacked `grads` and returns dx,
     rows >= valid_k zero."""
-    dz_fn, wgrad_fn, dw_fn, dx_fn = stages
-    P = w.shape[0]
-    out_wt = out_w.t().contiguous()
-    in_wt = in_w.t().contiguous()
+    dz_fn, wgrad_fn, dw_fn, dx_fn, finish_fn = stages
     dz, colpart, gs2 = dz_fn(g, out_wt, c, s2, a2, g2, norm_type, valid_k)
-    dout_w = wgrad_fn(c, g, valid_k, (s2, a2, g2, b2, norm_type)).sum(0)
+    wz = wgrad_fn(c, g, valid_k, (s2, a2, g2, b2, norm_type))
     db, chpart, gs1, da2p = dw_fn(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2,
                                   norm_type, dilation, causal, valid_k)
     dx, dy1, da1p = dx_fn(db, y1, in_wt, g, s1, gs1, a1, g1, norm_type, valid_k)
-    din_w = wgrad_fn(x, dy1, valid_k).sum(0)
-    chs = chpart.sum(0)
-    cols = colpart.sum(0)
-    return (dx, din_w, da1p.sum(), chs[P], chs[P + 1], chs[:P], da2p.sum(),
-            cols[0], cols[1], dout_w)
+    win = wgrad_fn(x, dy1, valid_k)
+    finish_fn(wz, win, chpart, colpart, da1p, da2p, grads, nb)
+    return dx

@@ -8,9 +8,12 @@ is inference-only, whole_tcn.py:293-303): it keeps every block's input
 x_nb and conv output c_nb, plus K2's small norm2 partials. It never
 updates the residual stream in place: block nb writes its output into the
 slot of block nb + 1. The backward runs, for nb = NB-1 ... 0, K1 on x_nb
-(y1 and the norm1 partials) and the five backward kernels of
-tcn_block_bwd.py; dx pad rows stay zero and the weight gradients are f32,
-stacked [NB, ...].
+(y1 and the norm1 partials), the five backward kernels of
+tcn_block_bwd.py and KF, which writes the block's f32 weight gradients
+into row nb of the stacked [NB, ...] gradients (the TPU kernel keeps
+them in accumulators resident across its grid); dx pad rows stay zero.
+The weights are cast and transposed once per call, not per block, so the
+per-block loop launches the hand-written kernels only.
 
 Residuals are kept [NB, M, K_pad, ch], each block contiguous for the
 kernels (the JAX package's layout is [M, NB, K_pad, ch]).
@@ -18,10 +21,12 @@ kernels (the JAX package's layout is [M, NB, K_pad, ch]).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .tcn_block import in_gemm_plain, tcn_in_gemm
-from .tcn_block_bwd import KERNEL_BWD, PLAIN_BWD, block_bwd
+from .tcn_block import dwconv_plain, dwconv_stats_shape, in_gemm_plain, tcn_dwconv, tcn_in_gemm
+from .tcn_block_bwd import KERNEL_BWD, PLAIN_BWD, alloc_grads, block_bwd
 from .whole_tcn import KERNEL_STAGES, PLAIN_STAGES
 
 
@@ -29,31 +34,103 @@ def _dilations(NB: int, X: int):
     return [2 ** (nb % X) for nb in range(NB)]
 
 
-def chain_save(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
-               valid_k, stages=KERNEL_STAGES):
-    """Forward keeping the residuals. x [M, K_pad, B] (activation dtype,
-    rows >= valid_k zero), weights stacked [NB, ...]. Returns (out,
-    x_res [NB, M, K_pad, B], c_res [NB, M, K_pad, H], s2 [NB, ...])."""
+def _stats_rows(x, w, norm_type, dilations, plain):
+    """One buffer of every block's K2 partials, as views of each block's
+    own shape (dw_plan may tile each dilation differently)."""
+    M, Kp, _ = x.shape
+    _, P, H = w.shape
+    shapes = [dwconv_stats_shape(M, Kp, H, P, d, x.element_size(), norm_type, plain)
+              for d in dilations]
+    flat = torch.empty(sum(math.prod(s) for s in shapes), dtype=torch.float32,
+                       device=x.device)
+    views, off = [], 0
+    for s in shapes:
+        n = math.prod(s)
+        views.append(flat[off:off + n].view(s))
+        off += n
+    return views
+
+
+def chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
+                  valid_k, stages=KERNEL_STAGES, save=True):
+    """Forward keeping every block's input: x [M, K_pad, B] (activation
+    dtype, rows >= valid_k zero), weights stacked [NB, ...]. Block nb
+    writes its output into slot nb + 1 of x_res [NB, M, K_pad, B]. With
+    save, K2 runs in save mode and c_res [NB, M, K_pad, H] and the norm2
+    partials s2 (one view per block) are kept too. Returns (out, x_res,
+    c_res, s2), the last two None without save."""
     in_gemm, dwconv, out_gemm = stages
     M, Kp, B = x.shape
     NB, P, H = w.shape
     dt = x.dtype
+    dil = _dilations(NB, X)
     in_w, out_w = in_w.to(dt), out_w.to(dt)
     x_res = torch.empty((NB, M, Kp, B), dtype=dt, device=x.device)
-    c_res = torch.empty((NB, M, Kp, H), dtype=dt, device=x.device)
     x_res[0].copy_(x)
     out = torch.empty_like(x_res[0])
+    c_res = s2 = None
+    if save:
+        c_res = torch.empty((NB, M, Kp, H), dtype=dt, device=x.device)
+        plain = dwconv is dwconv_plain or x.device.type == "cpu"
+        s2 = _stats_rows(x, w, norm_type, dil, plain)
     y1 = e = None
-    s2s = []
-    for nb, d in enumerate(_dilations(NB, X)):
+    for nb, d in enumerate(dil):
         y1, s1 = in_gemm(x_res[nb], in_w[nb], a1[nb], norm_type, y1)
-        e, s2, _ = dwconv(y1, s1, a1[nb], g1[nb], b1[nb], w[nb], a2[nb], norm_type,
-                          d, causal, valid_k, e, save=True, c=c_res[nb])
-        s2s.append(s2)
+        dargs = (y1, s1, a1[nb], g1[nb], b1[nb], w[nb], a2[nb], norm_type, d, causal,
+                 valid_k, e)
+        if save:
+            e, s2nb, _ = dwconv(*dargs, save=True, c=c_res[nb], stats=s2[nb])
+        else:
+            e, s2nb = dwconv(*dargs)
         dst = x_res[nb + 1] if nb + 1 < NB else out
-        out_gemm(e, s2, x_res[nb], out_w[nb], g2[nb], b2[nb], norm_type, valid_k,
+        out_gemm(e, s2nb, x_res[nb], out_w[nb], g2[nb], b2[nb], norm_type, valid_k,
                  False, dst)
-    return out, x_res, c_res, torch.stack(s2s)
+    return out, x_res, c_res, s2
+
+
+def chain_save(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
+               valid_k, stages=KERNEL_STAGES):
+    """Forward keeping the residuals. x [M, K_pad, B] (activation dtype,
+    rows >= valid_k zero), weights stacked [NB, ...]. Returns (out,
+    x_res [NB, M, K_pad, B], c_res [NB, M, K_pad, H], s2: the K2 partials
+    of each block)."""
+    return chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
+                         valid_k, stages, save=True)
+
+
+def _transposed(wts, dt):
+    """[NB, a, b] -> [NB, b, a] contiguous in dt: one copy per call."""
+    NB, a, b = wts.shape
+    return torch.empty((NB, b, a), dtype=dt, device=wts.device).copy_(wts.transpose(1, 2))
+
+
+def chain_bwd(g, x_res, c_res, s2, params, norm_type, causal, dilations, valid_k,
+              in_gemm=tcn_in_gemm, bwd_stages=KERNEL_BWD, dwconv=tcn_dwconv):
+    """Backward of a chain of blocks from their saved inputs x_res [NB, M,
+    K_pad, B]: upstream g [M, K_pad, B] -> (dx, din_w, da1, dg1, db1, dw,
+    da2, dg2, db2, dout_w), the weight gradients f32 and stacked [NB, ...].
+    params are the nine stacked block parameters, block nb at dilations[nb].
+    With c_res / s2 None, each block recomputes c and the norm2 partials
+    with K2 in save mode (the recompute form); else they are read."""
+    in_w, a1, g1, b1, w, a2, g2, b2, out_w = params
+    dt = x_res.dtype
+    in_wc = in_w.to(dt)
+    in_wt, out_wt = _transposed(in_w, dt), _transposed(out_w, dt)
+    grads = alloc_grads(params)
+    dx = g.to(dt).contiguous()
+    y1 = e = c = None
+    for nb in range(len(dilations) - 1, -1, -1):
+        d = dilations[nb]
+        y1, s1 = in_gemm(x_res[nb], in_wc[nb], a1[nb], norm_type, y1)
+        if c_res is None:
+            e, s2nb, c = dwconv(y1, s1, a1[nb], g1[nb], b1[nb], w[nb], a2[nb], norm_type,
+                                d, causal, valid_k, e, save=True, c=c)
+        else:
+            c, s2nb = c_res[nb], s2[nb]
+        dx = block_bwd(dx, x_res[nb], y1, s1, c, s2nb, in_wt[nb], a1[nb], g1[nb], b1[nb],
+                       w[nb], a2[nb], g2[nb], b2[nb], out_wt[nb], norm_type, d, causal,
+                       valid_k, grads, nb, bwd_stages)
+    return (dx, *grads)
 
 
 def whole_tcn_bwd(g, x_res, c_res, s2, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
@@ -62,22 +139,9 @@ def whole_tcn_bwd(g, x_res, c_res, s2, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
     """Backward of the whole chain from the saved residuals: upstream g
     [M, K_pad, B] -> (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w),
     the weight gradients f32 and stacked [NB, ...]."""
-    NB = w.shape[0]
-    dt = x_res.dtype
-    in_w, out_w = in_w.to(dt), out_w.to(dt)
-    dx = g.to(dt).contiguous()
-    dil = _dilations(NB, X)
-    y1 = None
-    per_block = []
-    for nb in range(NB - 1, -1, -1):
-        y1, s1 = in_gemm(x_res[nb], in_w[nb], a1[nb], norm_type, y1)
-        res = block_bwd(dx, x_res[nb], y1, s1, c_res[nb], s2[nb], in_w[nb], a1[nb],
-                        g1[nb], b1[nb], w[nb], a2[nb], g2[nb], b2[nb], out_w[nb],
-                        norm_type, dil[nb], causal, valid_k, bwd_stages)
-        dx = res[0]
-        per_block.append(res[1:])
-    grads = [torch.stack([blk[i] for blk in reversed(per_block)]) for i in range(9)]
-    return (dx, *grads)
+    params = (in_w, a1, g1, b1, w, a2, g2, b2, out_w)
+    return chain_bwd(g, x_res, c_res, s2, params, norm_type, causal,
+                     _dilations(w.shape[0], X), valid_k, in_gemm, bwd_stages)
 
 
 class _WholeTcnTrain(torch.autograd.Function):
@@ -87,14 +151,16 @@ class _WholeTcnTrain(torch.autograd.Function):
         stages = PLAIN_STAGES if plain else KERNEL_STAGES
         out, x_res, c_res, s2 = chain_save(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
                                            norm_type, causal, X, valid_k, stages)
-        ctx.save_for_backward(x_res, c_res, s2, in_w, a1, g1, b1, w, a2, g2, b2, out_w)
+        ctx.save_for_backward(x_res, c_res, in_w, a1, g1, b1, w, a2, g2, b2, out_w, *s2)
         ctx.static = (norm_type, causal, X, valid_k, plain)
         return out
 
     @staticmethod
     def backward(ctx, gout):
         norm_type, causal, X, valid_k, plain = ctx.static
-        grads = whole_tcn_bwd(gout, *ctx.saved_tensors, norm_type, causal, X, valid_k,
+        x_res, c_res, *rest = ctx.saved_tensors
+        params, s2 = rest[:9], rest[9:]
+        grads = whole_tcn_bwd(gout, x_res, c_res, s2, *params, norm_type, causal, X, valid_k,
                               in_gemm_plain if plain else tcn_in_gemm,
                               PLAIN_BWD if plain else KERNEL_BWD)
         return (*grads, None, None, None, None, None)
@@ -106,9 +172,8 @@ def whole_tcn_train(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal
     128 with exact-zero pad rows (valid_k = the true frame count; None when
     there is no padding); weights f32 stacked [NB, ...]. A CPU tensor, or
     plain=True, takes the plain versions; a CUDA tensor runs 3 kernels per
-    block forward and 6 per block backward (K1 rerun, KB1, KB2, KB3, two
-    KW)."""
+    block forward and 7 per block backward (K1 rerun, KB1, KB2, KB3, two
+    KW, KF)."""
     K = x.shape[1] if valid_k is None else valid_k
     return _WholeTcnTrain.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
                                 causal, X, K, plain)
-

@@ -212,6 +212,7 @@ def test_training_ops_match_plain(dev, norm_type, causal, dtype, tol):
             assert _rel_l2(a, b) <= tol, (op.__name__, i)
     counts = tbb.counts()
     assert counts["tcn_bwd_dz"] == 2 * X + 1 and counts["tcn_wgrad_in"] == 2 * X + 1
+    assert counts["tcn_bwd_finish"] == 2 * X + 1
 
 
 def test_backward_repeats_bit_for_bit(dev):
@@ -227,6 +228,67 @@ def test_backward_repeats_bit_for_bit(dev):
     a = _op_grads(whole_tcn_train, x, args, g, "gLN", False, X, K, plain=False)[1]
     b = _op_grads(whole_tcn_train, x, args, g, "gLN", False, X, K, plain=False)[1]
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("n_kw,n_tile,B,H,P", [(1, 1, 128, 256, 3), (7, 125, 256, 512, 3),
+                                               (25, 250, 256, 512, 3), (3, 40, 128, 128, 8)])
+def test_bwd_finish_matches_plain_and_repeats(dev, n_kw, n_tile, B, H, P):
+    """KF against bwd_finish_plain on random partials of each layout, into
+    row 1 of three stacked gradients (the others untouched), and two
+    launches giving identical bits."""
+    gen = torch.Generator(device=dev).manual_seed(n_kw + n_tile)
+
+    def part(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    parts = (part(n_kw, H, B), part(n_kw, B, H), part(n_tile, P + 2, H),
+             part(2 * n_tile, 2, H), part(2 * n_tile), part(4 * n_tile))
+    shapes = [(3, B, H), (3,), (3, H), (3, H), (3, P, H), (3,), (3, H), (3, H), (3, H, B)]
+    want = [torch.full(sh, float("nan"), device=dev) for sh in shapes]
+    got = [torch.full(sh, float("nan"), device=dev) for sh in shapes]
+    again = [torch.full(sh, float("nan"), device=dev) for sh in shapes]
+    tbb.bwd_finish_plain(*parts, want, 1)
+    tbb.reset_counts()
+    tbb.tcn_bwd_finish(*parts, got, 1)
+    tbb.tcn_bwd_finish(*parts, again, 1)
+    assert tbb.counts()["tcn_bwd_finish"] == 2
+    for name, a, b, c in zip(tbb.GRAD_ORDER, got, want, again):
+        assert _rel_max(a[1], b[1]) <= 1e-4, name
+        assert torch.isnan(a[0]).all() and torch.isnan(a[2]).all(), name
+        assert torch.equal(a[1], c[1]), name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 1e-1)])
+def test_whole_chain_matches_the_per_block_ops(dev, dtype, tol):
+    """The chain-level whole op (one Function over the blocks) against the
+    per-block recompute ops over views of the stacked leaves: output and
+    every gradient, relative L2 (the train step's TOL_GRAD_F32 /
+    TOL_GRAD_BF16 of chip_smoke.py)."""
+    from convtasnet_torch.ops.kernels.whole_block_vjp import whole_chain_train
+
+    X, K, Kp = 2, 300, 384
+    args = _blocks(2 * X, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, Kp, 128), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(dtype)
+    g = torch.randn((2, Kp, 128), generator=gen, device=dev).to(dtype)
+
+    def per_block(x, *leaves):
+        for nb in range(2 * X):
+            x = whole_block_train(x, *[a[nb] for a in leaves], "gLN", 2 ** (nb % X), False,
+                                  valid_k=K)
+        return x
+
+    res = []
+    for fn in (per_block, lambda *a: whole_chain_train(*a, "gLN", False, X, valid_k=K)):
+        leaves = [x.clone().requires_grad_(True)] + [a.clone().requires_grad_(True)
+                                                     for a in args]
+        out = fn(*leaves)
+        res.append((out.detach(), torch.autograd.grad(out, leaves, g)))
+    assert _rel_l2(res[1][0], res[0][0]) <= tol
+    for i, (a, b) in enumerate(zip(res[1][1], res[0][1])):
+        assert torch.isfinite(a.float()).all() and _rel_l2(a, b) <= tol, i
 
 
 # ---------------------------------------------------------------------------

@@ -218,6 +218,18 @@ def test_the_cpu_runs_eagerly():
     tcn_block.reset_counts()
 
 
+@pytest.mark.parametrize("preset", [None, "1"])
+def test_keep_cupti_keeps_cupti_attached_unless_the_caller_chose(monkeypatch, preset):
+    for k in ("TEARDOWN_CUPTI", "DISABLE_CUPTI_LAZY_REINIT"):
+        if preset is None:
+            monkeypatch.delenv(k, raising=False)
+        else:
+            monkeypatch.setenv(k, preset)
+    graphed.keep_cupti()
+    want = ("0", "1") if preset is None else (preset, preset)
+    assert (os.environ["TEARDOWN_CUPTI"], os.environ["DISABLE_CUPTI_LAZY_REINIT"]) == want
+
+
 # ---------------------------------------------------------------------------
 # The CLIs through the graphed entry against the JAX CLIs
 # ---------------------------------------------------------------------------
