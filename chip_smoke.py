@@ -15,6 +15,11 @@
    rows >= K exact zeros and two launches giving equal bytes; then K2 and
    KB2 at the span and tap limits of ops/kernels/limits.py (K2 span 4096,
    KB2 span 1024 and 8 taps) with NaN in the rows >= K they never read;
+   then KFW tcn_fold_weights (the fold's weight terms of K3 fold, one
+   launch per forward over all blocks) against fold_weights at the paper
+   widths (NB=32, H=512, B=256) and the scaled ones (NB=60, H=1024), f32
+   and bf16: wp bit for bit, g2w / b2w within TOL_F32 of the sum of |g2|
+   |W| per column, a second launch bit for bit;
 4. training kernel phase: holds K2's save mode and the backward kernels
    (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, also with NaN in the rows
    >= K of its second operand, KB2 tcn_bwd_dwconv with NaN in the rows
@@ -26,12 +31,20 @@
    launch bit for bit); then the 32-block save-form chain and its
    backward (whole_tcn_bwd), the per-block recompute and hybrid
    backwards, and requires two backward runs to give identical bytes;
+4b. hybrid-chain phase: the per-block hybrid form as one autograd
+   Function over the chain (whole_chain_hybrid, the model's form past the
+   memory gate) against NB per-block whole_block_hybrid calls over views
+   of the stacked leaves, bf16, paper config, batch 5 x 4 s: the output
+   bit for bit, every gradient leaf within TOL_BWD_CHAIN_BF16; forward +
+   backward device time of both in turns; the torch ops of gradient
+   allocation and accumulation per call (torch.profiler);
 5. slice phase: writes seeded paper-config weights with the port's
    save_checkpoint and synthetic 8 kHz mixtures with its wavio, then runs
    `convtasnet_torch.cli.separate` on cuda with --batch_size 8 and
    --use_kernels auto (the main path), block and 0; checks the wavs, the
-   launch counts (NB per forward for every kernel of the form) and the
-   agreement of the kernel forms with the eager run;
+   launch counts (NB per forward for every kernel of the form, KFW once
+   per `auto` forward) and the agreement of the kernel forms with the
+   eager run;
 6. evaluate phase: writes two tt sets with the port's modules (harmonic,
    data/synthetic, 6 utterances of 2.5-10 s; broadband, band-passed noise
    mixed at 0-5 dB, 4 utterances), manifests them with
@@ -48,7 +61,8 @@
    graphs, one per input shape): at the paper config, batch 8 and 1 x 4 s,
    auto and block, and at the scaled config, batch 1 and 2 x 8 s at 16 kHz,
    the graphed forward against the eager kernel forward, bit for bit, with
-   the same launches per forward; eager and graphed ms (CUDA events), device
+   the same launches per forward (KFW exactly once per `auto` forward, the
+   chain kernels NB times); eager and graphed ms (CUDA events), device
    busy and idle share, capture ms and pool bytes per graph; three keys of
    one wrapper (one shared pool) replayed in turn, bit for bit; the separate
    CLI over 40 mixtures in two repeating shapes (--pad_to_multiple 8000),
@@ -100,8 +114,10 @@
    step at batch 5 x 4 s, each kernel per launch beside its plain
    version, one PyTorch call where there is one (torch.matmul of a GEMM
    kernel's product; F.conv1d / F.conv_transpose1d with groups=H of the
-   depthwise kernels, cuDNN with TF32 off), and its roofline bound, and the
-   backward of each training op beside its plain version; K2, K2 save and
+   depthwise kernels, cuDNN with TF32 off; KFW's is fold_weights, the
+   library calls it replaced, timed in turns with it: library, kernel,
+   kernel, library), and its roofline bound, and the backward of each
+   training op beside its plain version; K2, K2 save and
    KB2 also per dilation beside the cuDNN call, with their tile (and KB2's
    f32 channel-partial bytes beside its bound); KW's launch plan
    and its Stage A time (the same splits, one partial per CTA) beside the
@@ -219,15 +235,22 @@ DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": STENCIL, "tcn_out_gemm_fold"
           "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": STENCIL,
           "tcn_bwd_dz": "wgmma+tma", "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": STENCIL,
           "tcn_bwd_dx": "wgmma+tma", "tcn_wgrad_in": "wgmma+tma",
-          "tcn_bwd_finish": "simt-reduce"}
+          "tcn_bwd_finish": "simt-reduce", "tcn_fold_weights": "simt-reduce"}
 SOURCE_DW = "convtasnet_torch/csrc/tcn_dwconv_sm90.cuh"
 SOURCE_KF = "convtasnet_torch/csrc/tcn_bwd_finish.cuh"
+SOURCE_KFW = "convtasnet_torch/csrc/tcn_fold_weights.cuh"
 TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
                  "tcn_bwd_dx", "tcn_wgrad_in", "tcn_bwd_finish")
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def auto_launches(NB):
+    """Kernel launches of one `auto` (whole-TCN, fold) forward of NB blocks:
+    KFW once, then K1, K2 and K3 fold per block."""
+    return {"tcn_fold_weights": 1, "tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
 
 
 def card_line() -> str:
@@ -565,6 +588,131 @@ def kf_check(chk, what, parts):
     return max(float((a[1] - b[1]).abs().max()) for a, b in zip(got, want))
 
 
+FOLD_SHAPES = ((32, 512, 256), (60, 1024, 256))  # (NB, H, B): paper, scaled config
+
+
+def fold_inputs(dev, NB, H, B, seed):
+    """Seeded f32 out_w [NB, H, B] (xavier scale), g2 and b2 [NB, H]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out_w = torch.randn((NB, H, B), generator=gen, device=dev) * (2.0 / (H + B)) ** 0.5
+    g2 = torch.randn((NB, H), generator=gen, device=dev) * 0.2 + 1
+    b2 = torch.randn((NB, H), generator=gen, device=dev) * 0.1
+    return out_w, g2, b2
+
+
+def fold_phase(dev):
+    """KFW against fold_weights at the paper and the scaled widths, f32 and
+    bf16: wp bit for bit; g2w and b2w within TOL_F32 of the sum of |v| |W|
+    per column (another summation order); a second launch bit for bit.
+    Returns max |kernel - plain| over the three terms, bf16, paper widths."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb
+
+    chk = Checks("fold phase")
+    log("fold phase (KFW vs fold_weights):")
+    err = 0.0
+    for NB, H, B in FOLD_SHAPES:
+        out_w, g2, b2 = fold_inputs(dev, NB, H, B, NB)
+        for dt in (torch.float32, torch.bfloat16):
+            what = f"KFW {'f32' if dt == torch.float32 else 'bf16'} NB={NB} H={H} B={B}"
+            got = tb.tcn_fold_weights(out_w, g2, b2, dt)
+            want = tb.fold_weights(out_w, g2, b2, dt)
+            chk(f"{what} wp bit for bit (differing elements)",
+                float((got[0] != want[0]).sum()), 0)
+            wr = out_w.to(dt).float().abs()
+            for name, a, b, v in zip(("g2w", "b2w"), got[1:], want[1:], (g2, b2)):
+                scale = torch.einsum("nh,nhb->nb", v.abs(), wr).clamp_min(1e-30)
+                chk(f"{what} {name} / sum |v| |W|", float(((a - b).abs() / scale).max()),
+                    TOL_F32)
+            chk(f"{what} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+                got, tb.tcn_fold_weights(out_w, g2, b2, dt)))), 0)
+            if dt == torch.bfloat16 and NB == FOLD_SHAPES[0][0]:
+                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    chk.done()
+    return err
+
+
+def hybrid_chain_phase(stacked, cfg, dev, M=5, K=3199):
+    """The per-block hybrid form as one autograd Function over the chain
+    (whole_chain_hybrid) against NB per-block whole_block_hybrid calls over
+    views of the stacked leaves, bf16, at the paper config and the train
+    step's shapes: the output bit for bit and every gradient leaf within
+    TOL_BWD_CHAIN_BF16 (relative L2); the chain's kernel launches per
+    forward + backward (K1, K2 save, K3 unfold NB times each; the backward
+    is plain PyTorch); forward + backward device ms of both
+    in turns (per block, chain, chain, per block); the torch ops that
+    allocate and accumulate gradients per call (torch.profiler, CPU)."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb
+    from convtasnet_torch.ops.kernels.whole_block_hybrid import (whole_block_hybrid,
+                                                                 whole_chain_hybrid)
+
+    chk = Checks("hybrid-chain phase")
+    NB = cfg.R * cfg.X
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((M, Kp, cfg.B), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(torch.bfloat16)
+    g = torch.randn((M, Kp, cfg.B), generator=gen, device=dev).to(torch.bfloat16)
+
+    def per_block(y, *params):
+        for nb in range(NB):
+            y = whole_block_hybrid(y, *[p[nb] for p in params], cfg.norm_type,
+                                   2 ** (nb % cfg.X), cfg.causal, valid_k=K)
+        return y
+
+    def chain(*leaves):
+        return whole_chain_hybrid(*leaves, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
+
+    def run(fn):
+        leaves = [x.detach().requires_grad_(True)] + [p.detach().requires_grad_(True)
+                                                      for p in stacked]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, g)
+
+    log("hybrid-chain phase (whole_chain_hybrid vs per-block whole_block_hybrid, bf16, "
+        f"M={M}, K_pad={Kp}):")
+    (ob, gb) = run(per_block)
+    reset_all_counts()
+    oc, gc = run(chain)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_counts().items() if v}
+    want = dict(tcn_in_gemm=NB, tcn_dwconv_save=NB, tcn_out_gemm_unfold=NB)
+    chk(f"chain: launches per forward + backward {launches} == K1, K2 save, K3 unfold NB "
+        "times each", float(launches != want), 0)
+    chk("chain vs per-block ops: output, differing elements", float((oc != ob).sum()), 0)
+    for name, a, b in zip(GRAD_NAMES, gc, gb):
+        chk(f"chain vs per-block ops: {name} (relative L2)", rel_l2(a, b),
+            max(TOL_BWD_CHAIN_BF16, TOL_ALPHA_F32) if name in ("da1", "da2")
+            else TOL_BWD_CHAIN_BF16)
+    del gb, gc
+    res = {"per_block_ms": [], "chain_ms": [], "chain_launches": launches}
+    for label, fn in (("per_block", per_block), ("chain", chain), ("chain", chain),
+                      ("per_block", per_block)):
+        res[f"{label}_ms"].append(device_ms(lambda fn=fn: run(fn), iters=3, warm=1))
+    ops = ("aten::select_backward", "aten::zeros", "aten::add", "aten::add_", "aten::copy_",
+           "aten::empty", "aten::empty_strided", "aten::_to_copy")
+    for label, fn in (("per_block", per_block), ("chain", chain)):
+        run(fn)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            run(fn)
+            torch.cuda.synchronize()
+        found = {e.key: e.count for e in prof.key_averages() if e.key in ops}
+        res[f"{label}_ops_per_call"] = {k: found.get(k, 0) for k in ops}
+    chk("chain: no select_backward (no per-block view gradient)",
+        res["chain_ops_per_call"]["aten::select_backward"], 0)
+    chk("per-block ops: a select_backward per block and stacked leaf (9 NB at least)",
+        float(res["per_block_ops_per_call"]["aten::select_backward"] < 9 * NB), 0)
+    log(f"  forward + backward device ms, in turns: per block {res['per_block_ms']}, chain "
+        f"{res['chain_ms']}")
+    log(f"  torch ops per call: per block {res['per_block_ops_per_call']}, chain "
+        f"{res['chain_ops_per_call']}")
+    torch.cuda.synchronize()
+    chk.done()
+    return res
+
+
 def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
     """Training kernels against their plain versions; returns the bf16
     max |kernel - plain| of each."""
@@ -775,7 +923,7 @@ def train_phase(cfg, dev, tmp):
     cv = os.path.join(make_wav_dataset(os.path.join(tmp, "cv"), n_utts=4, min_sec=4.0,
                                        max_sec=4.0, seed=1, splits=("cv",)), "cv")
     steps, n_cv = 2, 4
-    cv_launch = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+    cv_launch = auto_launches(NB)
     base = ["--train_dir", tr, "--valid_dir", cv, "--batch_size", "5", "--device", str(dev),
             "--num_workers", "2", "--print_freq", "1", "--seed", "0",
             "--norm_type", cfg.norm_type, "--compute_dtype", cfg.compute_dtype]
@@ -924,8 +1072,10 @@ def evaluate_phase(cfg, dev, ckpt, tmp):
     NB = cfg.R * cfg.X
     so_before = _native_so_digests()
     sets = _write_eval_sets(tmp)
-    want_launch = {"auto": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_fold"),
-                   "block": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_unfold"), "0": ()}
+    # launches per forward (one per utterance) of each form
+    want_launch = {"auto": auto_launches(NB),
+                   "block": dict(tcn_in_gemm=NB, tcn_dwconv=NB, tcn_out_gemm_unfold=NB),
+                   "0": {}}
     sdr_tol = {"broadband": TOL_SDR_BROADBAND_DB, "harmonic": TOL_SDR_HARMONIC_DB}
     timing, runs = {}, {}
 
@@ -959,8 +1109,7 @@ def evaluate_phase(cfg, dev, ckpt, tmp):
         chk(f"{tag}: metrics finite", float(not all(np.isfinite(
             [res["si_snri"], res["sdri"]] + [u[k] for u in utts for k in ("si_snri", "sdri")]))), 0)
         for k, v in counts.items():
-            chk(f"{tag}: {k} launches", abs(v - (NB * n_utts if k in want_launch[form] else 0)),
-                0)
+            chk(f"{tag}: {k} launches", abs(v - want_launch[form].get(k, 0) * n_utts), 0)
         chk(f"{tag}: native decoder decoded every file",
             abs(decoded["native"] - 3 * n_utts) + decoded["wavio"], 0)
         timing[f"{name}_{form}_{backend}_ms_per_utt"] = wall / n_utts * 1e3
@@ -1075,10 +1224,12 @@ GRAPH_SEP_PAD = 8000
 GRAPH_EVAL_PAD = {"harmonic": 80000, "broadband": 48000}
 
 
-def _graph_forward_case(chk, what, fn, mix, tag, NB, want_kernels):
+def _graph_forward_case(chk, what, fn, mix, tag, want_kernels):
     """One forward captured and replayed against its eager run: bit for bit,
-    launches per replay, event ms eager / graphed (median of 20), device
-    busy and idle share of each, capture ms and pool bytes."""
+    launches per replay, each kernel's launches per forward as
+    `want_kernels` says (every other counter 0), event ms eager / graphed
+    (median of 20), device busy and idle share of each, capture ms and
+    pool bytes."""
     from convtasnet_torch.models import graphed
 
     torch.cuda.synchronize()
@@ -1100,8 +1251,9 @@ def _graph_forward_case(chk, what, fn, mix, tag, NB, want_kernels):
     chk(f"{what}: 3 replays, no eager call", abs(calls["replays"] - 3) + calls["eager_calls"], 0)
     chk(f"{what}: launches per replay == per eager forward {per_eager}",
         max(abs(per_replay[k] - 3 * v) for k, v in per_eager.items()), 0)
-    for k in want_kernels:
-        chk(f"{what}: {k} launches per forward == NB", abs(per_eager[k] - NB), 0)
+    for k, v in per_eager.items():
+        chk(f"{what}: {k} launches per forward == {want_kernels.get(k, 0)}",
+            abs(v - want_kernels.get(k, 0)), 0)
     info = next(iter(g.graphs().values()))
     res = {"eager_ms": forward_ms(lambda: fn(mix))[0], "graphed_ms": forward_ms(lambda: g(mix))[0],
            "eager_busy_ms": device_ms(lambda: fn(mix), iters=10),
@@ -1160,8 +1312,8 @@ def graph_phase(cfg, dev, params, state, ckpt, eval_sets, tmp):
     chk = Checks("graph phase")
     NB = cfg.R * cfg.X
     res = {"forward": {}}
-    want = {"auto": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_fold"),
-            "block": ("tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm_unfold")}
+    want = {"auto": auto_launches(NB),
+            "block": dict(tcn_in_gemm=NB, tcn_dwconv=NB, tcn_out_gemm_unfold=NB)}
     log(" (a) forwards, graphed vs eager kernel forward:")
     with torch.inference_mode():
         mixes = []
@@ -1174,7 +1326,7 @@ def graph_phase(cfg, dev, params, state, ckpt, eval_sets, tmp):
                 res["forward"][f"paper_batch{bs}_{form}"] = _graph_forward_case(
                     chk, f"paper batch {bs} x 4 s {form}",
                     lambda m, c=c: forward(params, state, c, m)[0], mix,
-                    (c.kernel_form(False, dev),), NB, want[form])
+                    (c.kernel_form(False, dev),), want[form])
         c = ConvTasNetConfig(use_kernels="auto")
         res["shared_pool_bytes"] = _graph_shared_pool_case(
             chk, lambda m: forward(params, state, c, m)[0],
@@ -1187,7 +1339,7 @@ def graph_phase(cfg, dev, params, state, ckpt, eval_sets, tmp):
             res["forward"][f"scaled_batch{bs}_auto"] = _graph_forward_case(
                 chk, f"scaled batch {bs} x 8 s auto",
                 lambda m: forward(sparams, sstate, scfg, m)[0], mix,
-                (scfg.kernel_form(False, dev),), scfg.R * scfg.X, want["auto"])
+                (scfg.kernel_form(False, dev),), auto_launches(scfg.R * scfg.X))
         del sparams, sstate
     torch.cuda.empty_cache()
 
@@ -1222,9 +1374,9 @@ def graph_phase(cfg, dev, params, state, ckpt, eval_sets, tmp):
         chk(f"separate {run}: mixtures written", abs(written - len(GRAPH_SEP_SECS)), 0)
         executed = calls[run]["eager_calls"] + calls[run]["replays"] + (
             graphed.CAPTURE_WARMUP * calls[run]["captures"])
-        for k in want["auto"]:
-            chk(f"separate {run}: {k} launches == NB per executed forward ({executed})",
-                abs(launches[k] - NB * executed), 0)
+        for k, v in launches.items():
+            chk(f"separate {run}: {k} launches == {want['auto'].get(k, 0)} per executed "
+                f"forward ({executed})", abs(v - want["auto"].get(k, 0) * executed), 0)
         wavs[run] = {}
         for f in sorted(glob.glob(os.path.join(out_dir, "*.wav"))):
             with open(f, "rb") as fh:
@@ -1371,7 +1523,7 @@ def stream_phase(cfg16, dev, tmp):
         log(f"  separate {dt} --use_kernels {form} --batch_size {bs}: {n} mixtures in "
             f"{wall:.2f} s, launches {counts}")
         chk(f"separate {dt} {form} b{bs}: mixtures written", abs(n - len(lengths)), 0)
-        want = dict(tcn_in_gemm=NB, tcn_dwconv=NB, tcn_out_gemm_fold=NB) if form == "auto" else {}
+        want = auto_launches(NB) if form == "auto" else {}
         for k, v in counts.items():
             chk(f"separate {dt} {form} b{bs} (cLN, causal): {k} launches",
                 abs(v - want.get(k, 0) * -(-len(lengths) // bs)), 0)
@@ -1700,7 +1852,7 @@ def parallel_phase(cfg, dev, tmp, hybrid_run):
     log(f"  world-2 DP step over gloo (all-reduces staged through the host; no speed "
         f"claim): {timing['world2_gloo_dp_step_bf16_ms']} ms per step by rank")
     fmix = inputs["fwd_mix"].to(dev)
-    fwd_want = dict(tcn_in_gemm=NB, tcn_dwconv=NB, tcn_out_gemm_fold=NB)
+    fwd_want = auto_launches(NB)
     for dtype, tol in (("float32", TOL_E2E_F32), ("bfloat16", TOL_E2E_BF16)):
         with torch.inference_mode():
             ref, _ = forward(params, {}, dataclasses.replace(cfg, compute_dtype=dtype,
@@ -1985,7 +2137,8 @@ def backward_timing(stacked, cfg, dev, M=5, K=3199):
         "bwd_block_whole": lambda: recompute_bwd(g, x, *one, norm, 1, False, K),
         "bwd_block_whole_plain": lambda: recompute_bwd(g, x, *one, norm, 1, False, K,
                                                        plain=True),
-        "bwd_block_hybrid_torch": lambda: hybrid_bwd_math(x, y1, c, g, *one, norm, 1, False, K),
+        "bwd_block_hybrid_torch": lambda: hybrid_bwd_math(x, y1, c, g, in_w, *one[1:8],
+                                                          one[8].to(dt), norm, 1, False, K),
     }
     out = {f"{k}_ms": cuda_ms(fn, iters=5, warm=1) for k, fn in runs.items()}
     for k, v in out.items():
@@ -2294,7 +2447,7 @@ def train_graph_phase(cfg, dev, hybrid_run, tmp):
         abs(load_checkpoint(latest)["header"]["extra"]["step_in_epoch"] - 3), 0)
     cli_run("resumed", cap, "--epochs", "2", "--batch_size", "2", "--continue_from", latest)
     per = per_step_launches("hybrid", NB)
-    cv = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+    cv = auto_launches(NB)
     for name in ("eager", "graphed"):
         out, counts = cli[name]
         chk(f"CLI {name}: launches of the two-epoch run vs its counters {counts}",
@@ -2438,7 +2591,7 @@ def visualize_phase(cfg, dev, chk, hybrid_run, tmp):
     torch.cuda.synchronize()
     counts = all_counts()
     per = per_step_launches("hybrid", NB)
-    cv = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+    cv = auto_launches(NB)
     n_cv = 4  # the train phase's cv utterances, one forward each
     chk(f"visualize run: launches of every kernel vs its counter {counts}",
         max(abs(v - out["steps"] * per.get(k, 0) - cv_forwards(out, n_cv) * cv.get(k, 0))
@@ -2547,7 +2700,7 @@ def scaled_phase(dev, chk):
             f"({row['audio_sps']:.1f} audio-s/s), matmul floor {row['matmul_floor_ms']:.3f} ms "
             f"({row['matmul_floor_frac']:.3f} of it), peak {row['peak_gb']:.2f} GB")
         chk(f"scaled infer batch {batch}: form", float(row["kernel_tier"] != "whole_tcn"), 0)
-        want = {"tcn_in_gemm": NB, "tcn_dwconv": NB, "tcn_out_gemm_fold": NB}
+        want = auto_launches(NB)
         chk(f"scaled infer batch {batch}: launches of every kernel vs its counter {counts}",
             max(abs(v - SCALED_INFER_ITERS * want.get(k, 0)) for k, v in counts.items()), 0)
     torch.cuda.empty_cache()
@@ -2708,9 +2861,11 @@ def main() -> int:
 
     gemm_width_phase(dev)
     span_limit_phase(dev)
+    errs["tcn_fold_weights"] = fold_phase(dev)
 
     # ---- training kernel phase ---------------------------------------------
     train_errs = train_kernel_phase(blocks, stacked, cfg, dev)
+    hybrid_chain = hybrid_chain_phase(stacked, cfg, dev)
 
     # ---- slice phase: the separate CLI ------------------------------------
     from convtasnet_torch.cli.separate import main as separate_main
@@ -2746,14 +2901,12 @@ def main() -> int:
             log(f"separate --use_kernels {form}: {written} mixtures in {wall:.2f} s, "
                 f"launches {counts}")
             chk(f"{form}: mixtures written", abs(written - len(secs)), 0)
-            want = {"auto": dict(tcn_in_gemm=1, tcn_dwconv=1, tcn_out_gemm_fold=1,
-                                 tcn_out_gemm_unfold=0),
-                    "block": dict(tcn_in_gemm=1, tcn_dwconv=1, tcn_out_gemm_fold=0,
-                                  tcn_out_gemm_unfold=1),
-                    "0": {k: 0 for k in counts}}[form]
-            for k, per in want.items():
-                chk(f"{form}: {k} launches == NB per forward",
-                    abs(counts[k] - per * NB * n_forwards), 0)
+            want = {"auto": auto_launches(NB),
+                    "block": dict(tcn_in_gemm=NB, tcn_dwconv=NB, tcn_out_gemm_unfold=NB),
+                    "0": {}}[form]
+            for k, v in counts.items():
+                chk(f"{form}: {k} launches == {want.get(k, 0)} per forward",
+                    abs(v - want.get(k, 0) * n_forwards), 0)
             outs[form] = {}
             for i in range(len(secs)):
                 for c in range(cfg.C):
@@ -2870,6 +3023,9 @@ def main() -> int:
             conv_one(2 ** xi)
 
     gemm_flops = 2.0 * rows * B * H
+    # KFW on the main path's inputs: the stacked out_w, dw_gamma, dw_beta
+    fold_in = (blocks["out_w"], blocks["dw_gamma"], blocks["dw_beta"])
+    fold_n = blocks["out_w"].numel()
     specs = {
         "tcn_in_gemm": dict(
             replaces=WHOLE_TCN,
@@ -2901,9 +3057,21 @@ def main() -> int:
             library=lambda: torch.matmul(e.view(rows, H), ow),
             bytes=(rows * H + 2 * rows * B + H * B) * it + s2.numel() * 4,
             flops=gemm_flops, per=1),
+        # the bound: the f32 out_w read once, wp written once in bf16, g2 / b2
+        # read and g2w / b2w written; a multiply for wp and two multiply-adds
+        # per element (f32). The library call is fold_weights itself (the
+        # calls KFW replaced), timed in turns with the kernel.
+        "tcn_fold_weights": dict(
+            replaces=WHOLE_TCN, source=SOURCE_KFW,
+            kernel=lambda: tb.tcn_fold_weights(*fold_in, dt),
+            plain=lambda: tb.fold_weights(*fold_in, dt),
+            library=lambda: tb.fold_weights(*fold_in, dt), turns=True,
+            bytes=fold_n * (4 + it) + 2 * NB * (H + B) * 4, flops=5.0 * fold_n, per=1,
+            dtype=torch.float32),
     }
     path_of = {"tcn_in_gemm": "auto", "tcn_dwconv": "auto",
-               "tcn_out_gemm_fold": "auto", "tcn_out_gemm_unfold": "block"}
+               "tcn_out_gemm_fold": "auto", "tcn_out_gemm_unfold": "block",
+               "tcn_fold_weights": "auto"}
     def measure(s):
         """Device, event and host times of a spec, its plain version's and
         library call's device times, and its bound (all per launch)."""
@@ -2947,6 +3115,14 @@ def main() -> int:
     for name, s in specs.items():
         t = measure(s)
         shape = f"M={M}, K_pad={Kp}, B={B}, H={H}"
+        if s.get("turns"):
+            # library, kernel, kernel, library: both on the same card state
+            turns = [device_ms(f) for f in (s["library"], s["kernel"], s["kernel"],
+                                            s["library"])]
+            t["turns_ms"] = turns
+            t["ms"], t["library_ms"] = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            shape = f"NB={NB}, H={H}, B={B} (stacked weights)"
+            log(f"  {name} in turns (library, kernel, kernel, library): {turns} ms")
         if "per_d" in s:
             t["per_dilation"] = per_dilation_times(name, s, shape)
         kernels.append({
@@ -3001,6 +3177,7 @@ def main() -> int:
         par_timing = parallel_phase(cfg, dev, train_tmp.name, hybrid_run)
     par_timing["phase_s"] = time.perf_counter() - t0
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
+                    "hybrid_chain": hybrid_chain,
                     "train_graph": train_graph, "evaluate": eval_timing, "graph": graph_timing,
                     "stream": stream_timing, "options": opt_res, "parallel": par_timing,
                     "profiler_blind": PROFILER_BLIND}))

@@ -16,6 +16,10 @@
 //                      unfold (whole_block) z = round(norm2(e)) is formed
 //                             in the A-operand load, o = z @ out_w
 //
+// and, once per whole-TCN forward over all NB blocks, KFW tcn_fold_weights
+// (tcn_fold_weights.cuh): K3 fold's operand round(g2 * out_w) and its
+// vectors g2 @ W, b2 @ W, with W = out_w rounded to the activation type.
+//
 // Replaces the TPU kernels convtasnet_tpu/ops/pallas/whole_tcn.py
 // (_tcn_kernel, whole_tcn_pallas) and ops/pallas/fused_whole_block.py
 // (_block_kernel, whole_block_pallas). Those keep a whole [K, B] residual
@@ -41,6 +45,7 @@
 
 #include "tcn_block.cuh"
 #include "tcn_dwconv_sm90.cuh"
+#include "tcn_fold_weights.cuh"
 #include "tcn_gemm_sm90.cuh"
 
 namespace tcn {
@@ -329,4 +334,15 @@ extern "C" int tcn_out_gemm(int device, int dtype, int fold, const void* e,
   g.ncols = B;
   g.gln = gln;
   return fold ? launch_gemm<float, OUT_FOLD>(g, rows, s) : launch_gemm<float, OUT_UNFOLD>(g, rows, s);
+}
+
+// out_w f32 [NB, H, B], g2 / b2 f32 [NB, H] -> wp [NB, H, B] in the
+// activation type, g2w / b2w f32 [NB, B] (B a multiple of FW_COLS).
+extern "C" int tcn_fold_weights(int device, int dtype, const float* out_w, const float* g2,
+                                const float* b2, void* wp, float* g2w, float* b2w, int NB,
+                                int H, int B, void* stream) {
+  cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype ? fold_weights<bf16>(out_w, g2, b2, wp, g2w, b2w, NB, H, B, s)
+               : fold_weights<float>(out_w, g2, b2, wp, g2w, b2w, NB, H, B, s);
 }

@@ -13,8 +13,9 @@ decode runs in f32 and the output is zero-padded back to T.
 The TCN chain runs in the form cfg.kernel_form(train, device) names: for
 inference the whole-TCN kernels (ops/kernels/whole_tcn.py) or the
 whole-block kernels (ops/kernels/whole_block.py); for training the
-whole-TCN training op (ops/kernels/whole_tcn_hybrid.py; per block
-ops/kernels/whole_block_hybrid.py behind the memory gate below) or the
+whole-TCN training op (ops/kernels/whole_tcn_hybrid.py; the per-block
+hybrid chain of ops/kernels/whole_block_hybrid.py behind the memory gate
+below) or the
 per-block recompute op (ops/kernels/whole_block_vjp.py); else the eager
 `_temporal_block` chain under autograd, which BN always takes. The
 stacked [R, X, ...] block parameters reach the ops as [NB, ...] views, so
@@ -53,7 +54,7 @@ from ..ops.conv import depthwise_dilated, pointwise
 from ..ops.framing import frame_signal, overlap_and_add
 from ..ops.kernels.tcn_block import ROW_ALIGN
 from ..ops.kernels.whole_block import whole_block
-from ..ops.kernels.whole_block_hybrid import whole_block_hybrid
+from ..ops.kernels.whole_block_hybrid import whole_chain_hybrid
 from ..ops.kernels.whole_block_vjp import whole_chain_train
 from ..ops.kernels.whole_tcn import alloc_scratch, whole_tcn
 from ..ops.kernels.whole_tcn_hybrid import whole_tcn_train
@@ -73,8 +74,10 @@ _BLOCK_ORDER = ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu",
 # paper config, batch 5 x 4 s, bf16). It runs when they fit a quarter of
 # the card's memory (20 GB of an 80 GB H100), leaving the rest to the
 # weights, the optimizer state and the backward's [M, K_pad, H]
-# temporaries; otherwise the per-block hybrid op runs. On the CPU the
-# budget is a fixed 8 GiB.
+# temporaries; otherwise the per-block hybrid chain runs, as JAX falls
+# back to it when the whole-TCN kernel does not fit VMEM. That chain holds
+# x_nb, y1_nb and c_nb, NB * M * K_pad * (B + 2H) elements: more than the
+# form it replaces. On the CPU the budget is a fixed 8 GiB.
 RESIDUAL_SHARE_OF_DEVICE = 0.25
 CPU_RESIDUAL_BUDGET = 8 << 30
 
@@ -316,9 +319,7 @@ def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
     elif form == "whole_block_train":
         x = whole_chain_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
     elif form == "whole_block_hybrid":
-        for nb in range(cfg.R * cfg.X):
-            x = whole_block_hybrid(x, *[a[nb] for a in args], cfg.norm_type,
-                                   2 ** (nb % cfg.X), cfg.causal, valid_k=K)
+        x = whole_chain_hybrid(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
     else:
         scratch = (alloc_scratch(M, Kp, cfg.H, x.dtype, x.device)
                    if x.is_cuda else None)

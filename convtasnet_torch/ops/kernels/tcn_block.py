@@ -16,6 +16,8 @@ One temporal block runs as
                    whole-block form); rows >= K stay exactly zero. In bf16
                    it runs on the TMA + wgmma pipeline
                    (csrc/tcn_gemm_sm90.cuh), tiled by `gemm_plan`.
+The fold's weight terms come from KFW tcn_fold_weights
+(csrc/tcn_fold_weights.cuh), once per forward for all blocks.
 
 Tensors are [M, K_pad, ch] with K_pad a multiple of 128 and rows >= K zero.
 The norm statistics travel between the kernels as (sum, sum of squares)
@@ -53,6 +55,7 @@ _SIGNATURES = {
     "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
+    "tcn_fold_weights": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -465,6 +468,37 @@ def fold_weights(out_w, g2, b2, dtype):
     return wp.contiguous(), g2w.contiguous(), b2w.contiguous()
 
 
+FOLD_COLS = 64  # columns per CTA of KFW (csrc/tcn_fold_weights.cuh FW_COLS)
+
+
+def tcn_fold_weights(out_w, g2, b2, dtype):
+    """KFW: fold_weights in one launch over all NB blocks. out_w f32
+    [NB, H, B], g2 / b2 f32 [NB, H] -> (wp [NB, H, B] in `dtype`, g2w,
+    b2w f32 [NB, B]); wp equals the plain version's bit for bit, g2w / b2w
+    sum in a fixed order of their own."""
+    if out_w.device.type == "cpu":
+        return fold_weights(out_w, g2, b2, dtype)
+    NB, H, B = out_w.shape
+    _require(dtype in _DTYPES, f"unsupported activation dtype {dtype}")
+    _require(B % FOLD_COLS == 0, f"B={B} is not a multiple of {FOLD_COLS}")
+    _require(g2.shape == (NB, H) and b2.shape == (NB, H),
+             "norm2 vectors do not match out_w")
+    _check_cuda(out_w, g2, b2, dtype=torch.float32)
+    _require(out_w.data_ptr() % 8 == 0, "out_w is not 8-byte aligned")
+    wp = torch.empty((NB, H, B), dtype=dtype, device=out_w.device)
+    g2w = torch.empty((NB, B), dtype=torch.float32, device=out_w.device)
+    b2w = torch.empty_like(g2w)
+    rc = _lib().tcn_fold_weights(out_w.device.index, _DTYPES[dtype], out_w.data_ptr(),
+                                 g2.data_ptr(), b2.data_ptr(), wp.data_ptr(), g2w.data_ptr(),
+                                 b2w.data_ptr(), NB, H, B, _stream(out_w))
+    _build.check(rc, "tcn_fold_weights")
+    tcn_fold_weights.launches += 1
+    return wp, g2w, b2w
+
+
+tcn_fold_weights.launches = 0
+
+
 def out_gemm_plain(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k,
                    fold, out=None):
     """Plain version of K3: returns round(res + o) with rows >= valid_k
@@ -549,6 +583,7 @@ def reset_counts() -> None:
     tcn_dwconv.launches_save = 0
     tcn_out_gemm.launches_fold = 0
     tcn_out_gemm.launches_unfold = 0
+    tcn_fold_weights.launches = 0
 
 
 def add_counts(delta: dict) -> None:
@@ -559,6 +594,7 @@ def add_counts(delta: dict) -> None:
     tcn_dwconv.launches_save += delta.get("tcn_dwconv_save", 0)
     tcn_out_gemm.launches_fold += delta.get("tcn_out_gemm_fold", 0)
     tcn_out_gemm.launches_unfold += delta.get("tcn_out_gemm_unfold", 0)
+    tcn_fold_weights.launches += delta.get("tcn_fold_weights", 0)
 
 
 def counts() -> dict:
@@ -566,4 +602,5 @@ def counts() -> dict:
             "tcn_dwconv": tcn_dwconv.launches,
             "tcn_dwconv_save": tcn_dwconv.launches_save,
             "tcn_out_gemm_fold": tcn_out_gemm.launches_fold,
-            "tcn_out_gemm_unfold": tcn_out_gemm.launches_unfold}
+            "tcn_out_gemm_unfold": tcn_out_gemm.launches_unfold,
+            "tcn_fold_weights": tcn_fold_weights.launches}

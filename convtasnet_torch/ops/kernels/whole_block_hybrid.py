@@ -1,5 +1,5 @@
-"""One temporal block as a differentiable op: kernel forward that saves y1
-and c, plain PyTorch backward that consumes them.
+"""Temporal blocks as differentiable ops: kernel forward that saves y1 and
+c, plain PyTorch backward that consumes them.
 
 Counterpart of convtasnet_tpu/ops/pallas/whole_block_hybrid.py
 (`whole_block_hybrid`, `_hybrid_bwd_math`): the per-block form of the
@@ -9,6 +9,15 @@ and the unfolded K3 (one fresh y1 and c per block: they are residuals, so
 no scratch is shared across blocks); the backward is `hybrid_bwd_math`, a
 line-for-line port of the JAX package's plain-array backward (its products
 are torch.matmul, as the JAX package leaves them to XLA).
+
+`whole_chain_hybrid` is the op the model runs: one autograd Function over
+the NB blocks, as the JAX model runs this form inside its scan over the
+stacked repeats (convtasnet_tpu/models/conv_tasnet.py:317-392). Its
+forward writes block nb's input, y1 and c into slot nb of three [NB, ...]
+buffers (the bytes the per-block ops save), and its backward runs
+`hybrid_bwd_math` for nb = NB-1 ... 0 into row nb of the stacked [NB, ...]
+gradients, with the weights cast once per call. `whole_block_hybrid` is
+the per-block op (JAX's per-block API).
 
 Backward math (biased-variance layer norm, EPS inside rsqrt): with
 vhat = (v - mu) * r, r = rsqrt(var + EPS) over n reduced elements,
@@ -25,8 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ...config import EPS
-from .tcn_block import (dwconv_plain, in_gemm_plain, out_gemm_plain, tcn_dwconv,
-                        tcn_in_gemm, tcn_out_gemm)
+from .tcn_block_bwd import alloc_grads
+from .whole_tcn import KERNEL_STAGES, PLAIN_STAGES
+from .whole_tcn_hybrid import _dilations, chain_forward
 
 
 def _prelu(v, alpha):
@@ -42,7 +52,10 @@ def hybrid_bwd_math(x, y1, c, g, in_w, alpha1, gamma1, beta1, w, alpha2, gamma2,
     """Backward of one block from the saved x, y1 and c (whole_block_hybrid.py
     :62-204): wide [M, K_pad, H] tensors in the activation dtype, norm
     statistics, reductions, product accumulators and parameter gradients
-    in f32. Returns (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w)."""
+    in f32. in_w [B, H] and out_w [H, B] come already cast to the
+    activation dtype (JAX's version casts them at its start; here the
+    caller casts once per call); the other parameters f32. Returns
+    (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w)."""
     M, K_pad, B = x.shape
     P, H = w.shape
     span = (P - 1) * dilation
@@ -103,7 +116,7 @@ def hybrid_bwd_math(x, y1, c, g, in_w, alpha1, gamma1, beta1, w, alpha2, gamma2,
 
     # out_w backward
     g_dt = rmask(g.to(dt))
-    dz = mm(g_dt, out_w.to(dt).t()).to(dt)
+    dz = mm(g_dt, out_w.t()).to(dt)
     dout_w = mm(z.reshape(-1, H).t(), g_dt.reshape(-1, B))
 
     # norm2 / PReLU2 backward
@@ -132,7 +145,7 @@ def hybrid_bwd_math(x, y1, c, g, in_w, alpha1, gamma1, beta1, w, alpha2, gamma2,
     dy1 = da * _dprelu(y1, a1)
 
     # in_w backward and the residual path
-    dx = rmask(mm(dy1, in_w.to(dt).t()).to(dt) + g_dt)
+    dx = rmask(mm(dy1, in_w.t()).to(dt) + g_dt)
     din_w = mm(x.reshape(-1, B).t(), dy1.reshape(-1, H))
     return (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w)
 
@@ -141,8 +154,7 @@ class _WholeBlockHybrid(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
                 causal, valid_k, plain):
-        in_gemm, dwconv, out_gemm = ((in_gemm_plain, dwconv_plain, out_gemm_plain)
-                                     if plain else (tcn_in_gemm, tcn_dwconv, tcn_out_gemm))
+        in_gemm, dwconv, out_gemm = PLAIN_STAGES if plain else KERNEL_STAGES
         dt = x.dtype
         y1, s1 = in_gemm(x, in_w.to(dt), a1, norm_type)
         e, s2, c = dwconv(y1, s1, a1, g1, b1, w, a2, norm_type, dilation, causal, valid_k,
@@ -156,9 +168,10 @@ class _WholeBlockHybrid(torch.autograd.Function):
     def backward(ctx, gout):
         x, y1, c, in_w, a1, g1, b1, w, a2, g2, b2, out_w = ctx.saved_tensors
         norm_type, dilation, causal, valid_k = ctx.static
+        dt = x.dtype
         dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = hybrid_bwd_math(
-            x, y1, c, gout, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
-            causal, valid_k)
+            x, y1, c, gout, in_w.to(dt), a1, g1, b1, w, a2, g2, b2, out_w.to(dt), norm_type,
+            dilation, causal, valid_k)
         return (dx, din_w, da1.reshape(a1.shape), dg1, db1, dw, da2.reshape(a2.shape),
                 dg2, db2, dout_w, None, None, None, None, None)
 
@@ -172,3 +185,59 @@ def whole_block_hybrid(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dil
     K = x.shape[1] if valid_k is None else valid_k
     return _WholeBlockHybrid.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
                                    dilation, causal, K, plain)
+
+
+def hybrid_chain_bwd(g, x_res, y1_res, c_res, params, norm_type, causal, dilations, valid_k):
+    """Backward of the chain from its saved block inputs x_res [NB, M,
+    K_pad, B], y1_res and c_res [NB, M, K_pad, H]: upstream g [M, K_pad, B]
+    -> (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w), the weight
+    gradients f32 and stacked [NB, ...], row nb from block nb's
+    hybrid_bwd_math. params are the nine stacked f32 block parameters."""
+    in_w, a1, g1, b1, w, a2, g2, b2, out_w = params
+    dt = x_res.dtype
+    in_wc, out_wc = in_w.to(dt), out_w.to(dt)
+    grads = alloc_grads(params)
+    dx = g
+    for nb in range(len(dilations) - 1, -1, -1):
+        dx, *rows = hybrid_bwd_math(x_res[nb], y1_res[nb], c_res[nb], dx, in_wc[nb], a1[nb],
+                                    g1[nb], b1[nb], w[nb], a2[nb], g2[nb], b2[nb], out_wc[nb],
+                                    norm_type, dilations[nb], causal, valid_k)
+        for grad, row in zip(grads, rows):
+            grad[nb] = row
+    return (dx, *grads)
+
+
+class _WholeChainHybrid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
+                valid_k, plain):
+        NB, _, H = w.shape
+        y1_res = torch.empty((NB, *x.shape[:2], H), dtype=x.dtype, device=x.device)
+        out, x_res, c_res, _ = chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
+                                             norm_type, causal, X, valid_k,
+                                             PLAIN_STAGES if plain else KERNEL_STAGES,
+                                             save=True, y1_res=y1_res)
+        ctx.save_for_backward(x_res, y1_res, c_res, in_w, a1, g1, b1, w, a2, g2, b2, out_w)
+        ctx.static = (norm_type, causal, X, valid_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        x_res, y1_res, c_res, *params = ctx.saved_tensors
+        norm_type, causal, X, valid_k = ctx.static
+        grads = hybrid_chain_bwd(gout, x_res, y1_res, c_res, params, norm_type, causal,
+                                 _dilations(x_res.shape[0], X), valid_k)
+        return (*grads, None, None, None, None, None)
+
+
+def whole_chain_hybrid(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
+                       valid_k=None, plain=False):
+    """The NB blocks of the per-block hybrid form as one differentiable op.
+    x [M, K_pad, B] with exact-zero pad rows (valid_k = the true frame
+    count); weights f32 stacked [NB, ...], block nb at dilation
+    2 ** (nb % X). A CPU tensor, or plain=True, takes the plain versions; a
+    CUDA tensor runs K1, K2 (save) and K3 (unfolded) per block forward; the
+    backward is plain PyTorch, block by block."""
+    K = x.shape[1] if valid_k is None else valid_k
+    return _WholeChainHybrid.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
+                                   causal, X, K, plain)

@@ -4,7 +4,9 @@ Counterpart of convtasnet_tpu/ops/pallas/whole_tcn.py (`whole_tcn_pallas`
 with fold_norm2=True, the inference default there). On the TPU one kernel
 keeps the residual stream in VMEM across all blocks; here every block is
 the three kernels of csrc/tcn_block.cu (see tcn_block.py), with norm2
-folded into the out_w product. The residual stream stays in device memory:
+folded into the out_w product, whose weight terms KFW tcn_fold_weights
+computes for all blocks in one launch first (the TPU kernel computes them
+per block in its body). The residual stream stays in device memory:
 the first block's K3 writes a new tensor and the later blocks update it in
 place. The y1 / e scratch is allocated once per call and reused by every
 block.
@@ -16,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from .tcn_block import (ROW_ALIGN, dwconv_plain, fold_weights, in_gemm_plain,
-                        out_gemm_plain, tcn_dwconv, tcn_in_gemm, tcn_out_gemm)
+                        out_gemm_plain, tcn_dwconv, tcn_fold_weights, tcn_in_gemm,
+                        tcn_out_gemm)
 
 PLAIN_STAGES = (in_gemm_plain, dwconv_plain, out_gemm_plain)
 KERNEL_STAGES = (tcn_in_gemm, tcn_dwconv, tcn_out_gemm)
@@ -33,7 +36,9 @@ def tcn_chain(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal,
     """Block loop shared by both forms. Weights are stacked [NB, ...] and
     block i uses dilations[i]. Without valid_k, K is padded to ROW_ALIGN
     here and the padding sliced off at the end; with it, x is already padded
-    with zero rows. `scratch` is (y1, e) or None (the stages allocate)."""
+    with zero rows. `scratch` is (y1, e) or None (the stages allocate).
+    The fold's weight terms come from KFW with the kernel stages and from
+    fold_weights with PLAIN_STAGES."""
     in_gemm, dwconv, out_gemm = stages
     M, K_in, B = x.shape
     if valid_k is None:
@@ -46,7 +51,8 @@ def tcn_chain(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal,
     dt = x.dtype
     in_w = in_w.to(dt)
     if fold:
-        wmat, vec_a, vec_b = fold_weights(out_w, g2, b2, dt)
+        fold_fn = fold_weights if stages is PLAIN_STAGES else tcn_fold_weights
+        wmat, vec_a, vec_b = fold_fn(out_w, g2, b2, dt)
     else:
         wmat, vec_a, vec_b = out_w.to(dt), g2, b2
     y1, e = scratch if scratch is not None else (None, None)
@@ -78,7 +84,8 @@ def whole_tcn_reference(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
 def whole_tcn(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
               valid_k=None):
     """All NB blocks, whole-TCN form. A CPU tensor takes the plain version;
-    a CUDA tensor runs 3 * NB kernel launches."""
+    a CUDA tensor runs 3 * NB + 1 kernel launches (KFW, then K1, K2, K3
+    per block)."""
     if x.device.type == "cpu":
         return whole_tcn_reference(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
                                    norm_type, causal, X, valid_k)

@@ -52,13 +52,15 @@ def _stats_rows(x, w, norm_type, dilations, plain):
 
 
 def chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
-                  valid_k, stages=KERNEL_STAGES, save=True):
+                  valid_k, stages=KERNEL_STAGES, save=True, y1_res=None):
     """Forward keeping every block's input: x [M, K_pad, B] (activation
     dtype, rows >= valid_k zero), weights stacked [NB, ...]. Block nb
     writes its output into slot nb + 1 of x_res [NB, M, K_pad, B]. With
     save, K2 runs in save mode and c_res [NB, M, K_pad, H] and the norm2
-    partials s2 (one view per block) are kept too. Returns (out, x_res,
-    c_res, s2), the last two None without save."""
+    partials s2 (one view per block) are kept too. With y1_res [NB, M,
+    K_pad, H] given, K1 writes block nb's y1 into slot nb of it (the
+    per-block hybrid chain's residual). Returns (out, x_res, c_res, s2),
+    the last two None without save."""
     in_gemm, dwconv, out_gemm = stages
     M, Kp, B = x.shape
     NB, P, H = w.shape
@@ -75,7 +77,8 @@ def chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, 
         s2 = _stats_rows(x, w, norm_type, dil, plain)
     y1 = e = None
     for nb, d in enumerate(dil):
-        y1, s1 = in_gemm(x_res[nb], in_w[nb], a1[nb], norm_type, y1)
+        y1, s1 = in_gemm(x_res[nb], in_w[nb], a1[nb], norm_type,
+                         y1 if y1_res is None else y1_res[nb])
         dargs = (y1, s1, a1[nb], g1[nb], b1[nb], w[nb], a2[nb], norm_type, d, causal,
                  valid_k, e)
         if save:

@@ -58,6 +58,7 @@ def test_whole_tcn_kernels_match_plain(dev, norm_type, causal, dtype, tol):
     tcn_block.reset_counts()
     got = whole_tcn(x, *args, norm_type, causal, 2)
     assert tcn_block.counts()["tcn_out_gemm_fold"] == 4
+    assert tcn_block.counts()["tcn_fold_weights"] == 1
     want = whole_tcn_reference(x, *args, norm_type, causal, 2)
     assert got.shape == x.shape and torch.isfinite(got.float()).all()
     assert _rel_l2(got, want) <= tol
@@ -289,6 +290,62 @@ def test_whole_chain_matches_the_per_block_ops(dev, dtype, tol):
     assert _rel_l2(res[1][0], res[0][0]) <= tol
     for i, (a, b) in enumerate(zip(res[1][1], res[0][1])):
         assert torch.isfinite(a.float()).all() and _rel_l2(a, b) <= tol, i
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 1e-1)])
+def test_hybrid_chain_matches_the_per_block_ops(dev, dtype, tol):
+    """The chain-level hybrid op (one Function over the blocks) against the
+    per-block hybrid ops over views of the stacked leaves: output and
+    every gradient, relative L2 (as the whole op's test above)."""
+    from convtasnet_torch.ops.kernels.whole_block_hybrid import whole_chain_hybrid
+
+    X, K, Kp = 2, 300, 384
+    args = _blocks(2 * X, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((2, Kp, 128), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(dtype)
+    g = torch.randn((2, Kp, 128), generator=gen, device=dev).to(dtype)
+
+    def per_block(x, *leaves):
+        for nb in range(2 * X):
+            x = whole_block_hybrid(x, *[a[nb] for a in leaves], "cLN", 2 ** (nb % X), True,
+                                   valid_k=K)
+        return x
+
+    res = []
+    for fn in (per_block, lambda *a: whole_chain_hybrid(*a, "cLN", True, X, valid_k=K)):
+        leaves = [x.clone().requires_grad_(True)] + [a.clone().requires_grad_(True)
+                                                     for a in args]
+        out = fn(*leaves)
+        res.append((out.detach(), torch.autograd.grad(out, leaves, g)))
+    assert torch.equal(res[1][0], res[0][0])
+    for i, (a, b) in enumerate(zip(res[1][1], res[0][1])):
+        assert torch.isfinite(a.float()).all() and _rel_l2(a, b) <= tol, i
+
+
+@pytest.mark.parametrize("NB,H,B", [(4, 256, 128), (32, 512, 256), (60, 1024, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_weights_kernel_matches_plain(dev, NB, H, B, dtype):
+    """KFW against fold_weights: wp bit for bit; g2w / b2w within 1e-4 of
+    the sum of |g2| |W| per column (another summation order); a second
+    launch gives the same bytes; one launch counted per call."""
+    gen = torch.Generator(device=dev).manual_seed(NB)
+    out_w = torch.randn((NB, H, B), generator=gen, device=dev) * 0.1
+    g2 = torch.randn((NB, H), generator=gen, device=dev) * 0.1 + 1
+    b2 = torch.randn((NB, H), generator=gen, device=dev) * 0.1
+    tcn_block.reset_counts()
+    got = tcn_block.tcn_fold_weights(out_w, g2, b2, dtype)
+    again = tcn_block.tcn_fold_weights(out_w, g2, b2, dtype)
+    assert tcn_block.counts()["tcn_fold_weights"] == 2
+    want = tcn_block.fold_weights(out_w, g2, b2, dtype)
+    assert torch.equal(got[0], want[0])
+    wr = out_w.to(dtype).float().abs()
+    for a, b, v in zip(got[1:], want[1:], (g2, b2)):
+        scale = torch.einsum("nh,nhb->nb", v.abs(), wr)
+        assert float(((a - b).abs() / scale).max()) <= 1e-4
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -164,15 +164,15 @@ def test_module_parameters_are_trainable():
 
 
 def test_hybrid_memory_gate_falls_back_to_the_per_block_op(monkeypatch):
-    """Repair: use_kernels=hybrid takes the per-block hybrid op when the
-    whole-TCN op's residuals exceed the budget; both give the eager
-    gradients."""
+    """Repair: use_kernels=hybrid takes the per-block hybrid form, as one
+    chain op over the blocks, when the whole-TCN op's residuals exceed the
+    budget; both give the eager gradients."""
     _, _, _, cfg0, tp, ts, (mix, src, lens) = _setup(4)
     cfg = dataclasses.replace(cfg0, use_kernels="hybrid")
     K_pad = 256
     assert tm.residual_bytes(cfg, 2, K_pad) == 2 * 2 * K_pad * 256 * 4
     calls = []
-    for name in ("whole_tcn_train", "whole_block_hybrid"):
+    for name in ("whole_tcn_train", "whole_chain_hybrid"):
         fn = getattr(tm, name)
         monkeypatch.setattr(tm, name, lambda *a, _fn=fn, _n=name, **k: (calls.append(_n),
                                                                         _fn(*a, **k))[1])
@@ -184,7 +184,7 @@ def test_hybrid_memory_gate_falls_back_to_the_per_block_op(monkeypatch):
                             torch.from_numpy(mix), train=True)
         loss = cal_loss(torch.from_numpy(src), est, torch.from_numpy(lens))[0]
         grads[tag] = torch.autograd.grad(loss, to.tree_leaves(leaves_tree))
-    assert calls == ["whole_tcn_train"] + ["whole_block_hybrid"] * 2
+    assert calls == ["whole_tcn_train", "whole_chain_hybrid"]
     for tag in ("whole", "block"):
         for a, b in zip(grads[tag], grads["eager"]):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD)
