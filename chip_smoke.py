@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port (convtasnet_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timing   # the twelve kernels' warm and cold times alone
 
 1. prints the card (nvidia-smi name and power limit);
 2. builds the kernels from convtasnet_torch/csrc with nvcc (timed);
@@ -17,9 +18,9 @@
    KB2 span 1024 and 8 taps) with NaN in the rows >= K they never read;
    then KFW tcn_fold_weights (the fold's weight terms of K3 fold, one
    launch per forward over all blocks) against fold_weights at the paper
-   widths (NB=32, H=512, B=256) and the scaled ones (NB=60, H=1024), f32
-   and bf16: wp bit for bit, g2w / b2w within TOL_F32 of the sum of |g2|
-   |W| per column, a second launch bit for bit;
+   widths (NB=32, H=512, B=256), the scaled ones (NB=60, H=1024) and the
+   edges (NB=1, H=130), f32 and bf16: wp bit for bit, g2w / b2w within
+   TOL_F32 of the sum of |g2| |W| per column, a second launch bit for bit;
 4. training kernel phase: holds K2's save mode and the backward kernels
    (KB1 tcn_bwd_dz, KW tcn_wgrad in both forms, also with NaN in the rows
    >= K of its second operand, KB2 tcn_bwd_dwconv with NaN in the rows
@@ -27,10 +28,11 @@
    their plain versions at the training shapes (batch
    5 x 4 s, K=3199 padded to 3200), every dilation, gLN and cLN, causal
    and not, f32 and bf16, and KF tcn_bwd_finish on those kernels'
-   partials (into row 1 of stacked gradients, row 0 untouched, a second
-   launch bit for bit); then the 32-block save-form chain and its
-   backward (whole_tcn_bwd), the per-block recompute and hybrid
-   backwards, and requires two backward runs to give identical bytes;
+   partials in groups of 1, 3 and 32 slots, a full group and the chain's
+   last, uneven one (other rows untouched, a second launch bit for bit);
+   then the 32-block save-form chain and its backward (whole_tcn_bwd), the
+   per-block recompute and hybrid backwards, and requires two backward
+   runs, and runs with KF in groups of 1 and 3, to give identical bytes;
 4b. hybrid-chain phase: the per-block hybrid form as one autograd
    Function over the chain (whole_chain_hybrid, the model's form past the
    memory gate) against NB per-block whole_block_hybrid calls over views
@@ -116,13 +118,18 @@
    kernel's product; F.conv1d / F.conv_transpose1d with groups=H of the
    depthwise kernels, cuDNN with TF32 off; KFW's is fold_weights, the
    library calls it replaced, timed in turns with it: library, kernel,
-   kernel, library), and its roofline bound, and the backward of each
+   kernel, library), and its roofline bound, its cold-L2 time (launches
+   cycling over copies of its inputs and outputs past twice the 50 MB L2;
+   one below its byte bound fails the run), and the backward of each
    training op beside its plain version; K2, K2 save and
    KB2 also per dilation beside the cuDNN call, with their tile (and KB2's
    f32 channel-partial bytes beside its bound); KW's launch plan
    and its Stage A time (the same splits, one partial per CTA) beside the
-   plan's (Stage B: partials summed inside clusters). `ms`, `plain_ms`
-   and `library_ms` are device time per call from torch.profiler (the
+   plan's (Stage B: partials summed inside clusters); KF on the main
+   path's group of 32 blocks' slots. `ms`, `cold_ms`, `plain_ms` and
+   `library_ms` are device time per call from torch.profiler through the
+   port's kernel timer (convtasnet_torch/tools/_bench.py: records counted,
+   CUDA event time and `profiler_blind` after three short profiles; the
    kernels' own time: a wrapper's host time can exceed it), `event_ms` the
    CUDA-event time per call of back-to-back calls, `host_us` the host's
    enqueue time per call;
@@ -161,7 +168,13 @@
    turns (CUDA events, device busy from torch.profiler). The world-2 step
    times go through the host and are printed as such;
 12. prints the card again, a {"kernels": [...]} line (each kernel with its
-   `design`) and, last, {"ok": true, "device": {...}}.
+   `design`, `cold_ms` and shares of its bound) and, last, {"ok": true,
+   "device": {...}}.
+
+With --timing only the kernels are built and timed (warm and cold, no
+plain or library calls), in one fresh process, and a {"kernel_times":
+[...]} line is printed; a cold time below its byte bound or a short
+profile fails it.
 
 Any failed check raises and the script exits non-zero. It imports nothing
 of JAX; without a CUDA device, or without the package beside it, it fails.
@@ -170,6 +183,7 @@ of JAX; without a CUDA device, or without the package beside it, it fails.
 from __future__ import annotations
 
 import glob
+import itertools
 import json
 import os
 import subprocess
@@ -180,6 +194,9 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# The port's one kernel timer (records counted, warm and cold L2).
+from convtasnet_torch.tools._bench import PROFILER_BLIND, cold_timed, device_ms, timed
 
 # H100 SXM data-sheet peaks (dense), for the roofline bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
@@ -230,12 +247,16 @@ GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "do
 # How each kernel is built (bf16, the main path's type).
 # stencil+bulk: the staged stencil of csrc/tcn_dwconv_sm90.cuh (row boxes
 # by TMA bulk copies on mbarriers, 16-byte vectors, converted once per row).
+# grouped-stream: KF over a group of blocks' slots, a grid resident on every
+# SM looping over units, 8 loads in flight per thread. split-h+ticket: KFW
+# with H split over CTAs, the last CTA of a column tile (a device ticket)
+# adding the slices in order.
 STENCIL = "stencil+bulk"
 DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": STENCIL, "tcn_out_gemm_fold": "wgmma+tma",
           "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": STENCIL,
           "tcn_bwd_dz": "wgmma+tma", "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": STENCIL,
           "tcn_bwd_dx": "wgmma+tma", "tcn_wgrad_in": "wgmma+tma",
-          "tcn_bwd_finish": "simt-reduce", "tcn_fold_weights": "simt-reduce"}
+          "tcn_bwd_finish": "grouped-stream", "tcn_fold_weights": "split-h+ticket"}
 SOURCE_DW = "convtasnet_torch/csrc/tcn_dwconv_sm90.cuh"
 SOURCE_KF = "convtasnet_torch/csrc/tcn_bwd_finish.cuh"
 SOURCE_KFW = "convtasnet_torch/csrc/tcn_fold_weights.cuh"
@@ -271,35 +292,6 @@ def cuda_ms(fn, iters=20, warm=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-# Calls of device_ms whose profiles recorded no device time and which
-# returned CUDA event time instead (the summary line's "profiler_blind").
-PROFILER_BLIND = []
-
-
-def device_ms(fn, iters=20, warm=3, tries=3) -> float:
-    """Device time per call: the device time of every kernel `fn`
-    launches, summed by torch.profiler over `iters` calls. A profile that
-    recorded no device time is taken again, up to `tries` times; after
-    that the call is timed with CUDA events (launch gaps included), logged,
-    and counted in PROFILER_BLIND."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    PROFILER_BLIND.append(getattr(fn, "__qualname__", str(fn)))
-    log(f"  torch.profiler recorded no device time in {tries} profiles "
-        f"(#{len(PROFILER_BLIND)}): CUDA event time instead")
-    return cuda_ms(fn, iters, warm=0)
 
 
 def host_us(fn, iters=20) -> float:
@@ -555,40 +547,76 @@ def nan_pad(t, K):
     return t
 
 
-def kf_check(chk, what, parts):
-    """KF against bwd_finish_plain on the same f32 partials (wz, win,
-    chpart, colpart, da1part, da2part), into row 1 of two stacked
-    gradients (row 0 untouched), and a second launch giving the same bits.
-    Each gradient's error is relative to its largest plain value; d_alpha1
-    and d_alpha2, single sums of partials of mixed sign, relative to the sum
-    of their partials' magnitudes (what a change of summation order moves
+def kf_slots(parts, G, dev):
+    """A FinishSlots of G slots filled from one block's kernel partials
+    (wz, win, chpart, colpart, da1part, da2part), slot j scaled by 1 + j /
+    64 so that no two slots are equal, and the block's PartCounts."""
+    from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb
+
+    n = tbb.PartCounts(*(t.shape[0] for t in parts))
+    _, B, H = parts[1].shape
+    P = parts[2].shape[1] - 2
+    slots = tbb.FinishSlots.alloc(G, n, B, H, P, dev)
+    for j in range(G):
+        for dst, src in zip(slots.slot(j, n), parts):
+            dst.copy_(src * (1 + j / 64))
+    return slots, n
+
+
+def kf_check(chk, what, parts, NB):
+    """KF grouped against bwd_finish_plain on the same f32 partials (one
+    block's kernel partials in every slot, scaled per slot), for groups of
+    1, 3 and NB slots: a full group into rows NB - G ... NB - 1 and the
+    chain's last group, rows 0 ... (NB mod G or G) - 1 (two blocks of three
+    at NB = 32), each with its last slot holding half the KB2 partials;
+    every other row untouched, a second launch giving the same bits. Each
+    gradient's error is relative to its largest plain value; d_alpha1 and
+    d_alpha2, single sums of partials of mixed sign, relative to the sum of
+    their partials' magnitudes (what a change of summation order moves
     them by). Returns the max |KF - plain|."""
     from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb
 
+    dev = parts[0].device
     _, B, H = parts[1].shape
     P = parts[2].shape[1] - 2
-    shapes = [(2, B, H), (2,), (2, H), (2, H), (2, P, H), (2,), (2, H), (2, H), (2, H, B)]
-    want, got, again = ([torch.full(sh, float("nan"), device=parts[0].device) for sh in shapes]
-                        for _ in range(3))
-    tbb.bwd_finish_plain(*parts, want, 1)
-    tbb.tcn_bwd_finish(*parts, got, 1)
-    tbb.tcn_bwd_finish(*parts, again, 1)
-    scale = {"da1": float(parts[4].abs().sum()), "da2": float(parts[5].abs().sum())}
-    worst = 0.0
-    for name, a, b in zip(tbb.GRAD_ORDER, got, want):
-        if name in scale:
-            worst = max(worst, float((a[1] - b[1]).abs()) / max(scale[name], 1e-30))
-        else:
-            worst = max(worst, rel_max(a[1], b[1]))
-    chk(f"KF {what}", worst, TOL_F32)
-    chk(f"KF {what} row 0 untouched", float(sum(not bool(torch.isnan(a[0]).all()) for a in got)),
-        0.0)
-    chk(f"KF {what} repeat", float(sum(not torch.equal(a[1], b[1]) for a, b in zip(got, again))),
-        0.0)
-    return max(float((a[1] - b[1]).abs().max()) for a, b in zip(got, want))
+    shapes = [(NB, B, H), (NB,), (NB, H), (NB, H), (NB, P, H), (NB,), (NB, H), (NB, H),
+              (NB, H, B)]
+    worst_abs = 0.0
+    for G in (1, 3, NB):
+        slots, n = kf_slots(parts, G, dev)
+        short = n._replace(nch=max(1, n.nch // 2), nda2=max(1, n.nda2 // 2))
+        for nb0, m in ((NB - G, G), (0, NB % G or G)):
+            counts = [n] * (m - 1) + [short]
+            want, got, again = ([torch.full(sh, float("nan"), device=dev) for sh in shapes]
+                                for _ in range(3))
+            tbb.bwd_finish_plain(slots, counts, want, nb0)
+            tbb.tcn_bwd_finish(slots, counts, got, nb0)
+            tbb.tcn_bwd_finish(slots, counts, again, nb0)
+            rows = slice(nb0, nb0 + m)
+            scale = {"da1": float(slots.da1part[:m].abs().sum(1).max()),
+                     "da2": float(slots.da2part[:m].abs().sum(1).max())}
+            worst = 0.0
+            for name, a, b in zip(tbb.GRAD_ORDER, got, want):
+                if name in scale:
+                    worst = max(worst, float((a[rows] - b[rows]).abs().max())
+                                / max(scale[name], 1e-30))
+                else:
+                    worst = max(worst, rel_max(a[rows], b[rows]))
+                worst_abs = max(worst_abs, float((a[rows] - b[rows]).abs().max()))
+            tag = f"KF {what} G={G} rows {nb0}..{nb0 + m - 1}"
+            chk(tag, worst, TOL_F32)
+            chk(f"{tag}: other rows untouched", float(sum(
+                not bool(torch.isnan(a[:nb0]).all() and torch.isnan(a[nb0 + m:]).all())
+                for a in got)), 0.0)
+            chk(f"{tag}: repeat", float(sum(not torch.equal(a[rows], b[rows])
+                                            for a, b in zip(got, again))), 0.0)
+        del slots
+    return worst_abs
 
 
-FOLD_SHAPES = ((32, 512, 256), (60, 1024, 256))  # (NB, H, B): paper, scaled config
+# (NB, H, B): the paper and the scaled config; one block of an H that is a
+# multiple of nothing (KFW's edges: one column tile pair, a short slice)
+FOLD_SHAPES = ((32, 512, 256), (60, 1024, 256), (1, 130, 256))
 
 
 def fold_inputs(dev, NB, H, B, seed):
@@ -601,9 +629,10 @@ def fold_inputs(dev, NB, H, B, seed):
 
 
 def fold_phase(dev):
-    """KFW against fold_weights at the paper and the scaled widths, f32 and
-    bf16: wp bit for bit; g2w and b2w within TOL_F32 of the sum of |v| |W|
-    per column (another summation order); a second launch bit for bit.
+    """KFW against fold_weights at the paper and the scaled widths and at
+    the edges (NB = 1, H = 130), f32 and bf16: wp bit for bit; g2w and b2w
+    within TOL_F32 of the sum of |v| |W| per column (another summation
+    order); a second launch bit for bit (the H-split tickets were reset).
     Returns max |kernel - plain| over the three terms, bf16, paper widths."""
     from convtasnet_torch.ops.kernels import tcn_block as tb
 
@@ -823,7 +852,7 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                         # KF on the kernels' partials of this block
                         parts = (tbb.tcn_wgrad(c, g, K, z), tbb.tcn_wgrad(x, dy1, K), chpk,
                                  colk, da1k, da2k)
-                        kf = kf_check(chk, what, parts)
+                        kf = kf_check(chk, what, parts, len(stacked[0]))
                         if dt == torch.bfloat16:
                             errs["tcn_bwd_finish"] = max(errs["tcn_bwd_finish"], kf)
         # The 32-block chain: save-form forward and the backward of every block.
@@ -857,13 +886,21 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                 for name, a, b in zip(GRAD_NAMES, *res):
                     chk(f"{op.__name__} {tag} {norm} d={d} {name}", rel_l2(a, b),
                         max(ctol, TOL_ALPHA_F32) if name in ("da1", "da2") else ctol)
-    # Gradients repeat bit for bit.
+    # Gradients repeat bit for bit, whatever KF's group (1, 3 with a group
+    # of two last, all NB blocks: the default at these shapes).
     x, g = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
     _, x_res, c_res, s2 = chain_save(x, *stacked, "gLN", False, cfg.X, K)
     a = whole_tcn_bwd(g, x_res, c_res, s2, *stacked, "gLN", False, cfg.X, K)
     b = whole_tcn_bwd(g, x_res, c_res, s2, *stacked, "gLN", False, cfg.X, K)
     chk("whole_tcn_bwd bf16 two runs, differing tensors",
         float(sum(not torch.equal(u, v) for u, v in zip(a, b))), 0.0)
+    for group in (1, 3):
+        tbb.reset_counts()
+        b = whole_tcn_bwd(g, x_res, c_res, s2, *stacked, "gLN", False, cfg.X, K, group=group)
+        chk(f"whole_tcn_bwd bf16, KF in groups of {group} against one group, differing tensors",
+            float(sum(not torch.equal(u, v) for u, v in zip(a, b))), 0.0)
+        chk(f"whole_tcn_bwd bf16, KF launches in groups of {group}",
+            abs(tbb.counts()["tcn_bwd_finish"] - -(-len(stacked[0]) // group)), 0.0)
     torch.cuda.synchronize()
     chk.done()
     return errs
@@ -881,10 +918,12 @@ def step_grads(params, state, cfg, mix, src, lens):
     return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(leaves_tree))
 
 
-def per_step_launches(form, NB):
-    """Kernel launches of one train step of `form` (see ops/kernels)."""
+def per_step_launches(form, NB, kf):
+    """Kernel launches of one train step of `form` (see ops/kernels), with
+    `kf` KF launches (kf_launches: one per group of blocks)."""
     bwd = {k: NB for k in ("tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv", "tcn_bwd_dx",
-                           "tcn_wgrad_in", "tcn_bwd_finish")}
+                           "tcn_wgrad_in")}
+    bwd["tcn_bwd_finish"] = kf
     if form == "hybrid":
         return dict(tcn_in_gemm=2 * NB, tcn_dwconv=0, tcn_dwconv_save=NB,
                     tcn_out_gemm_fold=0, tcn_out_gemm_unfold=NB, **bwd)
@@ -892,6 +931,20 @@ def per_step_launches(form, NB):
         return dict(tcn_in_gemm=2 * NB, tcn_dwconv=NB, tcn_dwconv_save=NB,
                     tcn_out_gemm_fold=0, tcn_out_gemm_unfold=NB, **bwd)
     return {}
+
+
+def kf_launches(cfg, M, T):
+    """KF launches of one train step of the kernel forms at M items of T
+    samples: one per group of blocks (whole_tcn_hybrid.finish_plan on this
+    card: at the paper config every batch up to 8 is one group of 32)."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb
+    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import finish_plan
+
+    NB = cfg.R * cfg.X
+    Kp = -(-cfg.num_frames(T) // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    G = finish_plan(M, Kp, cfg.B, cfg.H, cfg.P, tuple(2 ** (i % cfg.X) for i in range(NB)),
+                    cfg.dtype, False, torch.cuda.current_device())[0]
+    return -(-NB // G)
 
 
 def cv_forwards(out, n_cv):
@@ -947,7 +1000,7 @@ def train_phase(cfg, dev, tmp):
         chk(f"train {form}: steps", abs(out["steps"] - steps), 0)
         chk(f"train {form}: losses finite",
             float(not np.all(np.isfinite(out["tr_loss"] + out["cv_loss"]))), 0)
-        per = per_step_launches(form, NB)
+        per = per_step_launches(form, NB, kf_launches(cfg, 5, 4 * SR))
         cv_runs = cv_forwards(out, n_cv)
         for k, v in counts.items():
             want = steps * per.get(k, 0) + (cv_runs * cv_launch.get(k, 0) if form != "0" else 0)
@@ -992,7 +1045,8 @@ def train_phase(cfg, dev, tmp):
         torch.cuda.synchronize()
         counts = all_counts()
         for k, v in counts.items():
-            chk(f"one {form} step: {k} launches", abs(v - per_step_launches(form, NB).get(k, 0)), 0)
+            chk(f"one {form} step: {k} launches",
+                abs(v - per_step_launches(form, NB, kf_launches(c, 5, 4 * SR)).get(k, 0)), 0)
         ms, n = forward_ms(lambda: step(params, opt_state, state, mix, src, lens), iters=10,
                            warm=2)
         timing[f"train_step_batch5_{form}_ms"] = ms
@@ -1181,15 +1235,9 @@ def evaluate_phase(cfg, dev, ckpt, tmp):
                 f"{u['mixture'].size / SR:.2f} s: median {ms:.3f} ms of {n}")
             if name == "broadband":
                 # Where its device time goes, by operation (5 calls).
-                with torch.profiler.profile(
-                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    for _ in range(5):
-                        sdr_improvement_batch(src, est, mix, dtype=dtype)
-                    torch.cuda.synchronize()
-                ops = sorted(((e.self_device_time_total / 5 / 1e3, e.key)
-                              for e in prof.key_averages()
-                              if e.device_type == torch.autograd.DeviceType.CUDA),
-                             reverse=True)
+                recs = timed(lambda: sdr_improvement_batch(src, est, mix, dtype=dtype),
+                             iters=5, warm=0, label="device BSS-Eval").records or {}
+                ops = sorted(((us / 5 / 1e3, k) for k, (_, us) in recs.items()), reverse=True)
                 busy = sum(t for t, _ in ops)
                 timing[f"device_bss_eval_{str(dtype)[6:]}_device_busy_ms"] = busy
                 log(f"    device busy {busy:.3f} ms per call; top: " + "; ".join(
@@ -1840,7 +1888,7 @@ def parallel_phase(cfg, dev, tmp, hybrid_run):
             worst = max((rel_l2(a, b), i) for i, (a, b) in enumerate(zip(got["delta"], ref)))
             chk(f"DP step {dtype} rank {r}: parameter change vs one process, worst leaf "
                 f"#{worst[1]} (relative L2)", worst[0], gtol)
-            for k, v in per_step_launches("hybrid", NB).items():
+            for k, v in per_step_launches("hybrid", NB, kf_launches(c, 3, 4 * SR)).items():
                 chk(f"DP step {dtype} rank {r}: {k} launches", abs(got["launches"][k] - v), 0)
             chk(f"DP step {dtype} rank {r}: collectives per step ({got['collectives']})",
                 abs(got["collectives"] - 2), 0)
@@ -1976,9 +2024,215 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def forward_kernel_specs(blocks, cfg, dev, M=8, K=3199):
+    """Timing specs of the forward kernels at the main path's shapes (bf16,
+    batch 8 x 4 s, block 3's weights; KFW on the stacked weights), and the
+    separate path that launches each. A spec's `call(*args)` is one timed
+    call of `per` launches; `bytes` and `flops` are the work of one launch."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb
+
+    B, H, P = cfg.B, cfg.H, cfg.P
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    dt, it, rows, nb = torch.bfloat16, 2, M * Kp, 3
+    x32 = torch.randn((M, Kp, B), generator=torch.Generator(device=dev).manual_seed(7),
+                      device=dev)
+    x32[:, K:] = 0
+    x = x32.to(dt)
+    in_w = blocks["in_w"][nb].to(dt)
+    a1, a2 = blocks["in_prelu"][nb], blocks["dw_prelu"][nb]
+    norm = cfg.norm_type
+    y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
+    dw_args = (y1, s1, a1, blocks["in_gamma"][nb], blocks["in_beta"][nb], blocks["dw_w"][nb], a2)
+    e, s2 = tb.tcn_dwconv(*dw_args, norm, 1, cfg.causal, K)
+    wp, ga, gb = tb.fold_weights(blocks["out_w"][nb], blocks["dw_gamma"][nb],
+                                 blocks["dw_beta"][nb], dt)
+    ow = blocks["out_w"][nb].to(dt)
+    out = torch.empty_like(x)
+
+    def dw_one(fn, d, *a):
+        return fn(*(a or dw_args), norm, d, cfg.causal, K)
+
+    def dw_all(fn):
+        # One launch per dilation of a repeat (the chain's mix of halos).
+        return lambda *a: [dw_one(fn, 2 ** xi, *a) for xi in range(cfg.X)]
+
+    # K2's conv alone: one cuDNN depthwise F.conv1d per dilation on a
+    # [M, H, K_pad] copy made outside the timed region.
+    y1_t = y1.transpose(1, 2).contiguous()
+    w_t = blocks["dw_w"][nb].t().contiguous().unsqueeze(1).to(dt)
+
+    def conv_one(d):
+        F.conv1d(y1_t, w_t, groups=H, dilation=d,
+                 padding=(P - 1) * d if cfg.causal else (P - 1) * d // 2)
+
+    def conv_all():
+        for xi in range(cfg.X):
+            conv_one(2 ** xi)
+
+    gemm_flops = 2.0 * rows * B * H
+    # KFW on the main path's inputs: the stacked out_w, dw_gamma, dw_beta
+    fold_in = (blocks["out_w"], blocks["dw_gamma"], blocks["dw_beta"])
+    fold_n = blocks["out_w"].numel()
+    NB = fold_in[0].shape[0]
+    specs = {
+        "tcn_in_gemm": dict(
+            replaces=WHOLE_TCN,
+            call=lambda x_, w_, a_, o_: tb.tcn_in_gemm(x_, w_, a_, norm, o_),
+            args=(x, in_w, a1, y1),
+            plain=lambda: tb.in_gemm_plain(x, in_w, a1, norm),
+            library=lambda: torch.matmul(x.view(rows, B), in_w),
+            bytes=(rows * B + B * H + rows * H) * it + s1.numel() * 4,
+            flops=gemm_flops, per=1),
+        "tcn_dwconv": dict(
+            replaces=WHOLE_TCN, source=SOURCE_DW,
+            call=dw_all(tb.tcn_dwconv), args=dw_args, plain=dw_all(tb.dwconv_plain),
+            library=conv_all,
+            per_d=dict(kernel=lambda d, *a: dw_one(tb.tcn_dwconv, d, *a), library=conv_one,
+                       plan=lambda d: tb.dw_plan(P, d, H, it),
+                       dilations=[2 ** xi for xi in range(cfg.X)]),
+            bytes=(2 * rows * H * it + s1.numel() * 4 + s2.numel() * 4 + (P + 2) * H * 4),
+            flops=rows * H * (2.0 * P + 12), per=cfg.X),
+        "tcn_out_gemm_fold": dict(
+            replaces=WHOLE_TCN,
+            call=lambda e_, s_, x_, w_, ga_, gb_, o_: tb.tcn_out_gemm(
+                e_, s_, x_, w_, ga_, gb_, norm, K, True, o_),
+            args=(e, s2, x, wp, ga, gb, out),
+            plain=lambda: tb.out_gemm_plain(e, s2, x, wp, ga, gb, norm, K, True),
+            library=lambda: torch.matmul(e.view(rows, H), wp),
+            bytes=(rows * H + 2 * rows * B + H * B) * it + s2.numel() * 4,
+            flops=gemm_flops, per=1),
+        "tcn_out_gemm_unfold": dict(
+            replaces=WHOLE_BLOCK,
+            call=lambda e_, s_, x_, w_, ga_, gb_, o_: tb.tcn_out_gemm(
+                e_, s_, x_, w_, ga_, gb_, norm, K, False, o_),
+            args=(e, s2, x, ow, blocks["dw_gamma"][nb], blocks["dw_beta"][nb], out),
+            plain=lambda: tb.out_gemm_plain(e, s2, x, ow, blocks["dw_gamma"][nb],
+                                            blocks["dw_beta"][nb], norm, K, False),
+            library=lambda: torch.matmul(e.view(rows, H), ow),
+            bytes=(rows * H + 2 * rows * B + H * B) * it + s2.numel() * 4,
+            flops=gemm_flops, per=1),
+        # the bound: the f32 out_w read once, wp written once in bf16, g2 / b2
+        # read and g2w / b2w written; a multiply for wp and two multiply-adds
+        # per element (f32). The library call is fold_weights itself (the
+        # calls KFW replaced), timed in turns with the kernel.
+        "tcn_fold_weights": dict(
+            replaces=WHOLE_TCN, source=SOURCE_KFW,
+            call=lambda o_, g_, b_: tb.tcn_fold_weights(o_, g_, b_, dt), args=fold_in,
+            plain=lambda: tb.fold_weights(*fold_in, dt),
+            library=lambda: tb.fold_weights(*fold_in, dt), turns=True,
+            shape=f"NB={NB}, H={H}, B={B} (stacked weights)",
+            bytes=fold_n * (4 + it) + 2 * NB * (H + B) * 4, flops=5.0 * fold_n, per=1,
+            dtype=torch.float32),
+    }
+    path_of = {"tcn_in_gemm": "auto", "tcn_dwconv": "auto",
+               "tcn_out_gemm_fold": "auto", "tcn_out_gemm_unfold": "block",
+               "tcn_fold_weights": "auto"}
+    return specs, path_of
+
+
+def time_kernels(specs, shape, full=True):
+    """Each spec's device ms per launch, warm (`ms`: back-to-back launches
+    on the same inputs) and with cold L2 (`cold_ms`: launches cycling over
+    copies of the inputs and the write targets past twice the 50 MB L2,
+    tools/_bench.cold_timed), both from profiles whose records are counted
+    (tools/_bench.timed; the depthwise kernels cold one launch at a time,
+    cycling the dilations), beside its bound: the larger of its bytes at the
+    HBM rate and its operations at the peak of their type. With `full`,
+    also its plain version's and library call's device ms, its CUDA-event
+    ms and host us per call, K2 / K2 save / KB2 per dilation, KW's Stage
+    A. Returns {name: row}."""
+    from convtasnet_torch.tools._bench import cold_copies, tree_tensors
+
+    rows = {}
+    for name, s in specs.items():
+        per = s["per"]
+        t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = s["flops"] / PEAK_FLOPS[s.get("dtype", torch.bfloat16)] * 1e3
+        bound = max(t_bytes, t_ops)
+
+        def kernel(s=s):
+            return s["call"](*s["args"])
+
+        n = cold_copies(sum(a.numel() * a.element_size() for a in tree_tensors(s["args"])))
+        if "per_d" in s:
+            # cold: one launch a step, at the next dilation, on the next copy
+            dils = itertools.cycle(s["per_d"]["dilations"])
+            cold = cold_timed(lambda *a: s["per_d"]["kernel"](next(dils), *a), s["args"],
+                              iters=len(s["per_d"]["dilations"]) * n, label=f"{name} cold").ms
+        else:
+            cold = cold_timed(s["call"], s["args"], label=f"{name} cold").ms / per
+        t = {"ms": device_ms(kernel, label=name) / per, "cold_ms": cold, "cold_copies": n,
+             "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes_bound_ms": t_bytes}
+        if full:
+            t.update({"plain_ms": device_ms(s["plain"], label=f"{name} plain") / per,
+                      "library_ms": (device_ms(s["library"], label=f"{name} library") / per
+                                     if s["library"] else None),
+                      "event_ms": cuda_ms(kernel) / per, "host_us": host_us(kernel) / per})
+            if s.get("turns"):
+                # library, kernel, kernel, library: both on the same card state
+                turns = [device_ms(f, label=f"{name} turns") for f in (
+                    s["library"], kernel, kernel, s["library"])]
+                t["turns_ms"] = turns
+                t["ms"], t["library_ms"] = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                log(f"  {name} in turns (library, kernel, kernel, library): {turns} ms")
+            if "stage_a" in s:
+                # the same splits with one partial per CTA (no cluster sums)
+                t["stage_a_ms"] = device_ms(s["stage_a"], label=f"{name} stage A")
+                log(f"  {name}: Stage A {t['stage_a_ms']:.4f} ms, Stage B {t['ms']:.4f} ms "
+                    "per tcn_wgrad call (its partials; KF sums them)")
+            if "per_d" in s:
+                t["per_dilation"] = per_dilation_times(name, s, s.get("shape", shape), t_bytes)
+        t["share_of_bound"] = bound / t["ms"]
+        t["cold_share_of_bound"] = bound / t["cold_ms"]
+        rows[name] = t
+        lib = t.get("library_ms")
+        more = ("" if not full else
+                f", plain {t['plain_ms']:.4f}, library "
+                f"{'n/a' if lib is None else f'{lib:.4f}'}; event {t['event_ms']:.4f} ms, "
+                f"host {t['host_us']:.1f} us per call")
+        log(f"  {name} ({DESIGN[name]}): {t['ms']:.4f} ms/launch warm ({t['share_of_bound']:.0%} "
+            f"of the bound), cold {t['cold_ms']:.4f} ({t['cold_share_of_bound']:.0%}; "
+            f"{t['cold_copies']} input copies), bound {bound:.4f} by {t['bound_by']}{more} at "
+            f"{s.get('shape', shape)}, bf16")
+    return rows
+
+
+def per_dilation_times(name, s, shape, t_bytes):
+    """Device ms per launch of the kernel and of the cuDNN call at each
+    dilation of the chain (the mean hides the worst), with the tile."""
+    rows_ = []
+    pd = s["per_d"]
+    for d in pd["dilations"]:
+        row = {"dilation": d, "tile": list(pd["plan"](d)[:3]),
+               "ms": device_ms(lambda: pd["kernel"](d), label=f"{name} d={d}"),
+               "library_ms": device_ms(lambda: pd["library"](d), label=f"{name} cuDNN d={d}")}
+        if "chpart_bytes" in pd:
+            row["chpart_bytes"] = pd["chpart_bytes"](d)
+        rows_.append(row)
+        extra = f", chpart {row['chpart_bytes']} B" if "chpart_bytes" in row else ""
+        log(f"    {name} d={d}: {row['ms']:.4f} ms (cuDNN {row['library_ms']:.4f}, bound "
+            f"{t_bytes:.4f} by bytes; tile rows x channels x lanes {row['tile']}{extra}) "
+            f"at {shape}")
+    return rows_
+
+
+def check_cold(kernels):
+    """An impossible reading fails the run: a kernel whose cold-L2 time is
+    below the least time its bytes take at the HBM rate. (A warm time below
+    it is legal: the inputs can sit in the 50 MB L2.)"""
+    low = [f"{k['name']} {k['cold_ms']:.4f} ms < {k['bytes_bound_ms']:.4f}" for k in kernels
+           if k["cold_ms"] < k["bytes_bound_ms"]]
+    if low:
+        raise AssertionError("cold-L2 times below their byte bounds: " + "; ".join(low))
+
+
 def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
-    """Timing specs of the training kernels at the main path's shapes (bf16)."""
+    """Timing specs of the training kernels at the main path's shapes (bf16,
+    batch 5 x 4 s; KF on a group of NB blocks' slots, the main path's one
+    launch per step), as forward_kernel_specs."""
     from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import finish_plan
 
     B, H, P = cfg.B, cfg.H, cfg.P
     Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
@@ -2000,13 +2254,23 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
                                                   norm, 1, cfg.causal, K)
     _, dy1, da1part = tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K)
     z = (s2, a2, g2, b2, norm)
-    # KF: one block's partials into row nb of the stacked f32 gradients
+    # KF: the main path's group, every block's slot holding this block's
+    # partials (scaled), into rows 0 ... NB - 1 of the stacked gradients
     kf_parts = (tbb.tcn_wgrad(c, g, K, z), tbb.tcn_wgrad(x, dy1, K), chpart, colpart,
                 da1part, da2part)
-    kf_grads = tbb.alloc_grads([blocks[k] for k in (
-        "in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma", "dw_beta",
-        "out_w")])
-    kf_bytes = 4 * (sum(t.numel() for t in kf_parts) + sum(t[nb].numel() for t in kf_grads))
+    stacked = [blocks[k] for k in ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w",
+                                   "dw_prelu", "dw_gamma", "dw_beta", "out_w")]
+    NB = stacked[0].shape[0]
+    G = finish_plan(M, Kp, B, H, P, tuple(2 ** (i % cfg.X) for i in range(NB)), dt, False,
+                    x.device.index)[0]
+    kf_slots_, kf_n = kf_slots(kf_parts, G, dev)
+    kf_counts = [kf_n] * G
+    kf_grads = tbb.alloc_grads(stacked)
+    kf_bytes = 4 * (G * sum(t.numel() for t in kf_parts)
+                    + sum(t[:G].numel() for t in kf_grads))
+    kf_read = G * sum(t.numel() for t in kf_parts)
+    log(f"KF: a group of {G} of {NB} blocks per launch at M={M} ({rows} rows): "
+        f"{kf_bytes / 1e6:.1f} MB moved, partials per block {tuple(kf_n)}")
     gemm = 2.0 * rows * B * H
     # KW's launch plans (Stage B: split partials summed inside clusters) and
     # Stage A of the same splits, one partial per CTA.
@@ -2028,32 +2292,36 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             F.conv1d(y1_t, w_t, groups=H, dilation=d, padding=pad)
 
     def per_dilation(fn, **kw):
-        def run():
-            for xi in range(cfg.X):
-                fn(2 ** xi, **kw)
+        def run(*a):
+            return [fn(2 ** xi, *a, **kw) for xi in range(cfg.X)]
         return run
 
-    def dws(d, plain=False):
-        f = tb.dwconv_plain if plain else tb.tcn_dwconv
-        f(y1, s1, a1, g1, b1, w, a2, norm, d, cfg.causal, K, save=True)
+    dws_args = (y1, s1, a1, g1, b1, w, a2)
 
-    def kb2(d, plain=False):
+    def dws(d, *a, plain=False):
+        f = tb.dwconv_plain if plain else tb.tcn_dwconv
+        return f(*(a or dws_args), norm, d, cfg.causal, K, save=True)
+
+    kb2_args = (y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2)
+
+    def kb2(d, *a, plain=False):
         f = tbb.bwd_dwconv_plain if plain else tbb.tcn_bwd_dwconv
-        f(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, d, cfg.causal, K)
+        return f(*(a or kb2_args), norm, d, cfg.causal, K)
 
     def kb2_chpart(d):
         return rows // tb.dw_plan(P, d, H, it, backward=True).rows * (P + 2) * H * 4
 
     return {
         "tcn_dwconv_save": dict(
-            source=SOURCE_DW, replaces=WHOLE_TCN, kernel=per_dilation(dws),
+            source=SOURCE_DW, replaces=WHOLE_TCN, call=per_dilation(dws), args=dws_args,
             plain=per_dilation(dws, plain=True), library=per_dilation(conv), per=cfg.X,
-            per_d=dict(kernel=dws, library=conv, plan=lambda d: tb.dw_plan(P, d, H, it)),
+            per_d=dict(kernel=dws, library=conv, plan=lambda d: tb.dw_plan(P, d, H, it),
+                       dilations=[2 ** xi for xi in range(cfg.X)]),
             bytes=3 * rows * H * it + (s1.numel() + s2.numel()) * 4 + (P + 2) * H * 4,
             flops=rows * H * (2.0 * P + 12)),
         "tcn_bwd_dz": dict(
             source=SOURCE_BWD, replaces=BWD_BLOCK,
-            kernel=lambda: tbb.tcn_bwd_dz(g, out_wt, c, s2, a2, g2, norm, K),
+            call=lambda *a: tbb.tcn_bwd_dz(*a, norm, K), args=(g, out_wt, c, s2, a2, g2),
             plain=lambda: tbb.bwd_dz_plain(g, out_wt, c, s2, a2, g2, norm, K),
             library=lambda: torch.matmul(g.view(rows, B), out_wt),
             bytes=(rows * B + B * H + 2 * rows * H) * it
@@ -2061,46 +2329,49 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
             flops=gemm, per=1),
         "tcn_wgrad_out": dict(
             source=SOURCE_KW, replaces=BWD_BLOCK,
-            kernel=lambda: tbb.tcn_wgrad(c, g, K, z),
+            call=lambda c_, g_, s_: tbb.tcn_wgrad(c_, g_, K, (s_, a2, g2, b2, norm)),
+            args=(c, g, s2),
             plain=lambda: tbb.wgrad_plain(c, g, K, z),
             stage_a=lambda: tbb.tcn_wgrad(c, g, K, z, plan=(plan_z.splits, 1)),
             library=lambda: torch.matmul(c.view(rows, H).t(), g.view(rows, B)),
             bytes=rows * (B + H) * it + H * B * 4, flops=gemm, per=1),
         "tcn_bwd_dwconv": dict(
-            source=SOURCE_DW, replaces=BWD_BLOCK, kernel=per_dilation(kb2),
+            source=SOURCE_DW, replaces=BWD_BLOCK, call=per_dilation(kb2), args=kb2_args,
             plain=per_dilation(kb2, plain=True), library=per_dilation(conv, transpose=True),
             per=cfg.X,
             # the bound is the work's bytes; the f32 channel partials the
             # tile writes (and block_bwd sums back) are logged beside it
             per_d=dict(kernel=kb2, library=lambda d: conv(d, transpose=True),
                        plan=lambda d: tb.dw_plan(P, d, H, it, backward=True),
-                       chpart_bytes=kb2_chpart),
+                       chpart_bytes=kb2_chpart, dilations=[2 ** xi for xi in range(cfg.X)]),
             bytes=4 * rows * H * it + (s1.numel() + s2.numel() + gs2.numel()) * 4
             + (2 * P + 4) * H * 4, flops=rows * H * (4.0 * P + 30)),
         "tcn_bwd_dx": dict(
             source=SOURCE_BWD, replaces=BWD_BLOCK,
-            kernel=lambda: tbb.tcn_bwd_dx(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K),
+            call=lambda *a: tbb.tcn_bwd_dx(*a, norm, K), args=(db, y1, in_wt, g, s1, gs1, a1, g1),
             plain=lambda: tbb.bwd_dx_plain(db, y1, in_wt, g, s1, gs1, a1, g1, norm, K),
             library=lambda: torch.matmul(dy1.view(rows, H), in_wt),
             bytes=(3 * rows * H + 2 * rows * B + H * B) * it + (s1.numel() + gs1.numel()) * 4,
             flops=gemm, per=1),
         "tcn_wgrad_in": dict(
             source=SOURCE_KW, replaces=BWD_BLOCK,
-            kernel=lambda: tbb.tcn_wgrad(x, dy1, K),
+            call=lambda x_, d_: tbb.tcn_wgrad(x_, d_, K), args=(x, dy1),
             plain=lambda: tbb.wgrad_plain(x, dy1, K),
             stage_a=lambda: tbb.tcn_wgrad(x, dy1, K, plan=(plan_in.splits, 1)),
             library=lambda: torch.matmul(x.view(rows, B).t(), dy1.view(rows, H)),
             bytes=rows * (B + H) * it + B * H * 4, flops=gemm, per=1),
         # the bound: each partial read once, each gradient written once; one
-        # f32 add per partial element. The library call: the six .sums KF
-        # replaces (block_bwd before it), without the writes into the rows.
+        # f32 add per partial element. The library call: the six .sums per
+        # slot KF replaces, one call over the group's slots each, without
+        # the writes into the rows.
         "tcn_bwd_finish": dict(
             source=SOURCE_KF, replaces=BWD_BLOCK,
-            kernel=lambda: tbb.tcn_bwd_finish(*kf_parts, kf_grads, nb),
-            plain=lambda: tbb.bwd_finish_plain(*kf_parts, kf_grads, nb),
-            library=lambda: [t.sum(0) for t in kf_parts],
-            bytes=kf_bytes, flops=float(sum(t.numel() for t in kf_parts)), per=1,
-            dtype=torch.float32),
+            call=lambda sl, gr: tbb.tcn_bwd_finish(sl, kf_counts, gr, 0),
+            args=(kf_slots_, kf_grads),
+            plain=lambda: tbb.bwd_finish_plain(kf_slots_, kf_counts, kf_grads, 0),
+            library=lambda: [t.sum(1) for t in kf_slots_],
+            shape=f"a group of {G} blocks' slots, M={M}, K_pad={Kp}, B={B}, H={H}",
+            bytes=kf_bytes, flops=float(kf_read), per=1, dtype=torch.float32),
     }
 
 
@@ -2253,24 +2524,18 @@ def _library_launches(step, batch, iters=3, tries=3):
     """Device busy ms and the at::native reduce-kernel and copy launches per
     call of `step` (replays of its CUDA graph), from torch.profiler."""
     mix, lens, src = batch
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                step(step.params, step.opt_state, step.state, mix, src, lens)
-            torch.cuda.synchronize()
-        busy = reduce = copy = 0
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
-                continue
-            busy += e.self_device_time_total
-            if "at::native" in e.key and "reduce_kernel" in e.key:
-                reduce += e.count
-            elif "at::native" in e.key and "copy" in e.key.lower():
-                copy += e.count
-        if busy > 0:
-            return {"busy_ms": busy / 1e3 / iters, "reduce_launches": reduce / iters,
-                    "copy_launches": copy / iters}
-    raise AssertionError("torch.profiler recorded no device time")
+    prof = timed(lambda: step(step.params, step.opt_state, step.state, mix, src, lens),
+                 iters=iters, warm=0, tries=tries, label="_library_launches")
+    if prof.blind:
+        raise AssertionError("torch.profiler's records fell short: " + "; ".join(prof.why))
+    reduce = copy = 0
+    for k, (n, _) in prof.records.items():
+        if "at::native" in k and "reduce_kernel" in k:
+            reduce += n
+        elif "at::native" in k and "copy" in k.lower():
+            copy += n
+    return {"busy_ms": prof.ms, "reduce_launches": reduce / iters,
+            "copy_launches": copy / iters}
 
 
 def _library_by_depth(chk, label, c, dev, batches, step):
@@ -2319,7 +2584,8 @@ def _train_graph_form(chk, label, c, dev, batches, NB, in_turns=False, busy=True
     chk(f"{label}: opt_state.step == {n}", abs(int(g[0].opt_state.step) - n), 0)
     chk(f"{label}: 1 eager call, 1 capture, {n - 2} replays",
         abs(gs["eager_calls"] - 1) + abs(gs["captures"] - 1) + abs(gs["replays"] - (n - 2)), 0)
-    per = per_step_launches(c.use_kernels if c.kernel_form(True, dev) != "eager" else "0", NB)
+    per = per_step_launches(c.use_kernels if c.kernel_form(True, dev) != "eager" else "0", NB,
+                            kf_launches(c, batches[0][0].shape[0], batches[0][0].shape[-1]))
     chk(f"{label}: launches == per_step_launches x {n} {counts}",
         max(abs(v - n * per.get(k, 0)) for k, v in counts.items()), 0)
     info = next(iter(g[0].graphed.graphs().values()))
@@ -2446,7 +2712,7 @@ def train_graph_phase(cfg, dev, hybrid_run, tmp):
     chk("CLI batch2: latest.ckpt cut at step 3",
         abs(load_checkpoint(latest)["header"]["extra"]["step_in_epoch"] - 3), 0)
     cli_run("resumed", cap, "--epochs", "2", "--batch_size", "2", "--continue_from", latest)
-    per = per_step_launches("hybrid", NB)
+    per = per_step_launches("hybrid", NB, kf_launches(cfg, 5, 4 * SR))
     cv = auto_launches(NB)
     for name in ("eager", "graphed"):
         out, counts = cli[name]
@@ -2493,7 +2759,8 @@ def train_graph_phase(cfg, dev, hybrid_run, tmp):
     reset_all_counts()
     g = _graph_step_run(scfg, dev, sparams, sstate, sbatch, 4, graphed.MAX_GRAPHS)
     counts = all_counts()
-    per = per_step_launches("hybrid", scfg.R * scfg.X)
+    per = per_step_launches("hybrid", scfg.R * scfg.X,
+                            kf_launches(scfg, 2, int(SCALED_SEG_S * bsc.SR)))
     chk(f"scaled: launches == per_step_launches x 4 {counts}",
         max(abs(v - 4 * per.get(k, 0)) for k, v in counts.items()), 0)
     bits = _graph_vs_eager(chk, "scaled hybrid batch 2 x 8 s", g, e, eager_bits)
@@ -2590,7 +2857,7 @@ def visualize_phase(cfg, dev, chk, hybrid_run, tmp):
     out = train_main(argv)
     torch.cuda.synchronize()
     counts = all_counts()
-    per = per_step_launches("hybrid", NB)
+    per = per_step_launches("hybrid", NB, kf_launches(cfg, 5, 4 * SR))
     cv = auto_launches(NB)
     n_cv = 4  # the train phase's cv utterances, one forward each
     chk(f"visualize run: launches of every kernel vs its counter {counts}",
@@ -2652,7 +2919,9 @@ def scaled_phase(dev, chk):
                 continue
             chk(f"scaled {tier} batch {batch}: loss finite", float(not np.isfinite(row["loss"])), 0)
             form = {"hybrid": "hybrid", "whole": "whole"}.get(tier)
-            per = per_step_launches(form, NB) if form else {}
+            per = (per_step_launches(form, NB, kf_launches(base, batch,
+                                                           int(SCALED_SEG_S * bsc.SR)))
+                   if form else {})
             if form:
                 chk(f"scaled {tier} batch {batch}: form {row['form']}",
                     float(row["form"] != {"hybrid": "whole_tcn_train",
@@ -2678,7 +2947,7 @@ def scaled_phase(dev, chk):
         torch.cuda.synchronize()
         counts = all_counts()
         add(counts)
-        per = per_step_launches(tier, NB)
+        per = per_step_launches(tier, NB, kf_launches(base, 2, int(SCALED_SEG_S * bsc.SR)))
         chk(f"scaled step {tier}: launches of every kernel vs its counter {counts}",
             max(abs(v - per.get(k, 0)) for k, v in counts.items()), 0)
         _grad_checks(chk, f"scaled step {tier} vs eager, bf16, batch 2 x 8 s", loss, grads,
@@ -2723,7 +2992,36 @@ def options_phase(cfg, dev, hybrid_run, tmp):
     return res, scaled_launches
 
 
-def main() -> int:
+def timing_only(cfg, blocks, dev) -> int:
+    """--timing: the twelve kernels' warm and cold-L2 device times alone (a
+    fresh process on the card, so that two runs can be compared), one JSON
+    line of rows."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb
+
+    K = 3199
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    rows = {}
+    fwd, _ = forward_kernel_specs(blocks, cfg, dev, M=8, K=K)
+    rows.update(time_kernels(fwd, f"M=8, K_pad={Kp}, B={cfg.B}, H={cfg.H}", full=False))
+    rows.update(time_kernels(train_kernel_specs(blocks, cfg, dev, M=5, K=K),
+                             f"M=5, K_pad={Kp}, B={cfg.B}, H={cfg.H}", full=False))
+    kernels = [{"name": k, **v} for k, v in rows.items()]
+    log(card_line())
+    log(json.dumps({"kernel_times": kernels, "profiler_blind": PROFILER_BLIND,
+                    "device": torch.cuda.get_device_name(0)}))
+    check_cold(kernels)
+    if PROFILER_BLIND:
+        raise AssertionError(f"torch.profiler fell short for {PROFILER_BLIND}")
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of convtasnet_torch")
+    ap.add_argument("--timing", action="store_true",
+                    help="only build and time the kernels, warm and cold (no other phase)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     from convtasnet_torch.config import ConvTasNetConfig
@@ -2781,6 +3079,8 @@ def main() -> int:
     order = ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu",
              "dw_gamma", "dw_beta", "out_w")
     stacked = [blocks[k] for k in order]
+    if args.timing:
+        return timing_only(cfg, blocks, dev)
 
     # ---- kernel phase -----------------------------------------------------
     M, K = 8, 3199                     # batch 8 of 4 s at 8 kHz
@@ -2983,176 +3283,31 @@ def main() -> int:
                 log(f"  forward batch {bs} x 4 s, --use_kernels {form}: median {ms:.3f} ms "
                     f"of {n}")
 
-    dt = torch.bfloat16
-    x = x32.to(dt)
-    nb = 3
-    in_w = blocks["in_w"][nb].to(dt)
-    a1, a2 = blocks["in_prelu"][nb], blocks["dw_prelu"][nb]
-    norm = cfg.norm_type
-    y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
-    e, s2 = tb.tcn_dwconv(y1, s1, a1, blocks["in_gamma"][nb], blocks["in_beta"][nb],
-                          blocks["dw_w"][nb], a2, norm, 1, cfg.causal, K)
-    wp, ga, gb = tb.fold_weights(blocks["out_w"][nb], blocks["dw_gamma"][nb],
-                                 blocks["dw_beta"][nb], dt)
-    ow = blocks["out_w"][nb].to(dt)
-    out = torch.empty_like(x)
-    rows, it = M * Kp, 2
-
-    def dw_one(fn, d):
-        fn(y1, s1, a1, blocks["in_gamma"][nb], blocks["in_beta"][nb], blocks["dw_w"][nb], a2,
-           norm, d, cfg.causal, K)
-
-    def dw_all(fn):
-        # One launch per dilation of a repeat (the chain's mix of halos).
-        def run():
-            for xi in range(cfg.X):
-                dw_one(fn, 2 ** xi)
-        return run
-
-    # K2's conv alone: one cuDNN depthwise F.conv1d per dilation on a
-    # [M, H, K_pad] copy made outside the timed region.
-    y1_t = y1.transpose(1, 2).contiguous()
-    w_t = blocks["dw_w"][nb].t().contiguous().unsqueeze(1).to(dt)
-
-    def conv_one(d):
-        F.conv1d(y1_t, w_t, groups=H, dilation=d,
-                 padding=(P - 1) * d if cfg.causal else (P - 1) * d // 2)
-
-    def conv_all():
-        for xi in range(cfg.X):
-            conv_one(2 ** xi)
-
-    gemm_flops = 2.0 * rows * B * H
-    # KFW on the main path's inputs: the stacked out_w, dw_gamma, dw_beta
-    fold_in = (blocks["out_w"], blocks["dw_gamma"], blocks["dw_beta"])
-    fold_n = blocks["out_w"].numel()
-    specs = {
-        "tcn_in_gemm": dict(
-            replaces=WHOLE_TCN,
-            kernel=lambda: tb.tcn_in_gemm(x, in_w, a1, norm, y1),
-            plain=lambda: tb.in_gemm_plain(x, in_w, a1, norm),
-            library=lambda: torch.matmul(x.view(rows, B), in_w),
-            bytes=(rows * B + B * H + rows * H) * it + s1.numel() * 4,
-            flops=gemm_flops, per=1),
-        "tcn_dwconv": dict(
-            replaces=WHOLE_TCN, source=SOURCE_DW,
-            kernel=dw_all(tb.tcn_dwconv), plain=dw_all(tb.dwconv_plain), library=conv_all,
-            per_d=dict(kernel=lambda d: dw_one(tb.tcn_dwconv, d), library=conv_one,
-                       plan=lambda d: tb.dw_plan(P, d, H, it)),
-            bytes=(2 * rows * H * it + s1.numel() * 4 + s2.numel() * 4 + (P + 2) * H * 4),
-            flops=rows * H * (2.0 * P + 12), per=cfg.X),
-        "tcn_out_gemm_fold": dict(
-            replaces=WHOLE_TCN,
-            kernel=lambda: tb.tcn_out_gemm(e, s2, x, wp, ga, gb, norm, K, True, out),
-            plain=lambda: tb.out_gemm_plain(e, s2, x, wp, ga, gb, norm, K, True),
-            library=lambda: torch.matmul(e.view(rows, H), wp),
-            bytes=(rows * H + 2 * rows * B + H * B) * it + s2.numel() * 4,
-            flops=gemm_flops, per=1),
-        "tcn_out_gemm_unfold": dict(
-            replaces=WHOLE_BLOCK,
-            kernel=lambda: tb.tcn_out_gemm(e, s2, x, ow, blocks["dw_gamma"][nb],
-                                           blocks["dw_beta"][nb], norm, K, False, out),
-            plain=lambda: tb.out_gemm_plain(e, s2, x, ow, blocks["dw_gamma"][nb],
-                                            blocks["dw_beta"][nb], norm, K, False),
-            library=lambda: torch.matmul(e.view(rows, H), ow),
-            bytes=(rows * H + 2 * rows * B + H * B) * it + s2.numel() * 4,
-            flops=gemm_flops, per=1),
-        # the bound: the f32 out_w read once, wp written once in bf16, g2 / b2
-        # read and g2w / b2w written; a multiply for wp and two multiply-adds
-        # per element (f32). The library call is fold_weights itself (the
-        # calls KFW replaced), timed in turns with the kernel.
-        "tcn_fold_weights": dict(
-            replaces=WHOLE_TCN, source=SOURCE_KFW,
-            kernel=lambda: tb.tcn_fold_weights(*fold_in, dt),
-            plain=lambda: tb.fold_weights(*fold_in, dt),
-            library=lambda: tb.fold_weights(*fold_in, dt), turns=True,
-            bytes=fold_n * (4 + it) + 2 * NB * (H + B) * 4, flops=5.0 * fold_n, per=1,
-            dtype=torch.float32),
-    }
-    path_of = {"tcn_in_gemm": "auto", "tcn_dwconv": "auto",
-               "tcn_out_gemm_fold": "auto", "tcn_out_gemm_unfold": "block",
-               "tcn_fold_weights": "auto"}
-    def measure(s):
-        """Device, event and host times of a spec, its plain version's and
-        library call's device times, and its bound (all per launch)."""
-        per = s["per"]
-        t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = s["flops"] / PEAK_FLOPS[s.get("dtype", dt)] * 1e3
-        return {
-            "ms": device_ms(s["kernel"]) / per, "plain_ms": device_ms(s["plain"]) / per,
-            "library_ms": device_ms(s["library"]) / per if s["library"] else None,
-            "event_ms": cuda_ms(s["kernel"]) / per, "host_us": host_us(s["kernel"]) / per,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-
-    def per_dilation_times(name, s, shape):
-        """Device ms per launch of the kernel and of the cuDNN call at each
-        dilation of the chain (the mean hides the worst), with the tile."""
-        rows_ = []
-        t_bytes = s["bytes"] / PEAK_BYTES_PER_S * 1e3  # per launch, as measure()
-        for xi in range(cfg.X):
-            d = 2 ** xi
-            pd = s["per_d"]
-            row = {"dilation": d, "tile": list(pd["plan"](d)[:3]),
-                   "ms": device_ms(lambda: pd["kernel"](d)),
-                   "library_ms": device_ms(lambda: pd["library"](d))}
-            if "chpart_bytes" in pd:
-                row["chpart_bytes"] = pd["chpart_bytes"](d)
-            rows_.append(row)
-            extra = f", chpart {row['chpart_bytes']} B" if "chpart_bytes" in row else ""
-            log(f"    {name} d={d}: {row['ms']:.4f} ms (cuDNN {row['library_ms']:.4f}, bound "
-                f"{t_bytes:.4f} by bytes; tile rows x channels x lanes {row['tile']}{extra}) "
-                f"at {shape}")
-        return rows_
-
-    def report(name, t, shape):
-        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        log(f"  {name} ({DESIGN[name]}): {t['ms']:.4f} ms/launch on the device (plain "
-            f"{t['plain_ms']:.4f}, library {lib}, bound {t['bound_ms']:.4f} by {t['bound_by']}; "
-            f"event {t['event_ms']:.4f} ms, host {t['host_us']:.1f} us per call) at {shape}, bf16")
-
+    fwd_specs, path_of = forward_kernel_specs(blocks, cfg, dev, M=M, K=K)
     kernels = []
-    for name, s in specs.items():
-        t = measure(s)
-        shape = f"M={M}, K_pad={Kp}, B={B}, H={H}"
-        if s.get("turns"):
-            # library, kernel, kernel, library: both on the same card state
-            turns = [device_ms(f) for f in (s["library"], s["kernel"], s["kernel"],
-                                            s["library"])]
-            t["turns_ms"] = turns
-            t["ms"], t["library_ms"] = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-            shape = f"NB={NB}, H={H}, B={B} (stacked weights)"
-            log(f"  {name} in turns (library, kernel, kernel, library): {turns} ms")
-        if "per_d" in s:
-            t["per_dilation"] = per_dilation_times(name, s, shape)
+    for name, row in time_kernels(fwd_specs, f"M={M}, K_pad={Kp}, B={B}, H={H}").items():
         kernels.append({
-            "name": name, "route": "cuda", "source": s.get("source", SOURCE),
-            "design": DESIGN[name], "replaces": s["replaces"],
+            "name": name, "route": "cuda", "source": fwd_specs[name].get("source", SOURCE),
+            "design": DESIGN[name], "replaces": fwd_specs[name]["replaces"],
             "launches": path_counts[path_of[name]][name],
             "path": f"separate --use_kernels {path_of[name]}",
-            "max_abs_err": errs[name], **t,
+            "max_abs_err": errs[name], **row,
         })
-        report(name, t, shape)
-    M5, rows5 = 5, 5 * Kp
-    for name, s in train_kernel_specs(blocks, cfg, dev, M=M5, K=K).items():
-        t = measure(s)
-        if "stage_a" in s:
-            # the same splits with one partial per CTA (no cluster sums)
-            t["stage_a_ms"] = device_ms(s["stage_a"])
-            log(f"  {name}: Stage A {t['stage_a_ms']:.4f} ms, Stage B {t['ms']:.4f} ms per "
-                "tcn_wgrad call (its partials; KF sums them)")
-        if "per_d" in s:
-            t["per_dilation"] = per_dilation_times(name, s, f"M={M5}, K_pad={Kp}, H={H}")
+    M5 = 5
+    train_specs = train_kernel_specs(blocks, cfg, dev, M=M5, K=K)
+    for name, row in time_kernels(train_specs, f"M={M5}, K_pad={Kp} ({M5 * Kp} rows), B={B}, "
+                                               f"H={H}").items():
         kernels.append({
-            "name": name, "route": "cuda", "source": s["source"], "design": DESIGN[name],
-            "replaces": s["replaces"], "launches": train_counts[name],
+            "name": name, "route": "cuda", "source": train_specs[name]["source"],
+            "design": DESIGN[name], "replaces": train_specs[name]["replaces"],
+            "launches": train_counts[name],
             "path": "train --use_kernels hybrid --epochs 2, steps as CUDA graphs",
-            "max_abs_err": train_errs[name], **t,
+            "max_abs_err": train_errs[name], **row,
         })
-        report(name, t, f"M={M5}, K_pad={Kp} ({rows5} rows), B={B}, H={H}")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
+    check_cold(kernels)
 
     train_timing.update(backward_timing(stacked, cfg, dev, M=M5, K=K))
 

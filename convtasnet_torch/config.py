@@ -14,8 +14,8 @@ the rules of convtasnet_tpu/models/conv_tasnet.py:182-233):
     "auto", "block" -> the eager chain under autograd (as the JAX package
              keeps training on XLA for use_pallas=True);
     "hybrid" -> the whole-TCN training op (residual-saving forward,
-             backward kernels of csrc/tcn_block_bwd.cu), or the per-block
-             hybrid op when its residuals exceed the memory gate
+             backward kernels of csrc/tcn_block_bwd.cu), or the `whole`
+             chain when its residuals exceed the memory gate
              (models/conv_tasnet.py);
     "whole"  -> the per-block recompute op (whole_block_vjp.py);
   0 -> the eager op-by-op chain. BN is always eager, and off the CPU so

@@ -337,12 +337,28 @@ extern "C" int tcn_out_gemm(int device, int dtype, int fold, const void* e,
 }
 
 // out_w f32 [NB, H, B], g2 / b2 f32 [NB, H] -> wp [NB, H, B] in the
-// activation type, g2w / b2w f32 [NB, B] (B a multiple of FW_COLS).
+// activation type, g2w / b2w f32 [NB, B] (B a multiple of FW_COLS), over
+// `splits` slices of `rows` rows of H; with splits > 1, part [NB * B /
+// FW_COLS, splits, 2, FW_COLS] f32 and ticket [NB * B / FW_COLS] (zero
+// between launches) are the slices' sums and the last-arrival tickets;
+// `reset` zeroes the tickets first (buffers new to this launch).
 extern "C" int tcn_fold_weights(int device, int dtype, const float* out_w, const float* g2,
-                                const float* b2, void* wp, float* g2w, float* b2w, int NB,
-                                int H, int B, void* stream) {
+                                const float* b2, void* wp, float* g2w, float* b2w, float* part,
+                                unsigned* ticket, int reset, int splits, int rows, int NB, int H,
+                                int B, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype ? fold_weights<bf16>(out_w, g2, b2, wp, g2w, b2w, NB, H, B, s)
-               : fold_weights<float>(out_w, g2, b2, wp, g2w, b2w, NB, H, B, s);
+  if (reset && splits > 1) {
+    const cudaError_t e =
+        cudaMemsetAsync(ticket, 0, sizeof(unsigned) * (size_t)NB * (B / FW_COLS), s);
+    if (e != cudaSuccess) return e;
+  }
+  const FwArgs a{out_w, g2, b2, wp, g2w, b2w, part, ticket, H, B, splits, rows};
+  return dtype ? fold_weights<bf16>(a, NB, s) : fold_weights<float>(a, NB, s);
+}
+
+// CTAs of KFW resident per SM on `device` (-1 if the query fails).
+extern "C" int tcn_fold_resident(int device, int dtype) {
+  cudaSetDevice(device);
+  return dtype ? fold_weights_resident<bf16>() : fold_weights_resident<float>();
 }

@@ -27,8 +27,10 @@
 //                       >= K exactly zero
 //   KW  tcn_wgrad       din_w = x^T dy1, split over ranges of rows
 //
-// and then KF tcn_bwd_finish (tcn_bwd_finish.cuh) sums every weight-gradient
-// partial of the five into row nb of the stacked f32 gradients.
+// each writing its weight-gradient partials into the block's slot of its
+// group's buffers; then KF tcn_bwd_finish (tcn_bwd_finish.cuh) sums every
+// slot's partials of a group of blocks into their rows of the stacked f32
+// gradients, one launch per group.
 //
 // Replaces the TPU kernels convtasnet_tpu/ops/pallas/whole_tcn_hybrid.py
 // (_bwd_block_kernel, :64) and ops/pallas/whole_block_vjp.py (_bwd_kernel,
@@ -576,32 +578,35 @@ extern "C" int tcn_bwd_dx(int device, int dtype, const void* db, const void* y1,
   return cudaGetLastError();
 }
 
-// KF: the nine weight gradients of block nb from the partials of KW (z:
-// wz [nz, H, B]; din: win [nin, B, H]), KB2 (chpart [nch, P + 2, H],
-// da2part [nda2]), KB1 (colpart [ncol, 2, H]) and KB3 (da1part [nda1]),
-// written at the given row pointers of the stacked gradients (din_w [B, H],
-// da1 [1], dg1 / db1 [H], dw [P, H], da2 [1], dg2 / db2 [H], dout_w [H, B]).
-extern "C" int tcn_bwd_finish(int device, const float* wz, int nz, const float* win, int nin,
-                              const float* chpart, int nch, const float* colpart, int ncol,
-                              const float* da1part, int nda1, const float* da2part, int nda2,
-                              int B, int H, int P, float* din_w, float* da1, float* dg1,
-                              float* db1, float* dw, float* da2, float* dg2, float* db2,
-                              float* dout_w, void* stream) {
+// KF: the nine weight gradients of the group's n slots, rows nb0 ...
+// nb0 + n - 1 of the stacked gradients, from the kinds the host filled
+// (tcn_bwd_finish.cuh FinKind; tcn_block_bwd.py builds them once per
+// shape and pointers). The grid is the CTAs resident on every SM, or the
+// units of work if fewer.
+extern "C" int tcn_bwd_finish(int device, const FinGroup* host, void* stream) {
   cudaSetDevice(device);
-  FinArgs a{};
-  int ctas = 0;
-  const int ch = (P + 2) * H;
-  // Tall jobs first: their CTAs take longest.
-  if (!fin_add(&a, &ctas, chpart, nch, ch, P * H, dw) ||
-      !fin_add(&a, &ctas, chpart + (size_t)P * H, nch, ch, H, dg1) ||
-      !fin_add(&a, &ctas, chpart + (size_t)(P + 1) * H, nch, ch, H, db1) ||
-      !fin_add(&a, &ctas, colpart, ncol, 2 * H, H, dg2) ||
-      !fin_add(&a, &ctas, colpart + H, ncol, 2 * H, H, db2) ||
-      !fin_add(&a, &ctas, da1part, nda1, 1, 1, da1) ||
-      !fin_add(&a, &ctas, da2part, nda2, 1, 1, da2) ||
-      !fin_add(&a, &ctas, win, nin, B * H, B * H, din_w) ||
-      !fin_add(&a, &ctas, wz, nz, H * B, H * B, dout_w))
-    return cudaErrorInvalidValue;
-  bwd_finish_kernel<<<ctas, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (!host || host->n < 1 || host->n > FIN_MAX_GROUP) return cudaErrorInvalidValue;
+  FinGroup g = *host;
+  int units = 0;
+  for (int i = 0; i < FIN_KINDS; ++i) {
+    FinKind& k = g.kind[i];
+    if (!fin_plan(k, g.n)) return cudaErrorInvalidValue;
+    k.first = units;
+    units += k.units * g.n;
+  }
+  g.units = units;
+  static int ctas[64] = {0};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (!ctas[device]) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bwd_finish_kernel, FIN_THREADS, 0);
+    ctas[device] = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const int grid = units < ctas[device] ? units : ctas[device];
+  bwd_finish_kernel<<<grid, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(g);
   return cudaGetLastError();
 }
+
+// sizeof(FinGroup), held against the ctypes mirror when the library loads.
+extern "C" int tcn_bwd_finish_args_bytes() { return (int)sizeof(FinGroup); }

@@ -12,19 +12,33 @@
 // tcn_block.fold_weights. Wr is rounded in registers, so the f32 leaf is
 // read once and wp written once.
 //
-// A CTA takes FW_COLS columns of one block: its 32 column threads read two
-// adjacent columns each (a warp reads 256 contiguous bytes of a row), and
-// its FW_LANES warps split H, warp l taking rows l, l + FW_LANES, ... in
-// order; the warps' sums are then added by a fixed shared-memory tree. The
-// order of every sum depends only on the shapes: the terms repeat bit for
-// bit, eager or replayed in a CUDA graph. Bound on the H100 by bytes: at
-// the paper config (NB=32, H=512, B=256) 16.8 MB of f32 weights read and
-// 8.4 MB of bf16 operand written, 7.6 us at 3.35 TB/s, against 5 flops per
-// weight; so the design reads each weight once, in 256-byte rows per warp,
-// with no tensor core and no TMA.
+// Bound on the H100 by bytes: at the paper config (NB=32, H=512, B=256)
+// 16.8 MB of f32 weights read and 8.4 MB of bf16 operand written, 7.6 us
+// at 3.35 TB/s, against 5 flops per weight. Streaming 25 MB at that rate
+// needs ~3.35 TB/s x ~1 us of latency in flight, ~25 KB per SM. So:
+//
+// - a CTA takes FW_COLS columns of one block and one of `splits` slices
+//   of H (tcn_block.fold_plan: CTAs for every SM resident at once, at
+//   least two per SM, each slice at least FW_MIN_ROWS rows);
+// - within the CTA, 16 column threads read four adjacent columns each
+//   (16-byte loads, 256 contiguous bytes of a row per half-warp) and its
+//   FW_LANES row lanes split the slice, lane l taking rows l, l +
+//   FW_LANES, ...; a thread issues FW_UNROLL row loads before it uses
+//   any, so 256 threads hold 16 KB in flight per CTA, 32 KB or more per SM;
+// - the lanes' sums are added by a fixed shared-memory tree; with several
+//   slices, each CTA stores its sums, and the last CTA to arrive at its
+//   column tile, decided by a device ticket, adds the slices' sums in slice
+//   order, writes g2w and b2w, and resets the ticket for the next launch.
+//
+// No cluster barrier and no float atomic: the order of every sum depends
+// only on the shapes and the plan, so the terms repeat bit for bit, eager
+// or replayed in a CUDA graph, and one launch per forward stays one. The
+// ticket and the slices' sums are the wrapper's per-shape buffers; launches
+// that share them run on one stream, one after another.
 #pragma once
 
 #include <cstddef>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,75 +47,163 @@
 
 namespace tcn {
 
-constexpr int FW_LANES = 16;               // warps per CTA, each a slice of H
-constexpr int FW_THREADS = 32 * FW_LANES;
-constexpr int FW_COLS = 64;                // columns per CTA: 32 threads x 2
+constexpr int FW_COLS = 64;                     // columns per CTA: 16 threads x 4
+constexpr int FW_CTHREADS = FW_COLS / 4;        // column threads of a row lane
+constexpr int FW_LANES = 16;                    // row lanes per CTA
+constexpr int FW_THREADS = FW_CTHREADS * FW_LANES;
+constexpr int FW_UNROLL = 4;                    // row loads in flight per thread
+constexpr int FW_MIN_ROWS = FW_LANES * FW_UNROLL;  // rows of a slice, at least
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+struct FwArgs {
+  const float* out_w;
+  const float* g2;
+  const float* b2;
+  void* wp;
+  float* g2w;
+  float* b2w;
+  float* part;        // [NB * tiles, splits, 2, FW_COLS] slice sums
+  unsigned* ticket;   // [NB * tiles], zero between launches
+  int H, B, splits, rows;  // rows per slice
+};
+
+__device__ __forceinline__ void store4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+__device__ __forceinline__ void store4(bf16* p, const float4& v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<unsigned*>(&lo);
+  u.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(FW_THREADS)
-fold_weights_kernel(const float* __restrict__ out_w, const float* __restrict__ g2,
-                    const float* __restrict__ b2, T* __restrict__ wp, float* __restrict__ g2w,
-                    float* __restrict__ b2w, int H, int B) {
-  __shared__ float4 red[FW_THREADS];
-  const int nb = blockIdx.y;
-  const int ct = threadIdx.x & 31;
-  const int lane = threadIdx.x >> 5;
-  const int col = blockIdx.x * FW_COLS + 2 * ct;
-  const size_t base = (size_t)nb * H * B + col;
-  const float* gv = g2 + (size_t)nb * H;
-  const float* bv = b2 + (size_t)nb * H;
-  float sg0 = 0.f, sg1 = 0.f, sb0 = 0.f, sb1 = 0.f;
-#pragma unroll 8
-  for (int h = lane; h < H; h += FW_LANES) {
-    const size_t at = base + (size_t)h * B;
-    const float2 w = __ldg(reinterpret_cast<const float2*>(out_w + at));
-    const float w0 = round_dt<T>(w.x), w1 = round_dt<T>(w.y);
-    const float g = __ldg(gv + h), b = __ldg(bv + h);
-    store2(wp + at, g * w0, g * w1);
-    sg0 += g * w0;
-    sg1 += g * w1;
-    sb0 += b * w0;
-    sb1 += b * w1;
+__global__ void __launch_bounds__(FW_THREADS, 4) fold_weights_kernel(const FwArgs a) {
+  __shared__ float4 red[2][FW_THREADS];
+  __shared__ bool last;
+  const int tiles = a.B / FW_COLS;
+  const int tile = blockIdx.x, nb = blockIdx.y, s = blockIdx.z;
+  const int ct = threadIdx.x % FW_CTHREADS;
+  const int lane = threadIdx.x / FW_CTHREADS;
+  const int col = tile * FW_COLS + 4 * ct;
+  const int r0 = s * a.rows;
+  const int r1 = min(a.H, r0 + a.rows);
+  const float* w = a.out_w + (size_t)nb * a.H * a.B + col;
+  T* wp = static_cast<T*>(a.wp) + (size_t)nb * a.H * a.B + col;
+  const float* gv = a.g2 + (size_t)nb * a.H;
+  const float* bv = a.b2 + (size_t)nb * a.H;
+  float4 sg = make_float4(0.f, 0.f, 0.f, 0.f), sb = sg;
+  for (int h0 = r0 + lane; h0 < r1; h0 += FW_LANES * FW_UNROLL) {
+    float4 x[FW_UNROLL];
+    float g[FW_UNROLL], b[FW_UNROLL];
+#pragma unroll
+    for (int i = 0; i < FW_UNROLL; ++i) {
+      const int h = h0 + i * FW_LANES;
+      if (h < r1) {
+        x[i] = __ldg(reinterpret_cast<const float4*>(w + (size_t)h * a.B));
+        g[i] = __ldg(gv + h);
+        b[i] = __ldg(bv + h);
+      } else {
+        x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        g[i] = b[i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < FW_UNROLL; ++i) {
+      const int h = h0 + i * FW_LANES;
+      const float4 r = make_float4(round_dt<T>(x[i].x), round_dt<T>(x[i].y),
+                                   round_dt<T>(x[i].z), round_dt<T>(x[i].w));
+      const float4 p = make_float4(g[i] * r.x, g[i] * r.y, g[i] * r.z, g[i] * r.w);
+      if (h < r1) store4(wp + (size_t)h * a.B, p);
+      sg.x += p.x;
+      sg.y += p.y;
+      sg.z += p.z;
+      sg.w += p.w;
+      sb.x += b[i] * r.x;
+      sb.y += b[i] * r.y;
+      sb.z += b[i] * r.z;
+      sb.w += b[i] * r.w;
+    }
   }
-  red[threadIdx.x] = make_float4(sg0, sg1, sb0, sb1);
+  red[0][threadIdx.x] = sg;
+  red[1][threadIdx.x] = sb;
   __syncthreads();
-  for (int s = FW_LANES / 2; s > 0; s >>= 1) {
-    if (lane < s) {
-      const float4 o = red[threadIdx.x + s * 32];
-      float4& r = red[threadIdx.x];
-      r.x += o.x;
-      r.y += o.y;
-      r.z += o.z;
-      r.w += o.w;
+  for (int h = FW_LANES / 2; h > 0; h >>= 1) {
+    if (lane < h) {
+      for (int k = 0; k < 2; ++k) {
+        const float4 o = red[k][threadIdx.x + h * FW_CTHREADS];
+        float4& r = red[k][threadIdx.x];
+        r.x += o.x;
+        r.y += o.y;
+        r.z += o.z;
+        r.w += o.w;
+      }
     }
     __syncthreads();
   }
+  const size_t out = (size_t)nb * a.B + col;
+  if (a.splits == 1) {
+    if (lane == 0) {
+      store4(a.g2w + out, red[0][ct]);
+      store4(a.b2w + out, red[1][ct]);
+    }
+    return;
+  }
+  // This slice's sums, then the ticket of the column tile.
+  const int t = nb * tiles + tile;
+  float* part = a.part + (size_t)t * a.splits * 2 * FW_COLS;
   if (lane == 0) {
-    const float4 r = red[ct];
-    const size_t at = (size_t)nb * B + col;
-    g2w[at] = r.x;
-    g2w[at + 1] = r.y;
-    b2w[at] = r.z;
-    b2w[at + 1] = r.w;
+    store4(part + ((size_t)s * 2 + 0) * FW_COLS + 4 * ct, red[0][ct]);
+    store4(part + ((size_t)s * 2 + 1) * FW_COLS + 4 * ct, red[1][ct]);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.ticket + t, 1u) == (unsigned)(a.splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (lane == 0) {
+    // every slice's sums, in slice order
+    float4 g = make_float4(0.f, 0.f, 0.f, 0.f), b = g;
+    for (int k = 0; k < a.splits; ++k) {
+      const float4 u = __ldcg(reinterpret_cast<const float4*>(part + ((size_t)k * 2 + 0) * FW_COLS + 4 * ct));
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(part + ((size_t)k * 2 + 1) * FW_COLS + 4 * ct));
+      g.x += u.x;
+      g.y += u.y;
+      g.z += u.z;
+      g.w += u.w;
+      b.x += v.x;
+      b.y += v.y;
+      b.z += v.z;
+      b.w += v.w;
+    }
+    store4(a.g2w + out, g);
+    store4(a.b2w + out, b);
+    if (ct == 0) a.ticket[t] = 0u;
   }
 }
 
 template <typename T>
-static cudaError_t fold_weights(const float* out_w, const float* g2, const float* b2, void* wp,
-                                float* g2w, float* b2w, int NB, int H, int B, cudaStream_t s) {
-  if (NB < 1 || H < 1 || B < FW_COLS || B % FW_COLS) return cudaErrorInvalidValue;
-  dim3 grid(B / FW_COLS, NB);
-  fold_weights_kernel<T><<<grid, FW_THREADS, 0, s>>>(out_w, g2, b2, static_cast<T*>(wp), g2w,
-                                                     b2w, H, B);
+static cudaError_t fold_weights(const FwArgs& a, int NB, cudaStream_t s) {
+  if (NB < 1 || a.H < 1 || a.B < FW_COLS || a.B % FW_COLS || a.splits < 1 || a.rows < 1 ||
+      (long long)a.splits * a.rows < a.H || (a.splits > 1 && (!a.part || !a.ticket)) ||
+      reinterpret_cast<uintptr_t>(a.out_w) % 16 || reinterpret_cast<uintptr_t>(a.wp) % 16 ||
+      reinterpret_cast<uintptr_t>(a.g2w) % 16 || reinterpret_cast<uintptr_t>(a.b2w) % 16)
+    return cudaErrorInvalidValue;
+  dim3 grid(a.B / FW_COLS, NB, a.splits);
+  fold_weights_kernel<T><<<grid, FW_THREADS, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+// CTAs of fold_weights_kernel<T> resident per SM.
+template <typename T>
+static int fold_weights_resident() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fold_weights_kernel<T>, FW_THREADS, 0) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace tcn

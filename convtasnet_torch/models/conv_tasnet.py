@@ -13,10 +13,9 @@ decode runs in f32 and the output is zero-padded back to T.
 The TCN chain runs in the form cfg.kernel_form(train, device) names: for
 inference the whole-TCN kernels (ops/kernels/whole_tcn.py) or the
 whole-block kernels (ops/kernels/whole_block.py); for training the
-whole-TCN training op (ops/kernels/whole_tcn_hybrid.py; the per-block
-hybrid chain of ops/kernels/whole_block_hybrid.py behind the memory gate
-below) or the
-per-block recompute op (ops/kernels/whole_block_vjp.py); else the eager
+whole-TCN training op (ops/kernels/whole_tcn_hybrid.py; past the memory
+gate below, the recompute chain of ops/kernels/whole_block_vjp.py) or
+that recompute chain itself; else the eager
 `_temporal_block` chain under autograd, which BN always takes. The
 stacked [R, X, ...] block parameters reach the ops as [NB, ...] views, so
 their gradients flow back to the leaves.
@@ -54,7 +53,6 @@ from ..ops.conv import depthwise_dilated, pointwise
 from ..ops.framing import frame_signal, overlap_and_add
 from ..ops.kernels.tcn_block import ROW_ALIGN
 from ..ops.kernels.whole_block import whole_block
-from ..ops.kernels.whole_block_hybrid import whole_chain_hybrid
 from ..ops.kernels.whole_block_vjp import whole_chain_train
 from ..ops.kernels.whole_tcn import alloc_scratch, whole_tcn
 from ..ops.kernels.whole_tcn_hybrid import whole_tcn_train
@@ -68,16 +66,21 @@ State = Dict[str, Any]
 _BLOCK_ORDER = ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu",
                 "dw_gamma", "dw_beta", "out_w")
 
-# Memory gate of use_kernels="hybrid" in training. The whole-TCN training
-# op holds every block's input x_nb and conv output c_nb until the
-# backward: NB * M * K_pad * (B + H) activation elements (786 MB at the
-# paper config, batch 5 x 4 s, bf16). It runs when they fit a quarter of
-# the card's memory (20 GB of an 80 GB H100), leaving the rest to the
-# weights, the optimizer state and the backward's [M, K_pad, H]
-# temporaries; otherwise the per-block hybrid chain runs, as JAX falls
-# back to it when the whole-TCN kernel does not fit VMEM. That chain holds
-# x_nb, y1_nb and c_nb, NB * M * K_pad * (B + 2H) elements: more than the
-# form it replaces. On the CPU the budget is a fixed 8 GiB.
+# Memory gate of use_kernels="hybrid" in training, a fact of the card's
+# HBM. The whole-TCN training op holds every block's input x_nb and conv
+# output c_nb until the backward: NB * M * K_pad * (B + H) activation
+# elements (786 MB at the paper config, batch 5 x 4 s, bf16). It runs when
+# they fit a quarter of the card's memory (20 GB of an 80 GB H100), leaving
+# the rest to the weights, the optimizer state and the backward's
+# [M, K_pad, H] temporaries; otherwise the `whole` chain runs
+# (whole_block_vjp.whole_chain_train), which saves x_nb alone, NB * M *
+# K_pad * B elements (a third of the whole-TCN op's at the paper widths, a
+# fifth at H = 1024), and recomputes y1 and c per block in its backward.
+# The JAX package falls back to its per-block hybrid form instead
+# (convtasnet_tpu/models/conv_tasnet.py:280-296, `tcn_vmem_need`): that is
+# a fact of the TPU's VMEM, whose budget the whole-TCN kernel exceeds, not
+# of HBM; the per-block hybrid form holds x_nb, y1_nb and c_nb, more than
+# the op it would replace here. On the CPU the budget is a fixed 8 GiB.
 RESIDUAL_SHARE_OF_DEVICE = 0.25
 CPU_RESIDUAL_BUDGET = 8 << 30
 
@@ -91,21 +94,31 @@ def residual_budget(device) -> int:
     return CPU_RESIDUAL_BUDGET
 
 
+def _chain_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int, width: int) -> int:
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    return cfg.R * cfg.X * M * K_pad * width * itemsize
+
+
 def residual_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int) -> int:
     """Bytes of the whole-TCN training op's residuals x_nb and c_nb."""
-    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-    return cfg.R * cfg.X * M * K_pad * (cfg.B + cfg.H) * itemsize
+    return _chain_bytes(cfg, M, K_pad, cfg.B + cfg.H)
+
+
+def fallback_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int) -> int:
+    """Bytes of the memory gate's fallback's residuals: the `whole`
+    chain's block inputs x_nb."""
+    return _chain_bytes(cfg, M, K_pad, cfg.B)
 
 
 def chain_form(cfg: ConvTasNetConfig, train: bool, M: int, K: int, device) -> str:
     """The form the TCN chain of a forward of M rows of K frames takes on
     `device`: cfg.kernel_form, with "whole_tcn_train" turned into the
-    per-block "whole_block_hybrid" when its residuals exceed the memory
-    gate."""
+    `whole` chain, "whole_block_train", when its residuals exceed the
+    memory gate."""
     form = cfg.kernel_form(train, device)
     Kp = -(-K // ROW_ALIGN) * ROW_ALIGN
     if form == "whole_tcn_train" and residual_bytes(cfg, M, Kp) > residual_budget(device):
-        return "whole_block_hybrid"
+        return "whole_block_train"
     return form
 
 
@@ -318,8 +331,6 @@ def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
         x = whole_tcn_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
     elif form == "whole_block_train":
         x = whole_chain_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
-    elif form == "whole_block_hybrid":
-        x = whole_chain_hybrid(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
     else:
         scratch = (alloc_scratch(M, Kp, cfg.H, x.dtype, x.device)
                    if x.is_cuda else None)

@@ -55,7 +55,8 @@ _SIGNATURES = {
     "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
-    "tcn_fold_weights": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tcn_fold_weights": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_fold_resident": [_I, _I],
 }
 
 
@@ -468,14 +469,55 @@ def fold_weights(out_w, g2, b2, dtype):
     return wp.contiguous(), g2w.contiguous(), b2w.contiguous()
 
 
-FOLD_COLS = 64  # columns per CTA of KFW (csrc/tcn_fold_weights.cuh FW_COLS)
+FOLD_COLS = 64      # columns per CTA of KFW (csrc/tcn_fold_weights.cuh FW_COLS)
+FOLD_MIN_ROWS = 64  # rows of a slice of H, at least (FW_MIN_ROWS): 4 loads per thread
+FOLD_MIN_PER_SM = 2  # CTAs per SM KFW's plan asks for, at least
+
+
+def fold_plan(NB: int, H: int, B: int, sms: int, resident: int) -> Tuple[int, int]:
+    """(slices of H, rows per slice) of KFW's grid: NB * B / FOLD_COLS
+    column tiles, each split over enough slices for FOLD_MIN_PER_SM CTAs
+    per SM on `sms` SMs, or as many as are resident at once (`resident`
+    per SM) if more, with at least FOLD_MIN_ROWS rows a slice. At the paper
+    widths (NB=32, H=512, B=256) on an H100 at four CTAs per SM: 4 slices
+    of 128 rows, 512 CTAs; at the scaled ones (NB=60, H=1024): 2 of 512."""
+    tiles = NB * (B // FOLD_COLS)
+    tiles = max(1, tiles)
+    want = max(-(-FOLD_MIN_PER_SM * sms // tiles), resident * sms // tiles)
+    splits = max(1, min(want, H // FOLD_MIN_ROWS))
+    return splits, -(-H // splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_resident(index: int, code: int) -> int:
+    return _lib().tcn_fold_resident(index, code)
+
+
+# KFW's slice sums and last-arrival tickets per (device, column tiles,
+# slices): kept for the life of the process, since a captured CUDA graph
+# holds their addresses. The tickets are zero between launches: the
+# launch that finds them new zeroes them first, then each launch's last
+# CTA of a column tile resets its own.
+_FOLD_SCRATCH: dict = {}
+
+
+def _fold_scratch(device, tiles: int, splits: int):
+    """(slice sums, tickets, whether they are new)."""
+    key = (str(device), tiles, splits)
+    fresh = key not in _FOLD_SCRATCH
+    if fresh:
+        _FOLD_SCRATCH[key] = (torch.empty((tiles, splits, 2, FOLD_COLS), dtype=torch.float32,
+                                          device=device),
+                              torch.empty((tiles,), dtype=torch.int32, device=device))
+    return (*_FOLD_SCRATCH[key], fresh)
 
 
 def tcn_fold_weights(out_w, g2, b2, dtype):
     """KFW: fold_weights in one launch over all NB blocks. out_w f32
     [NB, H, B], g2 / b2 f32 [NB, H] -> (wp [NB, H, B] in `dtype`, g2w,
     b2w f32 [NB, B]); wp equals the plain version's bit for bit, g2w / b2w
-    sum in a fixed order of their own."""
+    sum in a fixed order of their own (fold_plan's slices of H, added in
+    slice order by the last CTA of each column tile)."""
     if out_w.device.type == "cpu":
         return fold_weights(out_w, g2, b2, dtype)
     NB, H, B = out_w.shape
@@ -484,13 +526,17 @@ def tcn_fold_weights(out_w, g2, b2, dtype):
     _require(g2.shape == (NB, H) and b2.shape == (NB, H),
              "norm2 vectors do not match out_w")
     _check_cuda(out_w, g2, b2, dtype=torch.float32)
-    _require(out_w.data_ptr() % 8 == 0, "out_w is not 8-byte aligned")
+    _require(out_w.data_ptr() % 16 == 0, "out_w is not 16-byte aligned")
+    idx = out_w.device.index
+    splits, rows = fold_plan(NB, H, B, _sm_count(idx), _fold_resident(idx, _DTYPES[dtype]))
+    part, ticket, fresh = _fold_scratch(out_w.device, NB * B // FOLD_COLS, splits)
     wp = torch.empty((NB, H, B), dtype=dtype, device=out_w.device)
     g2w = torch.empty((NB, B), dtype=torch.float32, device=out_w.device)
     b2w = torch.empty_like(g2w)
-    rc = _lib().tcn_fold_weights(out_w.device.index, _DTYPES[dtype], out_w.data_ptr(),
-                                 g2.data_ptr(), b2.data_ptr(), wp.data_ptr(), g2w.data_ptr(),
-                                 b2w.data_ptr(), NB, H, B, _stream(out_w))
+    rc = _lib().tcn_fold_weights(idx, _DTYPES[dtype], out_w.data_ptr(), g2.data_ptr(),
+                                 b2.data_ptr(), wp.data_ptr(), g2w.data_ptr(), b2w.data_ptr(),
+                                 part.data_ptr(), ticket.data_ptr(), int(fresh), splits, rows,
+                                 NB, H, B, _stream(out_w))
     _build.check(rc, "tcn_fold_weights")
     tcn_fold_weights.launches += 1
     return wp, g2w, b2w

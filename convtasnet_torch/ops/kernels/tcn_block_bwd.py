@@ -25,12 +25,15 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
                        row splits (`wgrad_plan`) are summed in a fixed
                        order inside clusters of CTAs;
 
-  KF  tcn_bwd_finish:  sums every f32 weight-gradient partial of the five
-                       over its first axis, in a fixed order spread over
-                       the grid (csrc/tcn_bwd_finish.cuh), into row nb of
-                       the stacked [NB, ...] f32 gradients.
+  KF  tcn_bwd_finish:  sums the f32 weight-gradient partials the five wrote
+                       into the slots of a group of blocks (FinishSlots),
+                       each over its first axis in a fixed order, into
+                       their rows of the stacked [NB, ...] f32 gradients:
+                       one launch per group (csrc/tcn_bwd_finish.cuh).
 
-`block_bwd` runs the six and returns dx. Rows >= K of g are ignored. The
+`block_partials` runs the five into one slot and returns dx; `block_bwd`
+is one block's backward, finished (a group of one). Rows >= K of g are
+ignored. The
 partial layouts follow tcn_block.py: gLN [M, n, 2] per item, cLN [M,
 K_pad, n, 2] per row, and the reader sums whatever n it is given; the
 plain versions write n = 1.
@@ -69,8 +72,8 @@ _SIGNATURES = {
     "tcn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
-    "tcn_bwd_finish": [_I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tcn_bwd_finish": [_I, _P, _P],
+    "tcn_bwd_finish_args_bytes": [],
 }
 
 
@@ -80,6 +83,8 @@ def _lib() -> ctypes.CDLL:
     for fn, args in _SIGNATURES.items():
         f = getattr(lib, fn)
         f.argtypes, f.restype = args, ctypes.c_int
+    _require(lib.tcn_bwd_finish_args_bytes() == ctypes.sizeof(_FinGroup),
+             "KF's launch arguments do not match csrc/tcn_bwd_finish.cuh")
     return lib
 
 
@@ -138,6 +143,40 @@ def _check_params(*ts):
                  "parameters must be contiguous float32")
 
 
+def _part_out(out, shape, device, what):
+    """The f32 partials buffer a kernel writes: `out` (a slot of
+    FinishSlots) checked against `shape`, else a new one."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    _require(tuple(out.shape) == tuple(shape) and out.dtype == torch.float32
+             and out.is_contiguous(), f"{what} slot must be contiguous float32 {tuple(shape)}")
+    return out
+
+
+def _into(out, val):
+    """A plain version's partials, copied into `out` when one is given."""
+    if out is None:
+        return val
+    _require(out.shape == val.shape, f"a slot of {tuple(out.shape)} for partials of "
+             f"{tuple(val.shape)}")
+    return out.copy_(val)
+
+
+def _dz_tile(rows: int, B: int, H: int, dt, index) -> Tuple[int, int]:
+    """KB1's (rows, columns) per CTA."""
+    if dt == torch.bfloat16:
+        return gemm_plan(rows, H, B, _sm_count(index), resident=_resident(index, H_DZ))
+    return BM, BN
+
+
+def _dx_tile(rows: int, B: int, H: int, dt, index) -> Tuple[int, int]:
+    """KB3's (rows, columns) per CTA: bf16 covers every column."""
+    if dt == torch.bfloat16:
+        return gemm_plan(rows, B, H, _sm_count(index), split=False,
+                         resident=_resident(index, H_DX))
+    return BM, BN
+
+
 _LAUNCHES = {"tcn_bwd_dz": 0, "tcn_wgrad_out": 0, "tcn_bwd_dwconv": 0,
              "tcn_bwd_dx": 0, "tcn_wgrad_in": 0, "tcn_bwd_finish": 0}
 
@@ -162,10 +201,11 @@ def add_counts(delta: dict) -> None:
 # KB1: dz and the norm2-backward partials
 # ---------------------------------------------------------------------------
 
-def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
+def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=None):
     """Plain version of KB1. g [M, K_pad, B], out_wt = out_w^T [B, H]
     (activation dtype), c [M, K_pad, H]. Returns (dz, colpart [1, 2, H]
-    = (sum dz*ehat, sum dz), norm2-backward partials)."""
+    = (sum dz*ehat, sum dz), norm2-backward partials); colpart is written
+    into `colpart` when given."""
     M, Kp, _ = g.shape
     H = out_wt.shape[1]
     dt = g.dtype
@@ -176,19 +216,19 @@ def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
     cf = torch.where(rows, c.float(), 0.0)
     ehat = (_prelu_f32(cf, alpha2) - mean) * inv
     d = dz.float()
-    colpart = torch.stack([(d * ehat).sum((0, 1)), d.sum((0, 1))])[None]
+    cp = torch.stack([(d * ehat).sum((0, 1)), d.sum((0, 1))])[None]
     dzg = d * g2
-    return dz, colpart, _pair_sums(dzg, dzg * ehat, norm_type)
+    return dz, _into(colpart, cp), _pair_sums(dzg, dzg * ehat, norm_type)
 
 
-def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
+def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=None):
     """KB1. Same signature and results as bwd_dz_plain, with one colpart
-    row per row tile and norm2-backward partials per row and column tile
-    (cLN) or per CTA (gLN). bf16 runs on the TMA + wgmma pipeline (mode
-    H_DZ), tiled by tcn_block.gemm_plan with c and dz as the epilogue's
-    two tiles."""
+    row per row tile (bwd_dz_parts) and norm2-backward partials per row and
+    column tile (cLN) or per CTA (gLN). bf16 runs on the TMA + wgmma
+    pipeline (mode H_DZ), tiled by tcn_block.gemm_plan with c and dz as the
+    epilogue's two tiles."""
     if g.device.type == "cpu":
-        return bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k)
+        return bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart)
     M, Kp, B = g.shape
     H = out_wt.shape[1]
     dt = g.dtype
@@ -202,12 +242,10 @@ def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k):
     _check_cuda(g, stats2, alpha2, g2)
     _check_stats(stats2, M, Kp, gln, "stats2")
     _check_params(alpha2, g2)
-    idx = g.device.index
-    bm, bn = (gemm_plan(M * Kp, H, B, _sm_count(idx), resident=_resident(idx, H_DZ))
-              if dt == torch.bfloat16 else (BM, BN))
+    bm, bn = _dz_tile(M * Kp, B, H, dt, g.device.index)
     nct = H // bn
     dz = torch.empty((M, Kp, H), dtype=dt, device=g.device)
-    colpart = torch.empty((M * Kp // bm, 2, H), dtype=torch.float32, device=g.device)
+    colpart = _part_out(colpart, (M * Kp // bm, 2, H), g.device, "KB1 colpart")
     npart = torch.empty((M, Kp // bm * nct, 2) if gln else (M, Kp, nct, 2),
                         dtype=torch.float32, device=g.device)
     rc = _lib().tcn_bwd_dz(g.device.index, _DTYPES[dt], g.data_ptr(), out_wt.data_ptr(),
@@ -331,11 +369,12 @@ def wgrad_launch_plan(A, Bm, z=None) -> WgradPlan:
     return _card_plan(idx, M * Kp, Kp, mc, nc, _sm_count(idx))
 
 
-def wgrad_plain(A, Bm, valid_k, z=None):
+def wgrad_plain(A, Bm, valid_k, z=None, part=None):
     """Plain version of KW: [1, n1, n2] = A^T @ Bm over the rows < valid_k
-    of each item (Bm's other rows are read as zero, whatever they hold).
-    z = (stats2, alpha2, g2, b2, norm_type) makes the A operand
-    round(g2 * ehat + b2) with ehat from A = c (dout_w)."""
+    of each item (Bm's other rows are read as zero, whatever they hold),
+    written into `part` when given. z = (stats2, alpha2, g2, b2,
+    norm_type) makes the A operand round(g2 * ehat + b2) with ehat from
+    A = c (dout_w)."""
     M, Kp, n1 = A.shape
     dt = A.dtype
     rows = _rows(Kp, valid_k, A.device)
@@ -345,16 +384,17 @@ def wgrad_plain(A, Bm, valid_k, z=None):
         mean, inv = _norm_terms(stats2, norm_type, valid_k, n1)
         cf = torch.where(rows, A.float(), 0.0)
         A = (g2 * ((_prelu_f32(cf, alpha2) - mean) * inv) + b2).to(dt)
-    return torch.matmul(A.float().reshape(-1, n1).t(), Bm.float().reshape(M * Kp, -1))[None]
+    return _into(part, torch.matmul(A.float().reshape(-1, n1).t(),
+                                    Bm.float().reshape(M * Kp, -1))[None])
 
 
-def tcn_wgrad(A, Bm, valid_k, z=None, plan=None):
-    """KW. Returns f32 partials [n_part, n1, n2]; their sum over axis 0 is
-    the weight gradient. bf16 takes `plan`, a WgradPlan or (splits,
-    cluster) (default `wgrad_launch_plan`), and returns splits / cluster
-    partials; f32 one per `wgrad_chunk` rows."""
+def tcn_wgrad(A, Bm, valid_k, z=None, plan=None, part=None):
+    """KW. Returns f32 partials [n_part, n1, n2] (written into `part` when
+    given); their sum over axis 0 is the weight gradient. bf16 takes
+    `plan`, a WgradPlan or (splits, cluster) (default `wgrad_launch_plan`),
+    and returns splits / cluster partials; f32 one per `wgrad_chunk` rows."""
     if A.device.type == "cpu":
-        return wgrad_plain(A, Bm, valid_k, z)
+        return wgrad_plain(A, Bm, valid_k, z, part)
     M, Kp, n1 = A.shape
     n2 = Bm.shape[2]
     dt = A.dtype
@@ -370,7 +410,7 @@ def tcn_wgrad(A, Bm, valid_k, z=None, plan=None):
     else:
         splits, cluster = wgrad_chunk(Kp), 1
         n_part = M * Kp // splits
-    part = torch.empty((n_part, n1, n2), dtype=torch.float32, device=A.device)
+    part = _part_out(part, (n_part, n1, n2), A.device, "KW")
     stats2 = alpha2 = g2 = b2 = None
     gln, n2s = 0, 0
     if z is not None:
@@ -396,10 +436,11 @@ def tcn_wgrad(A, Bm, valid_k, z=None, plan=None):
 # ---------------------------------------------------------------------------
 
 def bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
-                     g2, norm_type, dilation, causal, valid_k):
+                     g2, norm_type, dilation, causal, valid_k, chpart=None, da2part=None):
     """Plain version of KB2. Returns (db [M, K_pad, H], channel partials
     [1, P + 2, H] = (dw[0..P), dg1, db1), norm1-backward partials,
-    d_alpha2 partials [1])."""
+    d_alpha2 partials [1]); the channel and d_alpha2 partials are written
+    into `chpart` and `da2part` when given."""
     M, Kp, H = y1.shape
     P = w.shape[0]
     dt = y1.dtype
@@ -427,22 +468,25 @@ def bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
     bp = F.pad(b, (0, 0, left, span - left))
     dw = torch.stack([(dc * bp[:, p * dilation: p * dilation + Kp]).sum((0, 1))
                       for p in range(P)])
-    chpart = torch.cat([dw, (db * ahat).sum((0, 1))[None], db.sum((0, 1))[None]])[None]
+    chp = torch.cat([dw, (db * ahat).sum((0, 1))[None], db.sum((0, 1))[None]])[None]
     dbg = db * g1
-    return db.to(dt), chpart, _pair_sums(dbg, dbg * ahat, norm_type), da2.reshape(1)
+    return (db.to(dt), _into(chpart, chp), _pair_sums(dbg, dbg * ahat, norm_type),
+            _into(da2part, da2.reshape(1)))
 
 
 def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
-                   g2, norm_type, dilation, causal, valid_k, plan=None):
+                   g2, norm_type, dilation, causal, valid_k, plan=None, chpart=None,
+                   da2part=None):
     """KB2. Same signature and results as bwd_dwconv_plain, with channel
     partials per row tile of `dw_plan` (backward form), norm1-backward
     partials per CTA tile (gLN) or per row and channel tile (cLN) and
-    d_alpha2 partials per CTA tile; a staged stencil
+    d_alpha2 partials per CTA tile (bwd_dwconv_parts); a staged stencil
     (csrc/tcn_dwconv_sm90.cuh). `plan` forces a tile (tcn_block.dw_tile,
     backward form)."""
     if y1.device.type == "cpu":
         return bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w,
-                                alpha2, g2, norm_type, dilation, causal, valid_k)
+                                alpha2, g2, norm_type, dilation, causal, valid_k, chpart,
+                                da2part)
     M, Kp, H = y1.shape
     P = w.shape[0]
     dt = y1.dtype
@@ -465,10 +509,10 @@ def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
     _check_dw_plan(plan, H)
     nct = H // plan.cols
     db = torch.empty_like(y1)
-    chpart = torch.empty((M * Kp // plan.rows, P + 2, H), dtype=torch.float32, device=y1.device)
+    chpart = _part_out(chpart, (M * Kp // plan.rows, P + 2, H), y1.device, "KB2 chpart")
     gs1 = torch.empty((M, Kp // plan.rows * nct, 2) if gln else (M, Kp, nct, 2),
                       dtype=torch.float32, device=y1.device)
-    da2part = torch.empty((M * Kp // plan.rows * nct,), dtype=torch.float32, device=y1.device)
+    da2part = _part_out(da2part, (M * Kp // plan.rows * nct,), y1.device, "KB2 da2part")
     rc = _lib().tcn_bwd_dwconv(
         y1.device.index, _DTYPES[dt], y1.data_ptr(), c.data_ptr(), dz.data_ptr(),
         stats1.data_ptr(), _n_parts(stats1, gln), stats2.data_ptr(), _n_parts(stats2, gln),
@@ -486,9 +530,11 @@ def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
 # KB3: norm1 / PReLU1 backward and dx
 # ---------------------------------------------------------------------------
 
-def bwd_dx_plain(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
+def bwd_dx_plain(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k,
+                 da1part=None):
     """Plain version of KB3. in_wt = in_w^T [H, B] (activation dtype).
-    Returns (dx [M, K_pad, B], dy1 [M, K_pad, H], d_alpha1 partials [1])."""
+    Returns (dx [M, K_pad, B], dy1 [M, K_pad, H], d_alpha1 partials [1],
+    written into `da1part` when given)."""
     M, Kp, H = db.shape
     dt = db.dtype
     rows = _rows(Kp, valid_k, db.device)
@@ -501,13 +547,15 @@ def bwd_dx_plain(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
     dy1 = (da * torch.where(y >= 0, 1.0, alpha1.float())).to(dt)
     dx = (torch.matmul(dy1.float(), in_wt.float()).to(dt).float() + g.float()).to(dt)
     dx = torch.where(rows, dx, torch.zeros((), dtype=dt, device=db.device))
-    return dx, dy1, da1.reshape(1)
+    return dx, dy1, _into(da1part, da1.reshape(1))
 
 
-def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
-    """KB3. Same signature and results as bwd_dx_plain."""
+def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k, da1part=None):
+    """KB3. Same signature and results as bwd_dx_plain, with one d_alpha1
+    partial per row tile (bwd_dx_parts)."""
     if db.device.type == "cpu":
-        return bwd_dx_plain(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k)
+        return bwd_dx_plain(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k,
+                            da1part)
     M, Kp, H = db.shape
     B = in_wt.shape[1]
     dt = db.dtype
@@ -524,12 +572,10 @@ def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
     _check_stats(gs1, M, Kp, gln, "KB2 partials")
     _check_params(alpha1, g1)
     # bf16: one CTA per row tile covers every column (dy1 formed once).
-    idx = db.device.index
-    bm, bn = (gemm_plan(M * Kp, B, H, _sm_count(idx), split=False, resident=_resident(idx, H_DX))
-              if dt == torch.bfloat16 else (BM, BN))
+    bm, bn = _dx_tile(M * Kp, B, H, dt, db.device.index)
     dx = torch.empty((M, Kp, B), dtype=dt, device=db.device)
     dy1 = torch.empty_like(db)
-    da1part = torch.empty((M * Kp // bm,), dtype=torch.float32, device=db.device)
+    da1part = _part_out(da1part, (M * Kp // bm,), db.device, "KB3 da1part")
     rc = _lib().tcn_bwd_dx(db.device.index, _DTYPES[dt], db.data_ptr(), y1.data_ptr(),
                            in_wt.data_ptr(), g.data_ptr(), stats1.data_ptr(),
                            _n_parts(stats1, gln), gs1.data_ptr(), _n_parts(gs1, gln),
@@ -542,52 +588,199 @@ def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k):
 
 
 # ---------------------------------------------------------------------------
-# KF: the weight gradients from their partials
+# KF: the weight gradients of a group of blocks from their partials
 # ---------------------------------------------------------------------------
 
 # The stacked gradients in the JAX VJP's order (after dx).
 GRAD_ORDER = ("din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "dout_w")
 
+FIN_KINDS = 9       # csrc/tcn_bwd_finish.cuh: the gradients of a block
+FIN_MAX_GROUP = 64  # csrc/tcn_bwd_finish.cuh: slots one launch takes
+# The bytes a group's slots may hold. KF reads them in one launch bound by
+# those bytes, so a group is as large as the cap allows: 512 MB is ten
+# times the H100's 50 MB L2, so the launch's ramp and tail are a few per
+# cent of its ~150 us at 3.35 TB/s, and the slots, which live through the
+# backward of the group, stay under 1 % of the card's 80 GB. At the paper
+# config (batch 5 x 4 s, bf16, ~9 MB a block) one group holds all 32
+# blocks: one launch per step.
+FINISH_SLOTS_CAP = 512 << 20
 
-def bwd_finish_plain(wz, win, chpart, colpart, da1part, da2part, grads, nb):
-    """Plain version of KF: row nb of the nine stacked f32 gradients
-    `grads` (GRAD_ORDER) from the partials of KW z [n, H, B], KW din
-    [n, B, H], KB2 (chpart [n, P + 2, H], da2part [n]), KB1 (colpart
-    [n, 2, H]) and KB3 (da1part [n]), each summed over its first axis."""
+
+class PartCounts(NamedTuple):
+    """The f32 partials one block's backward writes: KW z (nz) and din
+    (nin) [n, H, B] / [n, B, H], KB2's channel rows (nch, [n, P + 2, H])
+    and d_alpha2 (nda2), KB1's colpart (ncol, [n, 2, H]) and KB3's
+    d_alpha1 (nda1). The plain versions write one of each."""
+    nz: int
+    nin: int
+    nch: int
+    ncol: int
+    nda1: int
+    nda2: int
+
+
+def part_counts(M: int, Kp: int, B: int, H: int, P: int, dilation: int, dt,
+                plain: bool, index=None) -> PartCounts:
+    """The partials the kernels (plain: the plain versions) write for one
+    block of M items of K_pad rows at `dilation`, by the wrappers' plans."""
+    if plain:
+        return PartCounts(1, 1, 1, 1, 1, 1)
+    rows = M * Kp
+    if dt == torch.bfloat16:
+        nw = _card_plan(index, rows, Kp, H, B, _sm_count(index)).parts
+    else:
+        nw = rows // wgrad_chunk(Kp)
+    plan = dw_plan(P, dilation, H, torch.empty((), dtype=dt).element_size(), backward=True)
+    nch = rows // plan.rows
+    return PartCounts(nw, nw, nch, rows // _dz_tile(rows, B, H, dt, index)[0],
+                      rows // _dx_tile(rows, B, H, dt, index)[0], nch * (H // plan.cols))
+
+
+def slot_bytes(n: PartCounts, B: int, H: int, P: int) -> int:
+    """Bytes of one slot of FinishSlots holding `n` partials."""
+    return 4 * ((n.nz + n.nin) * H * B + n.nch * (P + 2) * H + n.ncol * 2 * H + n.nda1
+                + n.nda2)
+
+
+def finish_group(NB: int, nbytes: int) -> int:
+    """Blocks per KF launch: the most whose slots of `nbytes` fit under
+    FINISH_SLOTS_CAP, at most NB and FIN_MAX_GROUP."""
+    return max(1, min(NB, FIN_MAX_GROUP, FINISH_SLOTS_CAP // max(1, nbytes)))
+
+
+class FinishSlots(NamedTuple):
+    """The f32 partials of a group of G blocks' backwards, slot j one
+    block's, each buffer [G, most partials of any block of the chain, ...]:
+    wz [G, nz, H, B], win [G, nin, B, H], chpart [G, nch, P + 2, H],
+    colpart [G, ncol, 2, H], da1part [G, nda1], da2part [G, nda2]."""
+    wz: torch.Tensor
+    win: torch.Tensor
+    chpart: torch.Tensor
+    colpart: torch.Tensor
+    da1part: torch.Tensor
+    da2part: torch.Tensor
+
+    @staticmethod
+    def alloc(G: int, cap: PartCounts, B: int, H: int, P: int, device) -> "FinishSlots":
+        def buf(*shape):
+            return torch.empty((G,) + shape, dtype=torch.float32, device=device)
+        return FinishSlots(buf(cap.nz, H, B), buf(cap.nin, B, H), buf(cap.nch, P + 2, H),
+                           buf(cap.ncol, 2, H), buf(cap.nda1), buf(cap.nda2))
+
+    def slot(self, j: int, n: PartCounts) -> tuple:
+        """The buffers block j of the group writes, for `n` partials:
+        (wz, win, chpart, colpart, da1part, da2part)."""
+        return (self.wz[j, :n.nz], self.win[j, :n.nin], self.chpart[j, :n.nch],
+                self.colpart[j, :n.ncol], self.da1part[j, :n.nda1], self.da2part[j, :n.nda2])
+
+
+def bwd_finish_plain(slots: FinishSlots, counts, grads, nb0: int) -> None:
+    """Plain version of KF: rows nb0 ... nb0 + len(counts) - 1 of the nine
+    stacked f32 gradients `grads` (GRAD_ORDER), row nb0 + j from slot j of
+    `slots` holding counts[j] partials (PartCounts), each summed over its
+    first axis."""
     din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = grads
     P = dw.shape[1]
-    chs = chpart.sum(0)
-    cols = colpart.sum(0)
-    for dst, val in ((din_w, win.sum(0)), (da1, da1part.sum()), (dg1, chs[P]),
-                     (db1, chs[P + 1]), (dw, chs[:P]), (da2, da2part.sum()),
-                     (dg2, cols[0]), (db2, cols[1]), (dout_w, wz.sum(0))):
-        dst[nb] = val
+    for j, n in enumerate(counts):
+        wz, win, chpart, colpart, da1part, da2part = slots.slot(j, n)
+        chs = chpart.sum(0)
+        cols = colpart.sum(0)
+        nb = nb0 + j
+        for dst, val in ((din_w, win.sum(0)), (da1, da1part.sum()), (dg1, chs[P]),
+                         (db1, chs[P + 1]), (dw, chs[:P]), (da2, da2part.sum()),
+                         (dg2, cols[0]), (db2, cols[1]), (dout_w, wz.sum(0))):
+            dst[nb] = val
 
 
-def tcn_bwd_finish(wz, win, chpart, colpart, da1part, da2part, grads, nb):
-    """KF. Same arguments and result as bwd_finish_plain, one launch; the
-    partials may hold any count along their first axis."""
-    if wz.device.type == "cpu":
-        return bwd_finish_plain(wz, win, chpart, colpart, da1part, da2part, grads, nb)
+class _FinKind(ctypes.Structure):
+    """csrc/tcn_bwd_finish.cuh FinKind."""
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("slot", ctypes.c_longlong), ("row", ctypes.c_longlong),
+                ("stride", ctypes.c_int), ("cols", ctypes.c_int), ("cap", ctypes.c_int),
+                ("vec", ctypes.c_int), ("lanes_log2", ctypes.c_int), ("cw_log2", ctypes.c_int),
+                ("units", ctypes.c_int), ("first", ctypes.c_int),
+                ("parts", ctypes.c_int * FIN_MAX_GROUP)]
+
+
+class _FinGroup(ctypes.Structure):
+    """csrc/tcn_bwd_finish.cuh FinGroup."""
+    _fields_ = [("kind", _FinKind * FIN_KINDS), ("n", ctypes.c_int), ("units", ctypes.c_int)]
+
+
+# KF's launch arguments by (pointers, shapes, counts): built once per step
+# shape and buffers, so that a step's host time is one lookup per group.
+_FIN_ARGS: dict = {}
+_FIN_ARGS_MAX = 256
+
+
+def _fin_args(slots: FinishSlots, counts, grads, nb0: int) -> _FinGroup:
+    key = (tuple((t.data_ptr(), t.shape) for t in slots),
+           tuple((t.data_ptr(), t.shape) for t in grads), nb0, tuple(counts))
+    args = _FIN_ARGS.get(key)
+    if args is not None:
+        return args
+    din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = grads
+    B, H = din_w.shape[1:]
+    P = dw.shape[1]
+    G, ncap = slots.chpart.shape[:2]
+    ch, kinds = (P + 2) * H, []
+
+    def kind(src, off, slot, stride, cols, cap, dst, row, field):
+        kinds.append((src.data_ptr() + 4 * off, dst.data_ptr() + 4 * nb0 * row, slot, row,
+                      stride, cols, cap, [getattr(n, field) for n in counts]))
+
+    # Tall kinds first: their units take longest.
+    kind(slots.chpart, 0, ncap * ch, ch, P * H, ncap, dw, P * H, "nch")
+    kind(slots.chpart, P * H, ncap * ch, ch, H, ncap, dg1, H, "nch")
+    kind(slots.chpart, (P + 1) * H, ncap * ch, ch, H, ncap, db1, H, "nch")
+    ncol = slots.colpart.shape[1]
+    kind(slots.colpart, 0, ncol * 2 * H, 2 * H, H, ncol, dg2, H, "ncol")
+    kind(slots.colpart, H, ncol * 2 * H, 2 * H, H, ncol, db2, H, "ncol")
+    kind(slots.da1part, 0, slots.da1part.shape[1], 1, 1, slots.da1part.shape[1], da1, 1, "nda1")
+    kind(slots.da2part, 0, slots.da2part.shape[1], 1, 1, slots.da2part.shape[1], da2, 1, "nda2")
+    nin, nz = slots.win.shape[1], slots.wz.shape[1]
+    kind(slots.win, 0, nin * B * H, B * H, B * H, nin, din_w, B * H, "nin")
+    kind(slots.wz, 0, nz * H * B, H * B, H * B, nz, dout_w, H * B, "nz")
+    args = _FinGroup()
+    args.n = len(counts)
+    for k, (src, dst, slot, row, stride, cols, cap, parts) in zip(args.kind, kinds):
+        k.src, k.dst, k.slot, k.row, k.stride, k.cols, k.cap = (src, dst, slot, row, stride,
+                                                                cols, cap)
+        k.parts[:len(parts)] = parts
+    if len(_FIN_ARGS) >= _FIN_ARGS_MAX:
+        _FIN_ARGS.clear()
+    _FIN_ARGS[key] = args
+    return args
+
+
+def tcn_bwd_finish(slots: FinishSlots, counts, grads, nb0: int) -> None:
+    """KF. Same arguments and result as bwd_finish_plain, one launch for
+    the whole group (at most FIN_MAX_GROUP slots)."""
+    if slots.wz.device.type == "cpu":
+        return bwd_finish_plain(slots, counts, grads, nb0)
     din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = grads
     NB, B, H = din_w.shape
     P = dw.shape[1]
-    _require(0 <= nb < NB, f"block {nb} outside the {NB} stacked gradients")
-    _require(wz.shape[1:] == (H, B) and win.shape[1:] == (B, H)
-             and chpart.shape[1:] == (P + 2, H) and colpart.shape[1:] == (2, H)
-             and da1part.dim() == 1 and da2part.dim() == 1,
-             "KF partial shapes do not match the gradients")
+    n = len(counts)
+    G = slots.wz.shape[0]
+    _require(0 < n <= min(G, FIN_MAX_GROUP) and 0 <= nb0 and nb0 + n <= NB,
+             f"rows {nb0}..{nb0 + n - 1} of {NB} from {G} slots")
+    _require(slots.wz.shape[2:] == (H, B) and slots.win.shape[2:] == (B, H)
+             and slots.chpart.shape[2:] == (P + 2, H) and slots.colpart.shape[2:] == (2, H)
+             and all(t.shape[0] == G for t in slots),
+             "KF slot shapes do not match the gradients")
     _require(dout_w.shape == (NB, H, B) and dw.shape == (NB, P, H)
              and all(t.shape == (NB, H) for t in (dg1, db1, dg2, db2))
              and da1.numel() == NB and da2.numel() == NB,
              "the stacked gradients' shapes do not match")
-    _check_cuda(wz, win, chpart, colpart, da1part, da2part, *grads, dtype=torch.float32)
-    rows = [t[nb] for t in grads]
-    rc = _lib().tcn_bwd_finish(wz.device.index, wz.data_ptr(), wz.shape[0], win.data_ptr(),
-                               win.shape[0], chpart.data_ptr(), chpart.shape[0],
-                               colpart.data_ptr(), colpart.shape[0], da1part.data_ptr(),
-                               da1part.shape[0], da2part.data_ptr(), da2part.shape[0], B, H,
-                               P, *[r.data_ptr() for r in rows], _stream(wz))
+    cap = (slots.wz.shape[1], slots.win.shape[1], slots.chpart.shape[1], slots.colpart.shape[1],
+           slots.da1part.shape[1], slots.da2part.shape[1])
+    _require(all(0 < c <= m for cn in counts for c, m in zip(cn, cap)),
+             "a slot's partial counts exceed the slots")
+    _check_cuda(*slots, *grads, dtype=torch.float32)
+    rc = _lib().tcn_bwd_finish(din_w.device.index,
+                               ctypes.byref(_fin_args(slots, counts, grads, nb0)),
+                               _stream(din_w))
     _build.check(rc, "tcn_bwd_finish")
     _LAUNCHES["tcn_bwd_finish"] += 1
 
@@ -603,24 +796,41 @@ KERNEL_BWD = (tcn_bwd_dz, tcn_wgrad, tcn_bwd_dwconv, tcn_bwd_dx, tcn_bwd_finish)
 def alloc_grads(params) -> list:
     """The nine stacked f32 gradients [NB, ...] of the stacked block
     parameters (in_w, a1, g1, b1, w, a2, g2, b2, out_w), each row written by
-    one block's KF."""
+    the KF launch of its block's group."""
     return [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in params]
+
+
+def block_partials(g, x, y1, s1, c, s2, in_wt, a1, g1, b1, w, a2, g2, b2, out_wt,
+                   norm_type, dilation, causal, valid_k, slot, stages=KERNEL_BWD
+                   ) -> torch.Tensor:
+    """The five producing kernels of a block's backward. g, x [M, K_pad, B]
+    and y1, c [M, K_pad, H] in the activation dtype; in_wt = in_w^T [H, B]
+    and out_wt = out_w^T [B, H] in the activation dtype; the rest f32.
+    Writes the block's weight-gradient partials into `slot`
+    (FinishSlots.slot) and returns dx, rows >= valid_k zero."""
+    dz_fn, wgrad_fn, dw_fn, dx_fn, _ = stages
+    wz, win, chpart, colpart, da1p, da2p = slot
+    dz, _, gs2 = dz_fn(g, out_wt, c, s2, a2, g2, norm_type, valid_k, colpart=colpart)
+    wgrad_fn(c, g, valid_k, (s2, a2, g2, b2, norm_type), part=wz)
+    db, _, gs1, _ = dw_fn(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm_type, dilation,
+                          causal, valid_k, chpart=chpart, da2part=da2p)
+    dx, dy1, _ = dx_fn(db, y1, in_wt, g, s1, gs1, a1, g1, norm_type, valid_k, da1part=da1p)
+    wgrad_fn(x, dy1, valid_k, part=win)
+    return dx
 
 
 def block_bwd(g, x, y1, s1, c, s2, in_wt, a1, g1, b1, w, a2, g2, b2, out_wt,
               norm_type, dilation, causal, valid_k, grads, nb, stages=KERNEL_BWD
               ) -> torch.Tensor:
-    """Backward of block nb. g, x [M, K_pad, B] and y1, c [M, K_pad, H] in
-    the activation dtype; in_wt = in_w^T [H, B] and out_wt = out_w^T [B, H]
-    in the activation dtype; the rest f32. Writes the weight gradients
-    (GRAD_ORDER, f32) into row nb of the stacked `grads` and returns dx,
-    rows >= valid_k zero."""
-    dz_fn, wgrad_fn, dw_fn, dx_fn, finish_fn = stages
-    dz, colpart, gs2 = dz_fn(g, out_wt, c, s2, a2, g2, norm_type, valid_k)
-    wz = wgrad_fn(c, g, valid_k, (s2, a2, g2, b2, norm_type))
-    db, chpart, gs1, da2p = dw_fn(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2,
-                                  norm_type, dilation, causal, valid_k)
-    dx, dy1, da1p = dx_fn(db, y1, in_wt, g, s1, gs1, a1, g1, norm_type, valid_k)
-    win = wgrad_fn(x, dy1, valid_k)
-    finish_fn(wz, win, chpart, colpart, da1p, da2p, grads, nb)
+    """Backward of block nb, finished: block_partials into a group of one
+    slot, then KF writes the weight gradients (GRAD_ORDER, f32) into row nb
+    of the stacked `grads`. Returns dx, rows >= valid_k zero."""
+    M, Kp, B = g.shape
+    H, P = y1.shape[2], w.shape[0]
+    n = part_counts(M, Kp, B, H, P, dilation, g.dtype,
+                    stages is PLAIN_BWD or g.device.type == "cpu", g.device.index)
+    slots = FinishSlots.alloc(1, n, B, H, P, g.device)
+    dx = block_partials(g, x, y1, s1, c, s2, in_wt, a1, g1, b1, w, a2, g2, b2, out_wt,
+                        norm_type, dilation, causal, valid_k, slots.slot(0, n), stages)
+    stages[-1](slots, [n], grads, nb)
     return dx

@@ -3,14 +3,17 @@ c, plain PyTorch backward that consumes them.
 
 Counterpart of convtasnet_tpu/ops/pallas/whole_block_hybrid.py
 (`whole_block_hybrid`, `_hybrid_bwd_math`): the per-block form of the
-hybrid training path, which the model takes when the whole-TCN op's
-residuals do not fit its memory gate. The forward is K1, K2 in save mode
+hybrid training path, which the JAX model takes when the whole-TCN kernel
+does not fit the TPU's VMEM. No model form of the port reaches it: past
+its memory gate, a fact of HBM, the port takes the `whole` chain, which
+saves less (models/conv_tasnet.py); tests and the chip smoke hold this
+op on its own. The forward is K1, K2 in save mode
 and the unfolded K3 (one fresh y1 and c per block: they are residuals, so
 no scratch is shared across blocks); the backward is `hybrid_bwd_math`, a
 line-for-line port of the JAX package's plain-array backward (its products
 are torch.matmul, as the JAX package leaves them to XLA).
 
-`whole_chain_hybrid` is the op the model runs: one autograd Function over
+`whole_chain_hybrid` is the chain op: one autograd Function over
 the NB blocks, as the JAX model runs this form inside its scan over the
 stacked repeats (convtasnet_tpu/models/conv_tasnet.py:317-392). Its
 forward writes block nb's input, y1 and c into slot nb of three [NB, ...]

@@ -6,8 +6,8 @@ scan over it (convtasnet_tpu/models/conv_tasnet.py:317-392). The forward
 is the inference whole-block form (K1, K2, K3 unfolded) and saves the
 block input x alone. The backward recomputes y1 and the norm1 partials
 with K1 and c and the norm2 partials with K2 in save mode, then runs the
-same five backward kernels and KF as the whole-TCN op (tcn_block_bwd.py,
-whole_tcn_hybrid.chain_bwd). On the TPU one kernel recomputes the
+same five backward kernels and KF (one launch per group of blocks) as
+the whole-TCN op (tcn_block_bwd.py, whole_tcn_hybrid.chain_bwd). On the TPU one kernel recomputes the
 mid-chain in VMEM; here the recomputed [M, K_pad, H] slabs pass through
 device memory.
 
@@ -76,7 +76,7 @@ def whole_block_train(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dila
     with exact-zero pad rows (valid_k = the true frame count); block
     weights f32, a1 / a2 0-d. A CPU tensor, or plain=True, takes the plain
     versions; a CUDA tensor runs 3 kernels forward and 8 backward (K1, K2
-    save, KB1, KB2, KB3, two KW, KF)."""
+    save, KB1, KB2, KB3, two KW, KF: a group of one block)."""
     K = x.shape[1] if valid_k is None else valid_k
     return _WholeBlockTrain.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
                                   dilation, causal, K, plain)
@@ -110,8 +110,8 @@ def whole_chain_train(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, caus
     x [M, K_pad, B] with exact-zero pad rows (valid_k = the true frame
     count); weights f32 stacked [NB, ...], block nb at dilation
     2 ** (nb % X). A CPU tensor, or plain=True, takes the plain versions; a
-    CUDA tensor runs 3 kernels per block forward and 8 per block backward
-    (K1, K2 save, KB1, KB2, KB3, two KW, KF)."""
+    CUDA tensor runs 3 kernels per block forward and 7 per block backward
+    (K1, K2 save, KB1, KB2, KB3, two KW) and one KF per group of blocks."""
     K = x.shape[1] if valid_k is None else valid_k
     return _WholeChainTrain.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
                                   causal, X, K, plain)

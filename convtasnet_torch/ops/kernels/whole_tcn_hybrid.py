@@ -8,10 +8,14 @@ is inference-only, whole_tcn.py:293-303): it keeps every block's input
 x_nb and conv output c_nb, plus K2's small norm2 partials. It never
 updates the residual stream in place: block nb writes its output into the
 slot of block nb + 1. The backward runs, for nb = NB-1 ... 0, K1 on x_nb
-(y1 and the norm1 partials), the five backward kernels of
-tcn_block_bwd.py and KF, which writes the block's f32 weight gradients
-into row nb of the stacked [NB, ...] gradients (the TPU kernel keeps
-them in accumulators resident across its grid); dx pad rows stay zero.
+(y1 and the norm1 partials) and the five backward kernels of
+tcn_block_bwd.py, which write the block's f32 weight-gradient partials
+into its slot of its group's buffers; when a group of blocks is done, one
+KF launch writes their f32 weight gradients into their rows of the
+stacked [NB, ...] gradients (the TPU kernel keeps them in accumulators
+resident across its grid). Groups are filled from block NB-1 down, as
+many blocks each as tcn_block_bwd.finish_group allows, the last one
+partial; dx pad rows stay zero.
 The weights are cast and transposed once per call, not per block, so the
 per-block loop launches the hand-written kernels only.
 
@@ -21,12 +25,14 @@ kernels (the JAX package's layout is [M, NB, K_pad, ch]).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from .tcn_block import dwconv_plain, dwconv_stats_shape, in_gemm_plain, tcn_dwconv, tcn_in_gemm
-from .tcn_block_bwd import KERNEL_BWD, PLAIN_BWD, alloc_grads, block_bwd
+from .tcn_block_bwd import (KERNEL_BWD, PLAIN_BWD, FinishSlots, PartCounts, alloc_grads,
+                            block_partials, finish_group, part_counts, slot_bytes)
 from .whole_tcn import KERNEL_STAGES, PLAIN_STAGES
 
 
@@ -107,22 +113,46 @@ def _transposed(wts, dt):
     return torch.empty((NB, b, a), dtype=dt, device=wts.device).copy_(wts.transpose(1, 2))
 
 
+@functools.lru_cache(maxsize=64)
+def finish_plan(M: int, Kp: int, B: int, H: int, P: int, dilations: tuple, dt, plain: bool,
+                index=None, group=None):
+    """(blocks per KF launch, each block's PartCounts, the most partials of
+    any block) of the backward of a chain of blocks at `dilations`;
+    `group` forces the blocks per launch. Cached per shape: it is on the
+    eager step's host path."""
+    counts = [part_counts(M, Kp, B, H, P, d, dt, plain, index) for d in dilations]
+    cap = PartCounts(*map(max, zip(*counts)))
+    G = group or finish_group(len(dilations), slot_bytes(cap, B, H, P))
+    return min(G, len(dilations)), counts, cap
+
+
 def chain_bwd(g, x_res, c_res, s2, params, norm_type, causal, dilations, valid_k,
-              in_gemm=tcn_in_gemm, bwd_stages=KERNEL_BWD, dwconv=tcn_dwconv):
+              in_gemm=tcn_in_gemm, bwd_stages=KERNEL_BWD, dwconv=tcn_dwconv, group=None):
     """Backward of a chain of blocks from their saved inputs x_res [NB, M,
     K_pad, B]: upstream g [M, K_pad, B] -> (dx, din_w, da1, dg1, db1, dw,
     da2, dg2, db2, dout_w), the weight gradients f32 and stacked [NB, ...].
     params are the nine stacked block parameters, block nb at dilations[nb].
     With c_res / s2 None, each block recomputes c and the norm2 partials
-    with K2 in save mode (the recompute form); else they are read."""
+    with K2 in save mode (the recompute form); else they are read. KF runs
+    once per group of blocks (finish_plan; `group` forces its size)."""
     in_w, a1, g1, b1, w, a2, g2, b2, out_w = params
     dt = x_res.dtype
+    NB, M, Kp, B = x_res.shape
+    P, H = w.shape[1:]
     in_wc = in_w.to(dt)
     in_wt, out_wt = _transposed(in_w, dt), _transposed(out_w, dt)
     grads = alloc_grads(params)
+    plain = bwd_stages is PLAIN_BWD or x_res.device.type == "cpu"
+    G, counts, cap = finish_plan(M, Kp, B, H, P, tuple(dilations), dt, plain,
+                                 x_res.device.index, group)
+    slots = FinishSlots.alloc(G, cap, B, H, P, x_res.device)
+    finish = bwd_stages[-1]
     dx = g.to(dt).contiguous()
     y1 = e = c = None
-    for nb in range(len(dilations) - 1, -1, -1):
+    for nb in range(NB - 1, -1, -1):
+        # block nb's group: rows [nb0, top), filled from the top down
+        top = NB - (NB - 1 - nb) // G * G
+        nb0 = max(0, top - G)
         d = dilations[nb]
         y1, s1 = in_gemm(x_res[nb], in_wc[nb], a1[nb], norm_type, y1)
         if c_res is None:
@@ -130,21 +160,24 @@ def chain_bwd(g, x_res, c_res, s2, params, norm_type, causal, dilations, valid_k
                                 d, causal, valid_k, e, save=True, c=c)
         else:
             c, s2nb = c_res[nb], s2[nb]
-        dx = block_bwd(dx, x_res[nb], y1, s1, c, s2nb, in_wt[nb], a1[nb], g1[nb], b1[nb],
-                       w[nb], a2[nb], g2[nb], b2[nb], out_wt[nb], norm_type, d, causal,
-                       valid_k, grads, nb, bwd_stages)
+        dx = block_partials(dx, x_res[nb], y1, s1, c, s2nb, in_wt[nb], a1[nb], g1[nb], b1[nb],
+                            w[nb], a2[nb], g2[nb], b2[nb], out_wt[nb], norm_type, d, causal,
+                            valid_k, slots.slot(nb - nb0, counts[nb]), bwd_stages)
+        if nb == nb0:
+            finish(slots, counts[nb0:top], grads, nb0)
     return (dx, *grads)
 
 
 def whole_tcn_bwd(g, x_res, c_res, s2, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
                   norm_type, causal, X, valid_k, in_gemm=tcn_in_gemm,
-                  bwd_stages=KERNEL_BWD):
+                  bwd_stages=KERNEL_BWD, group=None):
     """Backward of the whole chain from the saved residuals: upstream g
     [M, K_pad, B] -> (dx, din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w),
-    the weight gradients f32 and stacked [NB, ...]."""
+    the weight gradients f32 and stacked [NB, ...]; `group` forces the
+    blocks per KF launch."""
     params = (in_w, a1, g1, b1, w, a2, g2, b2, out_w)
     return chain_bwd(g, x_res, c_res, s2, params, norm_type, causal,
-                     _dilations(w.shape[0], X), valid_k, in_gemm, bwd_stages)
+                     _dilations(w.shape[0], X), valid_k, in_gemm, bwd_stages, group=group)
 
 
 class _WholeTcnTrain(torch.autograd.Function):
@@ -175,8 +208,8 @@ def whole_tcn_train(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal
     128 with exact-zero pad rows (valid_k = the true frame count; None when
     there is no padding); weights f32 stacked [NB, ...]. A CPU tensor, or
     plain=True, takes the plain versions; a CUDA tensor runs 3 kernels per
-    block forward and 7 per block backward (K1 rerun, KB1, KB2, KB3, two
-    KW, KF)."""
+    block forward and 6 per block backward (K1 rerun, KB1, KB2, KB3, two
+    KW) and one KF per group of blocks."""
     K = x.shape[1] if valid_k is None else valid_k
     return _WholeTcnTrain.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
                                 causal, X, K, plain)

@@ -21,6 +21,7 @@ the CPU.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
 
@@ -30,6 +31,7 @@ import torch
 from ..config import ConvTasNetConfig
 from ..models.conv_tasnet import init_params, resolve_device
 from ..models.streaming import StreamingSeparator
+from ._bench import timed
 
 CAUSAL_PAPER = dict(N=256, L=20, B=256, H=512, P=3, X=8, R=4, C=2, norm_type="cLN",
                     causal=True)
@@ -58,17 +60,15 @@ def chunk_ms(sep: StreamingSeparator, chunks) -> list:
 
 def profile_chunks(sep: StreamingSeparator, chunks):
     """(device busy ms, device operations) per chunk from torch.profiler
-    over pushes with a fetch each; (None, None) when the profile holds no
-    device time."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for c in chunks:
-            sep.push(c).cpu()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in dev)
-    if busy_us <= 0:
+    over pushes with a fetch each, its records counted (tools/_bench.timed);
+    (None, None) when no profile was complete."""
+    it = itertools.cycle(chunks)
+    n = len(chunks)
+    prof = timed(lambda: sep.push(next(it)).cpu(), iters=n, warm=0,
+                 label="bench_streaming.profile_chunks")
+    if prof.blind:
         return None, None
-    return busy_us / 1e3 / len(chunks), sum(e.count for e in dev) / len(chunks)
+    return prof.ms, sum(c for c, _ in prof.records.values()) / n
 
 
 def measure(cfg: ConvTasNetConfig, params, batch: int, chunk_len: int, sample_rate: int,

@@ -32,16 +32,15 @@ SCENARIOS = ("baseline", "many_profiles", "nccl", "nccl_cold", "nccl_env",
 
 
 def _profiled(fn, calls: int):
-    """(device us, kernel names) torch.profiler records over `calls` of fn."""
+    """(device us, kernel names) torch.profiler records over `calls` of fn,
+    raw (tools/_bench.profile_records: no filler, no check)."""
     import torch
 
+    from ._bench import profile_records
+
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in events), len(events)
+    recs = profile_records(fn, calls)
+    return sum(us for _, us in recs.values()), len(recs)
 
 
 def _probe():

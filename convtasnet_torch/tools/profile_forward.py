@@ -10,9 +10,10 @@ sources) of 4 s at 8 kHz; --train profiles make_train_step (forward, uPIT
 loss, backward, clip, Adam update). Prints one JSON line: the host-clock
 time per call (synchronised), the host's enqueue time per call of
 back-to-back calls (no synchronisation), the CUDA-event time, the device time by
-kernel from torch.profiler over 10 calls, and the device's idle share:
-1 - (device time per call) / (CUDA-event time per call). With --out the
-same JSON is also written to a file.
+kernel from torch.profiler over 10 calls (records counted: tools/_bench.timed),
+the device's idle share, 1 - (device time per call) / (CUDA-event time per
+call), and the peak of allocated device memory. With --out the same JSON is
+also written to a file.
 
 The forward runs as the separate and evaluate CLIs run it, through
 models/graphed.GraphedForward, and the train step as the train CLI runs
@@ -39,6 +40,7 @@ from ..models import graphed
 from ..models.conv_tasnet import forward, init_params, resolve_device
 from ..training.optim import Optimizer
 from ..training.solver import GraphedStep, make_train_step
+from ._bench import timed
 
 
 SECONDS, ITERS = 4.0, 10
@@ -74,6 +76,7 @@ def profile(batch: int, use_kernels: str, train: bool = False, graph: bool = Tru
         def fwd():
             return run(mix)
 
+    torch.cuda.reset_peak_memory_stats(dev)
     with contextlib.nullcontext() if train else torch.inference_mode():
         for _ in range(3):
             fwd()
@@ -95,25 +98,16 @@ def profile(batch: int, use_kernels: str, train: bool = False, graph: bool = Tru
         end.synchronize()
         event_ms = start.elapsed_time(end) / ITERS
 
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(ITERS):
-                fwd()
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
+        # Its records counted (tools/_bench.timed): one call's records,
+        # times ITERS, or the profile is taken again.
+        prof = timed(fwd, iters=ITERS, warm=0, cpu=True, label="profile_forward")
     by_name = {}
-    for evt in prof.key_averages():
-        # Kernels (and copies) only: an operator's CPU entry, and its range
-        # projected onto the device timeline (a user annotation such as
-        # "aten::mm"), repeat the time of the kernels it launched.
-        us = float(evt.self_device_time_total)
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not evt.is_user_annotation and us > 0):
-            by_name[evt.key] = {"device_ms_per_call": us / 1e3 / ITERS,
-                                "launches_per_call": evt.count / ITERS}
+    for key, (n, us) in (prof.records or {}).items():
+        if us > 0:
+            by_name[key] = {"device_ms_per_call": us / 1e3 / ITERS,
+                            "launches_per_call": n / ITERS}
     calls = graphed.counts()
-    busy_ms = sum(v["device_ms_per_call"] for v in by_name.values())
+    busy_ms = prof.ms
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms_per_call"]))
     return {
         "device": torch.cuda.get_device_name(dev),
@@ -124,11 +118,15 @@ def profile(batch: int, use_kernels: str, train: bool = False, graph: bool = Tru
         "eager_calls": calls["eager_calls"],
         **(graphed.graph_row(run.graphed if train else run) if graph else {}),
         "host_ms_median": float(np.median(host)), "event_ms": event_ms,
+        # device memory at its peak over the warm-up (a graph's capture too)
+        # and the timed calls
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         # host time to enqueue one call back to back, no synchronisation: the
         # host's share; where it exceeds device busy, the host sets event_ms
         "enqueue_ms_per_call": enqueue_ms,
-        "profiled_window_ms_per_call": window_ms / ITERS,
         "device_busy_ms_per_call": busy_ms,
+        # CUDA event time, and no by_kernel, when no profile was complete
+        "profiler_blind": prof.blind, "profile_retries": prof.why,
         # Against the unprofiled CUDA-event time: the profiler slows the
         # host, not the kernels.
         "device_idle_share": max(0.0, 1.0 - busy_ms / event_ms),

@@ -28,27 +28,10 @@ import torch.nn.functional as F
 
 from ..ops.kernels import tcn_block as tb
 from ..ops.kernels import tcn_block_bwd as tbb
+from ._bench import device_ms
 
 H, P, K, KP = 512, 3, 3199, 3200
 PEAK_BYTES_PER_S = 3.35e12
-
-
-def device_ms(fn, iters: int = 20, tries: int = 3) -> float:
-    """Device time per call from torch.profiler; a profile that recorded no
-    device time (it happens now and then) is taken again."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def host_us(fn, iters: int = 50) -> float:

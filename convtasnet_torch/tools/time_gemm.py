@@ -32,23 +32,11 @@ import torch
 
 from ..ops.kernels import tcn_block as tb
 from ..ops.kernels import tcn_block_bwd as tbb
+from ._bench import device_ms
 
 B, H, K, KP = 256, 512, 3199, 3200
 PLAN_SMS = {"128": lambda rows: 1, "64": lambda rows: 10 ** 6,
             "wave64": lambda rows: rows // 64 * (H // 256)}
-
-
-def device_ms(fn, iters: int = 30) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
 
 
 def host_us(fn, iters: int = 100) -> float:

@@ -32,7 +32,7 @@ from convtasnet_torch.ops.kernels import tcn_block as tb
 from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb
 from convtasnet_torch.ops.kernels.whole_block_vjp import whole_block_train, whole_chain_train
 from convtasnet_torch.ops.kernels.whole_tcn_hybrid import (chain_bwd, chain_forward,
-                                                           whole_tcn_train)
+                                                           whole_tcn_bwd, whole_tcn_train)
 from convtasnet_torch.training import optim as to
 from convtasnet_torch.training.solver import make_train_step
 from convtasnet_tpu.ops.pallas import whole_block_vjp as j_vjp
@@ -88,26 +88,42 @@ def _nan_grads(NB):
 @pytest.mark.parametrize("fn", [tbb.bwd_finish_plain, tbb.tcn_bwd_finish])
 @pytest.mark.parametrize("n_kw,n_tile", [(1, 1), (7, 125), (28, 3)])
 def test_bwd_finish_plain_is_the_sums_it_replaces(fn, n_kw, n_tile):
-    """Random partials of each layout (KW z / din, KB2's chpart and
-    da2part, KB1's colpart, KB3's da1part): row nb holds exactly their
-    `.sum`s, every other row is untouched."""
+    """A group of three slots of random partials of each layout (KW z /
+    din, KB2's chpart and da2part, KB1's colpart, KB3's da1part), the
+    slots holding fewer KB2 partials than the buffers (as a dilation with
+    a taller tile writes): rows nb0 ... nb0 + 2 hold exactly the `.sum`s
+    of each slot's partials, every other row is untouched."""
     rng = np.random.default_rng(n_kw * 1000 + n_tile)
-
-    def part(*shape):
-        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-
-    wz, win = part(n_kw, H, B), part(n_kw, B, H)
-    chpart, colpart = part(n_tile, P + 2, H), part(n_tile + 1, 2, H)
-    da1p, da2p = part(n_tile + 2), part(4 * n_tile)
-    NB, nb = 3, 1
+    cap = tbb.PartCounts(n_kw, n_kw, n_tile + 2, n_tile + 1, n_tile + 2, 4 * n_tile + 3)
+    slots = tbb.FinishSlots.alloc(4, cap, B, H, P, "cpu")
+    for t in slots:
+        t.copy_(torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)))
+    counts = [cap, cap._replace(nch=n_tile, nda2=4 * n_tile), cap._replace(nch=1, nda2=1)]
+    NB, nb0 = 5, 1
     grads = _nan_grads(NB)
-    fn(wz, win, chpart, colpart, da1p, da2p, grads, nb)
-    chs, cols = chpart.sum(0), colpart.sum(0)
-    want = [win.sum(0), da1p.sum(), chs[P], chs[P + 1], chs[:P], da2p.sum(), cols[0],
-            cols[1], wz.sum(0)]
-    for name, got, w in zip(tbb.GRAD_ORDER, grads, want):
-        assert torch.equal(got[nb], w), name
-        assert torch.isnan(got[:nb]).all() and torch.isnan(got[nb + 1:]).all(), name
+    fn(slots, counts, grads, nb0)
+    for j, n in enumerate(counts):
+        wz, win, chpart, colpart, da1p, da2p = slots.slot(j, n)
+        chs, cols = chpart.sum(0), colpart.sum(0)
+        want = [win.sum(0), da1p.sum(), chs[P], chs[P + 1], chs[:P], da2p.sum(), cols[0],
+                cols[1], wz.sum(0)]
+        for name, got, w in zip(tbb.GRAD_ORDER, grads, want):
+            assert torch.equal(got[nb0 + j], w), (name, j)
+    for name, got in zip(tbb.GRAD_ORDER, grads):
+        assert torch.isnan(got[:nb0]).all() and torch.isnan(got[nb0 + 3:]).all(), name
+
+
+def test_finish_group_fills_the_cap():
+    """Blocks per KF launch: as many slots as fit FINISH_SLOTS_CAP, at most
+    NB and the kernel's FIN_MAX_GROUP; the paper config's partials (batch
+    5 x 4 s, bf16, an H100's plans) take one group of 32 blocks."""
+    paper = tbb.PartCounts(7, 7, 125, 125, 125, 500)
+    nbytes = tbb.slot_bytes(paper, 256, 512, 3)
+    assert 8e6 < nbytes < 10e6
+    assert tbb.finish_group(32, nbytes) == 32
+    assert tbb.finish_group(60, 4 * nbytes) == tbb.FINISH_SLOTS_CAP // (4 * nbytes) < 60
+    assert tbb.finish_group(200, 1) == tbb.FIN_MAX_GROUP
+    assert tbb.finish_group(5, 10 ** 12) == 1
 
 
 @pytest.mark.parametrize("norm_type,causal", NORM_CAUSAL)
@@ -190,6 +206,29 @@ def test_chain_ops_match_jax(form, norm_type, causal):
     assert len(ggrads) == len(wgrads) == 10
     for name, a, b in zip(names, ggrads, wgrads):
         np.testing.assert_allclose(a.reshape(b.shape), b, **GRAD, err_msg=name)
+
+
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+def test_grouped_finish_matches_jax(group, norm_type, causal):
+    """The whole-TCN backward with KF's plain form finishing groups of 1,
+    3 (two groups, the last of one block) and NB = 4 blocks: dx and the
+    nine stacked gradients against the JAX op's VJP (Pallas in interpret
+    mode), and the same bits whatever the group."""
+    X, NB, Kp, K = 2, 4, 256, 200
+    ps, x, g = _inputs(51 + causal, NB, K, Kp)
+    jfn = lambda *a: j_tcn.whole_tcn_train(*a, norm_type, causal, X, True, K)  # noqa: E731
+    _, wgrads = _jax_grads(jfn, x, ps, g)
+    tx = torch.from_numpy(x)
+    params = [torch.from_numpy(np.array(p)) for p in ps]
+    _, x_res, c_res, s2 = chain_forward(tx, *params, norm_type, causal, X, K)
+    got = whole_tcn_bwd(torch.from_numpy(g), x_res, c_res, s2, *params, norm_type, causal, X,
+                        K, group=group)
+    for name, a, b in zip(("dx",) + tbb.GRAD_ORDER, got, wgrads):
+        np.testing.assert_allclose(a.numpy().reshape(b.shape), b, **GRAD, err_msg=name)
+    one = whole_tcn_bwd(torch.from_numpy(g), x_res, c_res, s2, *params, norm_type, causal, X,
+                        K, group=1)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
 
 
 @pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
@@ -283,9 +322,10 @@ class _Log(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _meta_chain(meta_lib, form, NB, dt):
+def _meta_chain(meta_lib, form, NB, dt, group=None):
     """The kernel path of `form` on meta tensors: (forward events, backward
-    events), each a list of ("op", name) and ("launch", name)."""
+    events), each a list of ("op", name) and ("launch", name); `group`
+    forces the blocks per KF launch."""
     X, M, Kp, K = 2, 2, 384, 300
     f32 = dict(dtype=torch.float32, device="meta")
     shapes = [(NB, B, H), (NB,), (NB, H), (NB, H), (NB, P, H), (NB,), (NB, H), (NB, H),
@@ -314,7 +354,7 @@ def _meta_chain(meta_lib, form, NB, dt):
     fwd, events[:] = list(events), []
     with Log(events):
         res = chain_bwd(g, x_res, c_res, s2, params, "gLN", False,
-                        [2 ** (nb % X) for nb in range(NB)], K)
+                        [2 ** (nb % X) for nb in range(NB)], K, group=group)
     drain()
     assert res[0].shape == x.shape and [r.shape for r in res[1:]] == [p.shape for p in params]
     return fwd, list(events)
@@ -324,25 +364,43 @@ PER_BLOCK = {
     ("hybrid", "fwd"): ["tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm"],
     ("whole", "fwd"): ["tcn_in_gemm", "tcn_dwconv", "tcn_out_gemm"],
     ("hybrid", "bwd"): ["tcn_in_gemm", "tcn_bwd_dz", "tcn_wgrad", "tcn_bwd_dwconv",
-                        "tcn_bwd_dx", "tcn_wgrad", "tcn_bwd_finish"],
+                        "tcn_bwd_dx", "tcn_wgrad"],
     ("whole", "bwd"): ["tcn_in_gemm", "tcn_dwconv", "tcn_bwd_dz", "tcn_wgrad",
-                       "tcn_bwd_dwconv", "tcn_bwd_dx", "tcn_wgrad", "tcn_bwd_finish"],
+                       "tcn_bwd_dwconv", "tcn_bwd_dx", "tcn_wgrad"],
 }
+
+
+def _want_launches(form, side, NB, group):
+    """The kernels per block, NB times, and on the backward one KF after
+    each group's last block (groups of `group` from block NB-1 down; None:
+    one group, the meta shapes' slots being far under the cap)."""
+    per = PER_BLOCK[(form, side)]
+    if side == "fwd":
+        return per * NB
+    G = group or NB
+    want = []
+    for nb in range(NB - 1, -1, -1):
+        want += per
+        if (NB - 1 - nb) % G == G - 1 or nb == 0:
+            want.append("tcn_bwd_finish")
+    return want
 
 
 @pytest.mark.parametrize("form", ["hybrid", "whole"])
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
-def test_per_block_loops_launch_only_the_kernels(meta_lib, form, dt):
+@pytest.mark.parametrize("group", [None, 3])
+def test_per_block_loops_launch_only_the_kernels(meta_lib, form, dt, group):
     """Forward and backward of each chain op: the hand-written kernels in
-    order, NB times; between the first launch and the last only views and
-    allocations (no reduction, stack, cast, transpose or copy); before the
-    first launch the same torch ops whatever NB (the once-per-call casts,
-    transposes and copies)."""
+    order, NB times, and KF once per group of blocks (one group; or groups
+    of three, the last one short); between the first launch and the last
+    only views and allocations (no reduction, stack, cast, transpose or
+    copy); before the first launch the same torch ops whatever NB (the
+    once-per-call casts, transposes and copies, and the slots' buffers)."""
     heads = {}
     for NB in (2, 4):
-        for side, events in zip(("fwd", "bwd"), _meta_chain(meta_lib, form, NB, dt)):
+        for side, events in zip(("fwd", "bwd"), _meta_chain(meta_lib, form, NB, dt, group)):
             launches = [n for kind, n in events if kind == "launch"]
-            assert launches == PER_BLOCK[(form, side)] * NB, (side, launches)
+            assert launches == _want_launches(form, side, NB, group), (side, launches)
             first = next(i for i, e in enumerate(events) if e[0] == "launch")
             last = max(i for i, e in enumerate(events) if e[0] == "launch")
             loop_ops = {n for kind, n in events[first:last] if kind == "op"}

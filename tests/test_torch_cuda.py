@@ -213,7 +213,9 @@ def test_training_ops_match_plain(dev, norm_type, causal, dtype, tol):
             assert _rel_l2(a, b) <= tol, (op.__name__, i)
     counts = tbb.counts()
     assert counts["tcn_bwd_dz"] == 2 * X + 1 and counts["tcn_wgrad_in"] == 2 * X + 1
-    assert counts["tcn_bwd_finish"] == 2 * X + 1
+    # KF once per group: the whole-TCN op's 2X blocks fill one group, the
+    # whole block is a group of one, and the hybrid op's backward is plain
+    assert counts["tcn_bwd_finish"] == 2
 
 
 def test_backward_repeats_bit_for_bit(dev):
@@ -234,29 +236,50 @@ def test_backward_repeats_bit_for_bit(dev):
 @pytest.mark.parametrize("n_kw,n_tile,B,H,P", [(1, 1, 128, 256, 3), (7, 125, 256, 512, 3),
                                                (25, 250, 256, 512, 3), (3, 40, 128, 128, 8)])
 def test_bwd_finish_matches_plain_and_repeats(dev, n_kw, n_tile, B, H, P):
-    """KF against bwd_finish_plain on random partials of each layout, into
-    row 1 of three stacked gradients (the others untouched), and two
-    launches giving identical bits."""
+    """KF against bwd_finish_plain on a group of three slots of random
+    partials of each layout (the last slots holding fewer KB2 partials
+    than the buffers), into rows 1-3 of five stacked gradients (the others
+    untouched), and two launches giving identical bits."""
     gen = torch.Generator(device=dev).manual_seed(n_kw + n_tile)
-
-    def part(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    parts = (part(n_kw, H, B), part(n_kw, B, H), part(n_tile, P + 2, H),
-             part(2 * n_tile, 2, H), part(2 * n_tile), part(4 * n_tile))
-    shapes = [(3, B, H), (3,), (3, H), (3, H), (3, P, H), (3,), (3, H), (3, H), (3, H, B)]
-    want = [torch.full(sh, float("nan"), device=dev) for sh in shapes]
-    got = [torch.full(sh, float("nan"), device=dev) for sh in shapes]
-    again = [torch.full(sh, float("nan"), device=dev) for sh in shapes]
-    tbb.bwd_finish_plain(*parts, want, 1)
+    cap = tbb.PartCounts(n_kw, n_kw, n_tile, 2 * n_tile, 2 * n_tile, 4 * n_tile)
+    slots = tbb.FinishSlots.alloc(3, cap, B, H, P, dev)
+    for t in slots:
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    counts = [cap, cap._replace(nch=max(1, n_tile // 2), nda2=2 * n_tile),
+              cap._replace(nch=1, nda2=1)]
+    shapes = [(5, B, H), (5,), (5, H), (5, H), (5, P, H), (5,), (5, H), (5, H), (5, H, B)]
+    want, got, again = ([torch.full(sh, float("nan"), device=dev) for sh in shapes]
+                        for _ in range(3))
+    tbb.bwd_finish_plain(slots, counts, want, 1)
     tbb.reset_counts()
-    tbb.tcn_bwd_finish(*parts, got, 1)
-    tbb.tcn_bwd_finish(*parts, again, 1)
+    tbb.tcn_bwd_finish(slots, counts, got, 1)
+    tbb.tcn_bwd_finish(slots, counts, again, 1)
     assert tbb.counts()["tcn_bwd_finish"] == 2
     for name, a, b, c in zip(tbb.GRAD_ORDER, got, want, again):
-        assert _rel_max(a[1], b[1]) <= 1e-4, name
-        assert torch.isnan(a[0]).all() and torch.isnan(a[2]).all(), name
-        assert torch.equal(a[1], c[1]), name
+        assert _rel_max(a[1:4], b[1:4]) <= 1e-4, name
+        assert torch.isnan(a[0]).all() and torch.isnan(a[4]).all(), name
+        assert torch.equal(a[1:4], c[1:4]), name
+
+
+def test_grouped_finish_repeats_whatever_the_group(dev):
+    """The whole-TCN backward with KF finishing groups of 1, 3 (the last
+    group short) and all 2X blocks: the same bits, a KF launch per group."""
+    X, K, Kp = 2, 300, 384
+    args = _blocks(2 * X, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((2, Kp, 128), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(torch.bfloat16)
+    g = torch.randn((2, Kp, 128), generator=gen, device=dev).to(torch.bfloat16)
+    _, x_res, c_res, s2 = chain_save(x, *args, "gLN", False, X, K)
+    runs = {}
+    for group in (1, 3, 2 * X):
+        tbb.reset_counts()
+        runs[group] = whole_tcn_bwd(g, x_res, c_res, s2, *args, "gLN", False, X, K,
+                                    group=group)
+        assert tbb.counts()["tcn_bwd_finish"] == -(-2 * X // group)
+    for group in (1, 3):
+        assert all(torch.equal(a, b) for a, b in zip(runs[group], runs[2 * X]))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 1e-1)])
@@ -324,7 +347,8 @@ def test_hybrid_chain_matches_the_per_block_ops(dev, dtype, tol):
         assert torch.isfinite(a.float()).all() and _rel_l2(a, b) <= tol, i
 
 
-@pytest.mark.parametrize("NB,H,B", [(4, 256, 128), (32, 512, 256), (60, 1024, 256)])
+@pytest.mark.parametrize("NB,H,B", [(4, 256, 128), (32, 512, 256), (60, 1024, 256),
+                                    (1, 130, 256), (1, 40, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fold_weights_kernel_matches_plain(dev, NB, H, B, dtype):
     """KFW against fold_weights: wp bit for bit; g2w / b2w within 1e-4 of

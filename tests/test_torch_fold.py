@@ -25,7 +25,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from convtasnet_torch.ops.kernels import tcn_block as tb
 from convtasnet_torch.ops.kernels.whole_tcn import whole_tcn
 from convtasnet_tpu.ops.pallas.whole_tcn import whole_tcn_pallas
-from test_torch_gemm_plan import meta_lib  # noqa: F401 (fixture)
+from test_torch_gemm_plan import H100_SMS, meta_lib  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 FWD = dict(rtol=5e-4, atol=5e-5)
@@ -132,8 +132,30 @@ def test_kfw_launches_once_with_the_stacked_shapes(meta_lib, dtype, code):
     assert [name for name, _ in meta_lib.calls] == ["tcn_fold_weights"]
     args = meta_lib.calls[0][1]
     assert args[1] == code and args[-4:-1] == (NB, h, b)
+    # the stand-in library answers 0 resident CTAs: the plan counts two per SM
+    assert args[-6:-4] == tb.fold_plan(NB, h, b, H100_SMS, 0) == (3, 171)
     assert wp.shape == (NB, h, b) and wp.dtype == dtype
     assert g2w.shape == b2w.shape == (NB, b) and g2w.dtype == b2w.dtype == torch.float32
+
+
+@pytest.mark.parametrize("NB,H,B,resident,want", [
+    (32, 512, 256, 4, (4, 128)),     # the paper widths
+    (60, 1024, 256, 4, (2, 512)),    # the scaled config's
+    (32, 512, 256, 1, (3, 171)),     # one CTA resident: two per SM all the same
+    (1, 130, 256, 4, (2, 65)),       # one block, H no multiple of anything
+    (1, 40, 64, 4, (1, 40)),         # fewer rows than a slice's least
+    (200, 512, 256, 4, (1, 512))])   # more column tiles than one wave holds
+def test_kfw_plan_splits_h_for_every_sm(NB, H, B, resident, want):
+    """KFW's grid: slices of H such that the CTAs number at least two per
+    SM (or as many as are resident at once, if more), each slice at least
+    FOLD_MIN_ROWS rows (four 16-byte loads per thread), the slices covering
+    H."""
+    splits, rows = tb.fold_plan(NB, H, B, H100_SMS, resident)
+    assert (splits, rows) == want
+    assert splits * rows >= H > (splits - 1) * rows
+    assert splits == 1 or rows >= tb.FOLD_MIN_ROWS
+    tiles = NB * B // tb.FOLD_COLS
+    assert tiles * splits >= min(2 * H100_SMS, tiles * max(1, H // tb.FOLD_MIN_ROWS))
 
 
 @pytest.mark.parametrize("what,shapes,dtype,match", [

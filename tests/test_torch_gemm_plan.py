@@ -158,7 +158,7 @@ class _Lib:
 def meta_lib(monkeypatch):
     """The wrappers on meta tensors, up to a recorded launch (the checks of
     device and contiguity accept meta tensors; KW's card query of resident
-    clusters answers nothing)."""
+    clusters and KFW's of resident CTAs answer nothing)."""
     lib = _Lib()
 
     def check_meta(*ts, dtype=None):
@@ -174,6 +174,7 @@ def meta_lib(monkeypatch):
         monkeypatch.setattr(mod, "_stream", lambda t: 0)
         monkeypatch.setattr(mod, "_resident", lambda index, mode: H100_RESIDENT.get(mode, ()))
     monkeypatch.setattr(tbb, "_max_clusters", lambda index, n_cols: ())
+    monkeypatch.setattr(tb, "_fold_resident", lambda index, code: 0)
     return lib
 
 

@@ -6,11 +6,12 @@
   interpret mode, plain XLA backward), and against the per-block op it
   replaces in the model; its saved y1 / c against the per-block op's;
 - the model's `hybrid` training forward past the memory gate (the budget
-  lowered inside the test): the gradient of each stacked block leaf
-  comes from one node of the chain Function, through views only (no
-  per-block select), and the gradients match the JAX model's, which takes
-  its own per-block hybrid form when the whole-TCN kernel does not fit
-  (forced inside the test the same way).
+  lowered inside the test): it takes the `whole` chain, which saves less
+  than the whole-TCN op; the gradient of each stacked block leaf comes
+  from one node of that chain Function, through views only (no per-block
+  select), and the gradients match the JAX model's, which takes its own
+  per-block hybrid form when the whole-TCN kernel does not fit the TPU's
+  VMEM (forced inside the test the same way).
 
 Tolerances: rtol 5e-4 / atol 5e-5 on forwards and losses, rtol 2e-3 /
 atol 5e-4 on gradients (tests/test_pallas_tcn.py's)."""
@@ -25,9 +26,8 @@ import convtasnet_tpu
 from convtasnet_torch.config import ConvTasNetConfig
 from convtasnet_torch.models import conv_tasnet as tm
 from convtasnet_torch.ops.kernels import tcn_block as tb
-from convtasnet_torch.ops.kernels.whole_block_hybrid import (_WholeChainHybrid,
-                                                             whole_block_hybrid,
-                                                             whole_chain_hybrid)
+from convtasnet_torch.ops.kernels.whole_block_hybrid import whole_block_hybrid, whole_chain_hybrid
+from convtasnet_torch.ops.kernels.whole_block_vjp import _WholeChainTrain
 from convtasnet_torch.ops.kernels.whole_tcn_hybrid import chain_forward
 from convtasnet_torch.ops.loss import cal_loss
 from convtasnet_torch.training import optim as to
@@ -209,11 +209,12 @@ def _parents(root):
 @pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
 def test_model_hybrid_past_the_gate_runs_one_chain_node(monkeypatch, norm_type):
     """use_kernels="hybrid" with the budget at 1 KiB: the forward takes the
-    per-block hybrid form, the graph holds one node of the chain Function,
-    and each stacked block leaf's gradient reaches it through views alone
-    (no SelectBackward, no index). Loss and every gradient leaf against
-    the JAX model with use_pallas="hybrid" whose whole-TCN kernel is made
-    not to fit, so that it takes its per-block hybrid form too."""
+    `whole` chain (the gate's fallback), the graph holds one node of that
+    chain Function, and each stacked block leaf's gradient reaches it
+    through views alone (no SelectBackward, no index). Loss and every
+    gradient leaf against the JAX model with use_pallas="hybrid" whose
+    whole-TCN kernel is made not to fit VMEM, so that it takes its own
+    fallback, the per-block hybrid form: the same gradients."""
     jcfg = convtasnet_tpu.ConvTasNetConfig(norm_type=norm_type, use_pallas="hybrid", **SMALL)
     params, state = convtasnet_tpu.init_params(jax.random.key(11), jcfg)
     rng = np.random.default_rng(11)
@@ -232,7 +233,7 @@ def test_model_hybrid_past_the_gate_runs_one_chain_node(monkeypatch, norm_type):
 
     cfg = ConvTasNetConfig(norm_type=norm_type, use_kernels="hybrid", **SMALL)
     monkeypatch.setattr(tm, "residual_budget", lambda device: 1024)
-    assert tm.chain_form(cfg, True, M, 200, "cpu") == "whole_block_hybrid"
+    assert tm.chain_form(cfg, True, M, 200, "cpu") == "whole_block_train"
     tp, ts = tm.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
                                 jax.tree_util.tree_map(np.asarray, state), "cpu")
     leaves_tree = to.tree_map(lambda p: p.clone().requires_grad_(True), tp)
@@ -241,7 +242,7 @@ def test_model_hybrid_past_the_gate_runs_one_chain_node(monkeypatch, norm_type):
 
     parents = _parents(loss.grad_fn)
     chain = [n for n in list(parents) + [loss.grad_fn]
-             if type(n).__name__ == _WholeChainHybrid.__name__ + "Backward"]
+             if type(n).__name__ == _WholeChainTrain.__name__ + "Backward"]
     assert len(chain) == 1
     blocks = leaves_tree["separator"]["blocks"]
     for k in BLOCK_LEAVES:

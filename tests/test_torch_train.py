@@ -163,29 +163,36 @@ def test_module_parameters_are_trainable():
     assert not torch.equal(model.bn_in_mean, before) and not model.bn_in_mean.requires_grad
 
 
-def test_hybrid_memory_gate_falls_back_to_the_per_block_op(monkeypatch):
-    """Repair: use_kernels=hybrid takes the per-block hybrid form, as one
-    chain op over the blocks, when the whole-TCN op's residuals exceed the
-    budget; both give the eager gradients."""
+def test_hybrid_memory_gate_falls_back_to_the_whole_chain(monkeypatch):
+    """Repair: use_kernels=hybrid takes the `whole` chain (whole_chain_train,
+    which saves the block inputs alone) when the whole-TCN op's residuals
+    exceed the budget; both give the eager gradients. The fallback's bytes
+    are the block inputs', a third of the whole-TCN op's at B = H / 2."""
     _, _, _, cfg0, tp, ts, (mix, src, lens) = _setup(4)
     cfg = dataclasses.replace(cfg0, use_kernels="hybrid")
     K_pad = 256
     assert tm.residual_bytes(cfg, 2, K_pad) == 2 * 2 * K_pad * 256 * 4
+    assert tm.fallback_bytes(cfg, 2, K_pad) == 2 * 2 * K_pad * cfg.B * 4
+    assert 3 * tm.fallback_bytes(dataclasses.replace(cfg, B=256, H=512), 2, K_pad) == \
+        tm.residual_bytes(dataclasses.replace(cfg, B=256, H=512), 2, K_pad)
     calls = []
-    for name in ("whole_tcn_train", "whole_chain_hybrid"):
+    for name in ("whole_tcn_train", "whole_chain_train"):
         fn = getattr(tm, name)
         monkeypatch.setattr(tm, name, lambda *a, _fn=fn, _n=name, **k: (calls.append(_n),
                                                                         _fn(*a, **k))[1])
     grads = {}
-    for tag, budget in (("eager", None), ("whole", 1 << 30), ("block", 1024)):
+    for tag, budget in (("eager", None), ("hybrid", 1 << 30), ("fallback", 1024)):
         monkeypatch.setattr(tm, "residual_budget", lambda device, b=budget: b)
+        if budget is not None:
+            assert tm.chain_form(cfg, True, 2, 200, "cpu") == (
+                "whole_tcn_train" if tag == "hybrid" else "whole_block_train")
         leaves_tree = to.tree_map(lambda p: p.clone().requires_grad_(True), tp)
         est, _ = tm.forward(leaves_tree, ts, cfg0 if tag == "eager" else cfg,
                             torch.from_numpy(mix), train=True)
         loss = cal_loss(torch.from_numpy(src), est, torch.from_numpy(lens))[0]
         grads[tag] = torch.autograd.grad(loss, to.tree_leaves(leaves_tree))
-    assert calls == ["whole_tcn_train", "whole_chain_hybrid"]
-    for tag in ("whole", "block"):
+    assert calls == ["whole_tcn_train", "whole_chain_train"]
+    for tag in ("hybrid", "fallback"):
         for a, b in zip(grads[tag], grads["eager"]):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD)
 
