@@ -160,13 +160,20 @@
    the DP forward (auto, batch 8 split 4 + 4) and the TP = 2 forward and
    train step (eager chain); each is held against the single-process run,
    with each rank's kernel launches and the collectives per step (2 for
-   DP: the real-row count and the gradient bucket). Then one rank over
-   NCCL: the train CLI for one epoch through its distributed path
-   (torchrun's variables) against the train phase's losses, the DP step
-   bit for bit against the plain step, cp_forward at n = 1 (the padding
-   path) against forward, and the DP step timed against the plain step in
-   turns (CUDA events, device busy from torch.profiler). The world-2 step
-   times go through the host and are printed as such;
+   DP: the real-row count and the gradient bucket), and a Solver on the
+   gloo DP mesh keeps eager steps. Then one rank over NCCL: the train CLI
+   for two epochs through its distributed path (torchrun's variables), its
+   steps graphed and replayed, the first epoch against the train phase's
+   losses; the DP step bit for
+   bit against the plain step, cp_forward at n = 1 (the padding path)
+   against forward, and the DP step timed against the plain step in turns
+   (CUDA events, device busy from torch.profiler); then the DP `hybrid`
+   and `whole` steps through GraphedStep with their NCCL all-reduces
+   captured, 10 steps bit for bit against the eager DP step and the
+   graphed plain step, 1 capture, 8 replays, 2 collectives on every call,
+   and `hybrid` timed in turns (plain graphed, DP graphed, DP graphed,
+   plain graphed, DP eager). The world-2 step times go through the host
+   and are printed as such;
 12. prints the card again, a {"kernels": [...]} line (each kernel with its
    `design`, `cold_ms` and shares of its bound) and, last, {"ok": true,
    "device": {...}}.
@@ -1729,17 +1736,20 @@ def _sgd_delta(step, params, opt, state, mix, src, lens):
 
 def _par_worker(rank, world, tmp, dev_type):
     """One of two ranks on cuda:0 over gloo: the DP hybrid train step (f32
-    and bf16), the DP `auto` forward, and the TP forward and train step
-    (eager chain); writes its results to tmp/par_r<rank>.pt."""
+    and bf16), the DP `auto` forward, the TP forward and train step (eager
+    chain), and whether a Solver on the DP mesh keeps its steps eager;
+    writes its results to tmp/par_r<rank>.pt."""
     import dataclasses
 
-    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.config import ConvTasNetConfig, TrainConfig
     from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import ConvTasNet
     from convtasnet_torch.parallel import comm, distributed
     from convtasnet_torch.parallel.mesh import (gather_params, graphable, make_mesh,
-                                                mesh_forward, shard_batch_fn, shard_params_fn)
+                                                mesh_forward, shard_batch_fn, shard_params_fn,
+                                                steps_graphable)
     from convtasnet_torch.training.optim import Optimizer, tree_leaves
-    from convtasnet_torch.training.solver import make_train_step
+    from convtasnet_torch.training.solver import Solver, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = distributed.initialize(f"file://{tmp}/par_store", world, rank, backend="gloo",
@@ -1803,6 +1813,13 @@ def _par_worker(rank, world, tmp, dev_type):
         res["tp_step_float32"] = {"loss": float(loss), "collectives": collectives,
                                   "delta": [(a - b).cpu() for a, b in
                                             zip(tree_leaves(w0), tree_leaves(w1))]}
+        # gloo stages its all-reduces through the host: no graphed steps.
+        model = ConvTasNet(dataclasses.replace(base, use_kernels="hybrid"), params, {},
+                           device=dev)
+        solver = Solver(model, TrainConfig(save_folder=os.path.join(tmp, "gloo_solver")), None,
+                        None, log=lambda msg: None, mesh=mesh)
+        res["gloo_steps"] = {"gate": steps_graphable(mesh),
+                             "graph_counts": solver.graph_counts()}
         torch.save(res, os.path.join(tmp, f"par_r{rank}.pt"))
     finally:
         distributed.shutdown()
@@ -1838,10 +1855,11 @@ def _run_world2(tmp, dev):
 
 def parallel_phase(cfg, dev, tmp, hybrid_run):
     """DP and TP over torch.distributed at the paper config: two gloo ranks
-    on cuda:0 (DP hybrid step, DP auto forward, TP forward and step)
-    against the single-process runs, then one NCCL rank (the train CLI
-    through its distributed path, the DP step bit for bit, cp_forward at
-    n = 1, and the DP step timed against the plain step)."""
+    on cuda:0 (DP hybrid step, DP auto forward, TP forward and step, a DP
+    Solver that keeps eager steps) against the single-process runs, then
+    one NCCL rank (the train CLI through its distributed path, its steps
+    graphed; the DP step bit for bit, cp_forward at n = 1, the DP step
+    timed against the plain step; the graphed DP steps, _graphed_dp_steps)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -1940,6 +1958,11 @@ def parallel_phase(cfg, dev, tmp, hybrid_run):
             f"#{worst[1]} (relative L2)", worst[0], TOL_GRAD_F32)
     timing["tp_collectives_per_step"] = ranks[0]["tp_step_float32"]["collectives"]
     log(f"  TP step (tp 2): {timing['tp_collectives_per_step']} collectives per step")
+    for r, res in enumerate(ranks):
+        g = res["gloo_steps"]
+        chk(f"gloo DP rank {r} on {dev}: Solver keeps eager steps (gate {g['gate']}, "
+            f"graph_counts {g['graph_counts']})",
+            float(g["gate"] or g["graph_counts"] is not None), 0)
 
     # ---- world 1 over NCCL -------------------------------------------------
     # The train CLI through its distributed path: torchrun's variables.
@@ -1948,7 +1971,10 @@ def parallel_phase(cfg, dev, tmp, hybrid_run):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        out = train_main(hybrid_run["argv"] + ["--save_folder", os.path.join(tmp, "exp_nccl")])
+        # A second epoch, so that the graphed train step replays (one
+        # epoch is two steps: the eager call and the capture).
+        out = train_main(hybrid_run["argv"] + ["--epochs", "2", "--save_folder",
+                                               os.path.join(tmp, "exp_nccl")])
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1958,11 +1984,18 @@ def parallel_phase(cfg, dev, tmp, hybrid_run):
     want = hybrid_run["out"]
     log(f"  train CLI at world 1 (nccl, env init): tr_loss {out['tr_loss']}, cv_loss "
         f"{out['cv_loss']} (non-distributed: {want['tr_loss']}, {want['cv_loss']})")
-    chk("train CLI world 1: steps", abs(out["steps"] - want["steps"]), 0)
+    chk("train CLI world 1: steps (two epochs)", abs(out["steps"] - 2 * want["steps"]), 0)
     for k in ("tr_loss", "cv_loss"):
-        chk(f"train CLI world 1: {k} vs the non-distributed run (relative)",
-            float(np.max(np.abs(np.subtract(out[k], want[k])) / np.abs(want[k]))), 1e-6)
+        chk(f"train CLI world 1: epoch 1 {k} vs the non-distributed run (relative)",
+            float(np.max(np.abs(np.subtract(out[k][:1], want[k])) / np.abs(want[k]))), 1e-6)
+        chk(f"train CLI world 1: epoch 2 {k} finite", float(not np.isfinite(out[k][1])), 0)
     chk("train CLI world 1: process group closed", float(dist.is_initialized()), 0)
+    log(f"  train CLI world 1 graphs: {out['graphs']}")
+    for name in ("train_step", "cv_step"):
+        g = (out["graphs"] or {}).get(name, {})
+        chk(f"train CLI world 1: {name} ran as CUDA graphs (captures and replays > 0)",
+            float(not (g.get("captures", 0) > 0 and g.get("replays", 0) > 0)), 0)
+    timing["world1_cli_graphs"] = out["graphs"]
 
     distributed.initialize(f"file://{tmp}/nccl_store", 1, 0, device_type=dev.type)
     try:
@@ -2010,10 +2043,84 @@ def parallel_phase(cfg, dev, tmp, hybrid_run):
             timing[f"world1_{name}_step_bf16_busy"] = busy
             log(f"  world-1 nccl {name} step, batch 5 x 4 s, hybrid bf16: {ms[name]} ms "
                 f"(CUDA events, median of 10 each), device {dev_ms[name]} ms, busy {busy}")
+        timing["world1_graphed"] = _graphed_dp_steps(chk, cfg, dev, mesh, hybrid_run)
     finally:
         distributed.shutdown()
     chk.done()
     return timing
+
+
+def _graphed_dp_steps(chk, cfg, dev, mesh, hybrid_run):
+    """The DP `hybrid` and `whole` steps of one NCCL rank through
+    GraphedStep, their all-reduces recorded in the graph (the counterpart
+    of JAX's jitted DP step): TRAIN_GRAPH_STEPS steps (eager call, capture,
+    replays) bit for bit against the eager DP step and the graphed plain
+    step (losses, grad norms, parameters, moments), 2 collectives on every
+    call and an eager step's kernel launches per replay; then, for
+    `hybrid`, timed in turns: plain graphed, DP graphed, DP graphed, plain
+    graphed, DP eager (CUDA events, and busy from tools/_bench.device_ms)."""
+    import dataclasses
+
+    from convtasnet_torch.data.dataset import AudioDataset
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.parallel.mesh import steps_graphable
+
+    n = TRAIN_GRAPH_STEPS
+    chk("world-1 nccl: the DP mesh's steps are graphable", float(not steps_graphable(mesh)), 0)
+    ds = AudioDataset(hybrid_run["tr"], 5)
+    batches = [tuple(torch.from_numpy(np.asarray(a)).to(dev)
+                     for a in (b.mixture, b.lengths, b.source))
+               for b in (ds.load_batch(i) for i in range(len(ds)))]
+    res = {}
+    for form in ("hybrid", "whole"):
+        c = dataclasses.replace(cfg, use_kernels=form)
+        label = f"world-1 nccl DP {form}"
+        params, state = init_params(torch.Generator(device=dev).manual_seed(0), c, device=dev)
+        runs = {"dp_eager": _graph_step_run(c, dev, params, state, batches, n, 0, mesh=mesh)}
+        reset_all_counts()
+        runs["dp_graphed"] = g = _graph_step_run(c, dev, params, state, batches, n,
+                                                 graphed.MAX_GRAPHS, mesh=mesh)
+        counts = all_counts()
+        runs["plain_graphed"] = _graph_step_run(c, dev, params, state, batches, n,
+                                                graphed.MAX_GRAPHS)
+        for other in ("dp_eager", "plain_graphed"):
+            o = runs[other]
+            chk(f"{label}: graphed == {other.replace('_', ' ')} over {n} steps, bit for bit "
+                "(loss, grad norm, parameters, moments)",
+                float(not (_same_bits(g, o) and g[4] == o[4])), 0)
+        gs = g[0].graphed.stats()
+        chk(f"{label}: 1 eager call, 1 capture, {n - 2} replays ({gs})",
+            abs(gs["eager_calls"] - 1) + abs(gs["captures"] - 1) + abs(gs["replays"] - (n - 2)),
+            0)
+        info = next(iter(g[0].graphed.graphs().values()))
+        chk(f"{label}: collectives per call {g[5]}, per replay from the capture "
+            f"{info['launches'].get('collectives')}",
+            max(abs(x - 2) for x in g[5]) + abs(info["launches"].get("collectives", 0) - 2), 0)
+        chk(f"{label}: eager DP collectives per call {runs['dp_eager'][5]}",
+            max(abs(x - 2) for x in runs["dp_eager"][5]), 0)
+        per = per_step_launches(form, c.R * c.X, kf_launches(c, 5, 4 * SR))
+        kernels = {k: v for k, v in info["launches"].items() if k != "collectives"}
+        chk(f"{label}: kernel launches per replay {kernels} == per_step_launches",
+            max(abs(kernels.get(k, 0) - per.get(k, 0)) for k in set(kernels) | set(per)), 0)
+        chk(f"{label}: kernel launches of the {n} graphed calls == {n} x per_step_launches "
+            f"{counts}", max(abs(v - n * per.get(k, 0)) for k, v in counts.items()), 0)
+        row = {"capture_ms": info["capture_ms"], "pool_bytes": info["pool_bytes"],
+               "collectives_per_call": g[5],
+               **{f"{k}_peak_gb": r[2] for k, r in runs.items()}}
+        if form == "hybrid":
+            order = [("plain_graphed", runs["plain_graphed"][0]),
+                     ("dp_graphed", g[0]), ("dp_graphed", g[0]),
+                     ("plain_graphed", runs["plain_graphed"][0]),
+                     ("dp_eager", runs["dp_eager"][0])]
+            for side, step in order:
+                for k, v in _step_timing(step, batches[0]).items():
+                    row.setdefault(f"{side}_{k}", []).append(v)
+        log(f"  {label}, batch 5 x 4 s bf16: {json.dumps(row)}")
+        res[form] = row
+        del runs, g
+        torch.cuda.empty_cache()
+    return res
 
 
 def _free_port() -> int:
@@ -2432,13 +2539,15 @@ TRAIN_GRAPH_STEPS = 10
 TOL_LR_RATIO = 1e-3
 
 
-def _graph_step_run(cfg, dev, params, state, batches, n, cap, lr_at=None):
+def _graph_step_run(cfg, dev, params, state, batches, n, cap, lr_at=None, mesh=None):
     """n Adam steps (clip 5) through a GraphedStep from copies of the
     seeded trees, cycling over `batches`, with graphed.MAX_GRAPHS = cap (0:
     every call eager); with lr_at, the rate is halved the solver's way
-    (set_lr) before that call. Returns (step, losses, peak GB above what
-    was held, parameters before the last call)."""
+    (set_lr) before that call; with `mesh`, the step is that mesh rank's.
+    Returns (step, losses, peak GB above what was held, parameters before
+    the last call, grad norms, collectives per call)."""
     from convtasnet_torch.models import graphed
+    from convtasnet_torch.parallel import comm
     from convtasnet_torch.training.optim import Optimizer, set_lr, tree_leaves, tree_map
     from convtasnet_torch.training.solver import GraphedStep, make_train_step
 
@@ -2446,13 +2555,13 @@ def _graph_step_run(cfg, dev, params, state, batches, n, cap, lr_at=None):
     s = tree_map(lambda t: t.clone(), state)
     opt = Optimizer("adam", lr=1e-3)
     o = opt.init(p)
-    step = GraphedStep(make_train_step(cfg, opt, 5.0), p, o, s,
+    step = GraphedStep(make_train_step(cfg, opt, 5.0, mesh), p, o, s,
                        tag=(cfg.kernel_form(True, dev),))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, cap
-    losses, before = [], None
+    losses, norms, collectives, before = [], [], [], None
     try:
         for i in range(n):
             if i == lr_at:
@@ -2460,13 +2569,17 @@ def _graph_step_run(cfg, dev, params, state, batches, n, cap, lr_at=None):
             if i == n - 1:
                 before = [t.clone() for t in tree_leaves(p)]
             mix, lens, src = batches[i % len(batches)]
-            p, o, s, loss, _ = step(p, o, s, mix, src, lens)
+            ran = comm.counts()["collectives"]
+            p, o, s, loss, norm = step(p, o, s, mix, src, lens)
+            collectives.append(comm.counts()["collectives"] - ran)
             losses.append(loss)
+            norms.append(norm)
         torch.cuda.synchronize()
     finally:
         graphed.MAX_GRAPHS = saved
     peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-    return step, [float(x) for x in losses], peak, before
+    return (step, [float(x) for x in losses], peak, before, [float(x) for x in norms],
+            collectives)
 
 
 def _step_trees(step):

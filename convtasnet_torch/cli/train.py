@@ -22,8 +22,11 @@ the JAX package.
 
 On one card the train step and the CV step run as CUDA graphs, one per
 batch shape (training/solver.GraphedStep), with the parameters,
-optimizer state and BN state updated in place; under --dp / --tp / --cp
-both run eagerly. The run ends with each wrapper's counts in the log.
+optimizer state and BN state updated in place. Under --dp on cards (NCCL,
+tp = cp = 1) every rank runs them as graphs too, with the step's
+all-reduces recorded inside; under --tp / --cp, and on gloo (--device
+cpu), both run eagerly. The run ends with each wrapper's counts in the
+log.
 
 --remat {0,none,1,repeat,block,dots} rematerialises the eager chain in
 backward (config.py; the kernel forms ignore it, as the JAX Pallas tiers

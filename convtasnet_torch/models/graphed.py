@@ -23,7 +23,10 @@ A `stateful` function (the train step, training/solver.GraphedStep)
 updates tensors it closes over in place, so it must run exactly once per
 call: on its capturing call the side-stream warm-up is that call's run,
 the capture only records, and the call returns the warm-up's outputs
-without a replay.
+without a replay. A function whose warm-up ran a collective (a mesh's CV
+step: parallel/comm.py counts them) is treated the same way: each call
+runs each collective once on every rank, so a rank that captures and a
+rank that replays in the same call stay in step.
 
 A replay returns clones of the static outputs, so the next replay never
 overwrites what a caller still holds (both CLIs keep one batch in flight).
@@ -38,11 +41,12 @@ replay that fails raises GraphError naming the key, and the key is never
 captured again; nothing retries eagerly. On the CPU every call runs
 eagerly: graphs are a CUDA mechanism.
 
-The kernel wrappers count their launches on the host, which a replay
-never reaches. The launches counted while a key is captured (recorded, not
-executed) are taken off the counters again and added back on every
-replay, so `tcn_block.counts()` keeps counting kernel executions: the
-side-stream warm-up's, the eager calls' and each replay's.
+The kernel wrappers count their launches, and parallel/comm.py its
+collectives, on the host, which a replay never reaches. What is counted
+while a key is captured (recorded, not executed) is taken off the
+counters again and added back on every replay, so `tcn_block.counts()`
+and `comm.counts()` keep counting executions: the side-stream warm-up's,
+the eager calls' and each replay's.
 
 A process that holds CUDA graphs keeps CUPTI attached between
 torch.profiler sessions (`keep_cupti`), PyTorch's own remedy for graphs
@@ -58,8 +62,10 @@ import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops.kernels import tcn_block, tcn_block_bwd
+from ..parallel import comm
 
 # Graphs kept per wrapper, read at each new key. Its graphs share one pool,
 # which grows to the largest key's activations plus every key's static
@@ -129,7 +135,14 @@ class CudaGraphs:
         keep_cupti()
         dev = inputs[0].device
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
+        # An NCCL group's watchdog thread queries its collectives' events
+        # while this thread captures; under the default "global" mode such
+        # a call from any thread breaks the capture ("operation not
+        # permitted when stream is capturing"). "thread_local" holds only
+        # this thread to the capture rules.
+        nccl = dist.is_available() and dist.is_initialized() and dist.get_backend() == "nccl"
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local" if nccl else "global"):
             # After the context's empty_cache: what is reserved from here on
             # is added to the pool.
             before = torch.cuda.memory_reserved(dev)
@@ -145,19 +158,21 @@ def backend_for(device: torch.device):
 
 
 def _launches() -> Dict[str, int]:
-    return {**tcn_block.counts(), **tcn_block_bwd.counts()}
+    """The kernel launch counters and the collective counter."""
+    return {**tcn_block.counts(), **tcn_block_bwd.counts(), **comm.counts()}
 
 
 def _add_launches(delta: Dict[str, int]) -> None:
     tcn_block.add_counts(delta)
     tcn_block_bwd.add_counts(delta)
+    comm.add_counts(delta)
 
 
 class _Graph(NamedTuple):
     program: Program
     inputs: Tuple[torch.Tensor, ...]
     single: bool                   # the function returned one tensor
-    launches: Dict[str, int]       # kernel launches per replay
+    launches: Dict[str, int]       # kernel launches and collectives per replay
     capture_ms: float
 
 
@@ -217,7 +232,9 @@ class GraphedForward:
         static = tuple(t.clone() for t in inputs)
         t0 = time.perf_counter()
         try:
+            ran = comm.counts()["collectives"]
             warm = backend.warm_up(self.fn, static)
+            once = self.stateful or comm.counts()["collectives"] != ran
             before = _launches()
             program = backend.capture(self.fn, static, self._pool)
         except Exception as e:
@@ -233,7 +250,7 @@ class GraphedForward:
         self._state[key] = self._graphs[key] = graph
         self._pool = program.pool
         self._count("captures")
-        if self.stateful:  # the warm-up was this call's run; the capture only recorded
+        if once:  # the warm-up was this call's run; the capture only recorded
             return _clones((warm,) if single else warm, single)
         return self._replay(key, graph, inputs)
 
@@ -251,7 +268,7 @@ class GraphedForward:
     def graphs(self) -> Dict[tuple, dict]:
         """Per captured key: capture_ms (host time of the warm-up and the
         capture), pool_bytes (what its capture added to the shared pool)
-        and the kernel launches per replay."""
+        and the kernel launches and collectives per replay."""
         return {k: {"capture_ms": g.capture_ms, "pool_bytes": g.program.pool_bytes,
                     "launches": dict(g.launches)} for k, g in self._graphs.items()}
 

@@ -24,8 +24,16 @@ GradBucket is the data-parallel gradient all-reduce: one flat buffer,
 every gradient leaf a view of it, one collective per step.
 
 Each launched collective adds one to `counts()["collectives"]`; a group of
-one rank launches nothing for a shift. Nothing here falls back: a backend
-that cannot carry an op raises from torch.distributed.
+one rank launches nothing for a shift. The count is kept on the host, as
+the kernel wrappers' launch counts are, so models/graphed.py treats it as
+they do: what a capture records is taken off again and added back on
+every replay, and the count says how many collectives ran, whether a step
+ran eagerly or as a graph. Nothing here falls back: a backend that cannot
+carry an op raises from torch.distributed.
+
+What the ops do on the device is all the device needs: none reads a value
+on the host, so an NCCL group's collectives can be recorded into a CUDA
+graph (training/solver.py captures the DP step so).
 """
 
 from __future__ import annotations
@@ -45,6 +53,12 @@ def counts() -> dict:
 
 def reset_counts() -> None:
     _COUNTS["collectives"] = 0
+
+
+def add_counts(delta: dict) -> None:
+    """Add collectives run without passing through an op (a CUDA graph's
+    replay, models/graphed.py); other names are skipped."""
+    _COUNTS["collectives"] += delta.get("collectives", 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +205,9 @@ class GradBucket:
     A flat f32 buffer holds every gradient leaf (in the order given) plus
     `extra` trailing scalars that ride along (the step's loss); `reduce`
     copies the gradients in, all-reduces the buffer once and returns the
-    leaves as views of it."""
+    leaves as views of it. The buffer is allocated here, at the step's
+    first (eager) call, outside any CUDA graph's pool, and keeps its
+    address: a captured step's replays write into it and read it back."""
 
     def __init__(self, leaves: Sequence[torch.Tensor], group, extra: int = 0):
         self.shapes = [tuple(t.shape) for t in leaves]

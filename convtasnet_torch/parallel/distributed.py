@@ -15,6 +15,20 @@ two ranks on one GPU).
 
 A coordinator address with a scheme (`file:///path/store`, `tcp://h:p`)
 is passed to init_process_group as its init_method unchanged.
+
+Under DP on NCCL the Solver captures the train and CV steps as CUDA
+graphs with their all-reduces inside (training/solver.py). What that
+needs of the group:
+* its communicator exists before any capture: NCCL makes it at the
+  group's first collective, which is the first, eager call of a step's
+  key (models/graphed.GraphedForward), never inside a capture;
+* no recordStream on a tensor of a graph's private pool, which the
+  caching allocator cannot honour: ProcessGroupNCCL keeps a collective's
+  tensors alive until its work is done instead. That is its default in
+  the torch the port runs on the card (2.11), which warns that
+  TORCH_NCCL_AVOID_RECORD_STREAMS, the variable that once chose it, is
+  deprecated; so nothing is set here;
+* the capture's error mode (models/graphed.CudaGraphs.capture).
 """
 
 from __future__ import annotations

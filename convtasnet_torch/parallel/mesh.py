@@ -260,8 +260,25 @@ def graphable(mesh: Optional[Mesh]) -> bool:
     collective on its path and may be captured as a CUDA graph: one card,
     or DP with tp = cp = 1 (each rank runs the single-card forward on its
     rows). TP and CP run collectives inside the forward; their graphs wait
-    for a machine with two cards."""
+    for a machine with two cards. The train and CV steps have their own
+    gate, `steps_graphable`."""
     return mesh is None or (mesh.tp == 1 and mesh.cp == 1)
+
+
+def steps_graphable(mesh: Optional[Mesh]) -> bool:
+    """Whether the train and CV steps of `mesh` (None: one card) may be
+    captured as CUDA graphs with their collectives inside, as the JAX
+    package jits one step under every mesh: one card, or DP with tp = cp = 1
+    whose data group is NCCL on a card. The DP step's all-reduces (the
+    real-row count, the gradient bucket, the CV loss, BN's batch
+    statistics) are NCCL kernels, which a graph records; gloo stages them
+    through the host and cannot be captured, on the CPU or on a card. TP
+    and CP stay eager: their forwards hold collectives that one card cannot
+    check (NCCL refuses two ranks on one card)."""
+    if mesh is None:
+        return True
+    return (mesh.tp == 1 and mesh.cp == 1 and mesh.device.type == "cuda"
+            and dist.get_backend(mesh.data) == "nccl")
 
 
 def mesh_forward(cfg, params, state, mesh: Optional[Mesh]) -> Callable:

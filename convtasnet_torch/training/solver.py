@@ -21,14 +21,18 @@ solver.py:12-210):
   logged ("visualize failed: ...") and training goes on
   (utils/visualize.py).
 
-On one card (no mesh) both steps run as CUDA graphs, one per key of
-batch shapes (`GraphedStep`, models/graphed.py), as the JAX package jits
-them: the parameters, optimizer state and BN state live in static
-buffers that every call (eager first call, capture, replay) updates in
-place, the counterpart of the JAX step's donated buffers. On the CPU the
-same wrappers run every call eagerly. Under a mesh (DP, TP, CP) both
-steps stay eager: the DP step holds two collectives, gloo cannot be
-captured, and NCCL at world >= 2 needs two cards.
+On one card, and on every rank of a DP mesh (tp = cp = 1) whose data
+group is NCCL, both steps run as CUDA graphs, one per key of batch
+shapes (`GraphedStep`, models/graphed.py), as the JAX package jits them
+under every mesh: the parameters, optimizer state and BN state live in
+static buffers that every call (eager first call, capture, replay)
+updates in place, the counterpart of the JAX step's donated buffers.
+Under DP the step's NCCL all-reduces are recorded inside the graph, as
+XLA puts the gradient all-reduce inside the jitted step; each call runs
+each of them once on every rank, and the ranks' keys agree because every
+rank keeps the same number of rows of the padded global batch. On the
+CPU the same wrappers run every call eagerly. TP, CP and gloo groups
+keep both steps eager (parallel/mesh.steps_graphable).
 
 On a process mesh (parallel/mesh.py; one process per card) every rank
 loads the same global batch and keeps its rows (`shard_batch`), and its
@@ -59,7 +63,7 @@ from ..parallel.comm import GradBucket, all_reduce_
 from ..parallel.context import make_cp_eval_step, make_cp_train_step
 from ..parallel.distributed import is_coordinator
 from ..parallel.mesh import (broadcast_tree, gather_params, shard_batch_fn, shard_params_fn,
-                             tp_sharded_paths)
+                             steps_graphable, tp_sharded_paths)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .optim import Optimizer, clip_by_global_norm, set_lr, tree_leaves, tree_map
 
@@ -261,7 +265,10 @@ class Solver:
             eval_step = eval_step or make_cp_eval_step(model.cfg, mesh)
         train_step = train_step or make_train_step(model.cfg, self.opt, train_cfg.max_norm, mesh)
         eval_step = eval_step or make_eval_step(model.cfg, mesh)
-        if mesh is None:  # one card: both steps as CUDA graphs (eager on the CPU)
+        # One card or DP over NCCL: both steps as CUDA graphs (eager on the
+        # CPU). The trees were broadcast above, so every rank's static
+        # trees start equal.
+        if steps_graphable(mesh):
             train_step = GraphedStep(train_step, params, opt_state, state,
                                      tag=(model.cfg.kernel_form(True, self.device),))
             eval_step = train_step.eval_step(eval_step,
@@ -316,7 +323,7 @@ class Solver:
                 self.log(f"Learning rate adjusted to: {new_lr:.6f}")
                 self.halving = False
             self.prev_val_loss = val_loss
-            if self.mesh is None:
+            if self.graph_counts() is not None:
                 self.log(f"Graphs | End of Epoch {epoch + 1} | {self.graph_counts()}")
 
             self.tr_loss.append(tr_avg)
@@ -453,9 +460,9 @@ class Solver:
 
     def graph_counts(self) -> Optional[Dict[str, dict]]:
         """The graphed steps' counts (GraphedForward.stats): captures,
-        replays, eager calls, keys seen, graphs, pool bytes; None under a
-        mesh, whose steps run eagerly."""
-        if self.mesh is not None:
+        replays, eager calls, keys seen, graphs, pool bytes; None where the
+        steps run eagerly (TP, CP, a gloo group)."""
+        if not isinstance(self.train_step, GraphedStep):
             return None
         return {"train_step": self.train_step.graphed.stats(),
                 "cv_step": self.eval_step.graphed.stats()}

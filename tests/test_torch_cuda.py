@@ -962,10 +962,11 @@ def test_graphed_outputs_survive_the_next_replay(dev):
         assert torch.equal(s, x + 2) and torch.equal(p, x * 2)
 
 
-def _graph_step_runs(dev, n, cap, use_kernels="hybrid", lr_at=None):
-    """n Adam steps through a GraphedStep with graphed.MAX_GRAPHS = cap (0:
-    every call eager), halving the rate (set_lr) before call lr_at; returns
-    (the step, losses, parameters before the last call)."""
+def _graph_step_runs(dev, n, cap, use_kernels="hybrid", lr_at=None, mesh=None):
+    """n Adam steps (of `mesh`'s rank, if given) through a GraphedStep with
+    graphed.MAX_GRAPHS = cap (0: every call eager), halving the rate
+    (set_lr) before call lr_at; returns (the step, losses, parameters
+    before the last call)."""
     from convtasnet_torch.config import ConvTasNetConfig
     from convtasnet_torch.models import graphed
     from convtasnet_torch.models.conv_tasnet import init_params
@@ -982,7 +983,7 @@ def _graph_step_runs(dev, n, cap, use_kernels="hybrid", lr_at=None):
                                                       dtype=torch.int32)))
     opt = Optimizer("adam", lr=1e-3)
     o = opt.init(params)
-    step = GraphedStep(make_train_step(cfg, opt, 5.0), params, o, state,
+    step = GraphedStep(make_train_step(cfg, opt, 5.0, mesh), params, o, state,
                        tag=(cfg.kernel_form(True, dev),))
     saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, cap
     p, s, losses, before = params, state, [], None
@@ -1033,3 +1034,46 @@ def test_graphed_train_step_reads_the_lr_set_in_place(dev):
               for r in runs]
     assert torch.equal(deltas[0], deltas[1])
     assert abs(float(deltas[0].norm() / deltas[2].norm()) - 0.5) < 1e-3
+
+
+def test_graphed_dp_step_over_nccl_at_world_1(dev, tmp_path):
+    """One NCCL rank: the DP hybrid step through a GraphedStep (eager,
+    capture, three replays) repeats the eager DP steps and the graphed
+    plain steps bit for bit, with the all-reduces recorded in the graph
+    and 2 collectives per call, replays included."""
+    from convtasnet_torch.parallel import comm, distributed
+    from convtasnet_torch.parallel.mesh import make_mesh, steps_graphable
+    from convtasnet_torch.training.optim import tree_leaves
+
+    distributed.initialize(f"file://{tmp_path}/store", 1, 0)
+    try:
+        mesh = make_mesh(1, 1, 1)
+        assert steps_graphable(mesh)
+        e = _graph_step_runs(dev, 5, 0, mesh=mesh)
+        comm.reset_counts()
+        g = _graph_step_runs(dev, 5, 16, mesh=mesh)
+        assert comm.counts()["collectives"] == 2 * 5
+        stats = g[0].graphed.stats()
+        assert (stats["captures"], stats["replays"]) == (1, 3)
+        assert next(iter(g[0].graphed.graphs().values()))["launches"]["collectives"] == 2
+    finally:
+        distributed.shutdown()
+    plain = _graph_step_runs(dev, 5, 16)
+    for other in (e, plain):
+        assert torch.equal(torch.stack(g[1]), torch.stack(other[1]))
+        for tree in (lambda s: s.params, lambda s: s.opt_state.mu, lambda s: s.opt_state.nu):
+            for a, b in zip(tree_leaves(tree(g[0])), tree_leaves(tree(other[0]))):
+                assert torch.equal(a, b)
+
+
+def test_gloo_on_the_card_keeps_the_steps_eager(dev, tmp_path):
+    """gloo stages its collectives through the host: a DP mesh over gloo on
+    cuda:0 is no mesh for graphed steps."""
+    from convtasnet_torch.parallel import distributed
+    from convtasnet_torch.parallel.mesh import make_mesh, steps_graphable
+
+    distributed.initialize(f"file://{tmp_path}/store", 1, 0, backend="gloo")
+    try:
+        assert not steps_graphable(make_mesh(1, 1, 1))
+    finally:
+        distributed.shutdown()

@@ -2,11 +2,12 @@
 `GraphedStep`, on models/graphed.GraphedForward) on the CPU.
 
 The capture backend is a stand-in that records without running the
-function, as a real capture runs no kernel: its warm-up runs the function,
-its capture returns empty outputs shaped like the warm-up's (a captured
-graph's static outputs hold nothing until the first replay), and its
-replay runs the function and writes the results into those outputs. A
-wrapper that stepped at capture as well would show in opt_state.step.
+function, as a real capture runs no kernel (tests/torch_parallel_worker.py
+`RecordOnly`): its warm-up runs the function, its capture returns empty
+outputs shaped like the warm-up's (a captured graph's static outputs hold
+nothing until the first replay), and its replay runs the function and
+writes the results into those outputs. A wrapper that stepped at capture
+as well would show in opt_state.step.
 
 Against the JAX package's jitted, buffer-donating make_train_step on the
 same weights (params_from_jax) and batches: rtol 2e-3 / atol 5e-4 (the
@@ -39,38 +40,13 @@ from convtasnet_torch.training.solver import GraphedStep, Solver, make_train_ste
 from convtasnet_tpu.training import optim as jo
 from convtasnet_tpu.training.solver import make_train_step as j_make_train_step
 
+from torch_parallel_worker import RecordOnly
+
 torch.set_num_threads(1)
 SMALL = dict(N=32, L=16, B=16, H=32, P=3, X=3, R=2, C=2, compute_dtype="float32")
 TOL = dict(rtol=2e-3, atol=5e-4)
 JAX_REMAT = {"none": False, "block": "block", "dots": "dots"}
 STEPS = 5  # eager first call, capture, three replays
-
-
-class RecordOnly:
-    """A capture backend without a card (see the module docstring)."""
-
-    def __init__(self):
-        self.warm_ups, self.captures, self.fail = 0, 0, False
-        self._warm = None
-
-    def warm_up(self, fn, inputs):
-        self.warm_ups += 1
-        self._warm = fn(*inputs)
-        return self._warm
-
-    def capture(self, fn, inputs, pool=None):
-        if self.fail:
-            raise RuntimeError("operation not permitted when stream is capturing")
-        self.captures += 1
-        single = isinstance(self._warm, torch.Tensor)
-        outs = tuple(torch.empty_like(t) for t in ((self._warm,) if single else self._warm))
-
-        def replay():
-            new = fn(*inputs)
-            for o, n in zip(outs, (new,) if single else new):
-                o.copy_(n)
-
-        return graphed.Program(replay, outs[0] if single else outs, pool or "pool", 0)
 
 
 @pytest.fixture(autouse=True)
