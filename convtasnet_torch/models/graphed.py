@@ -41,6 +41,18 @@ replay that fails raises GraphError naming the key, and the key is never
 captured again; nothing retries eagerly. On the CPU every call runs
 eagerly: graphs are a CUDA mechanism.
 
+The layer counts its work on the host, always: `counts()` gives the
+captures, replays and eager calls, each with the host nanoseconds of its
+calls (`capture_ns`: the warm-up and the capture; `replay_ns` and
+`eager_ns`: entry to return of the call), and `over_cap`, the keys sent
+eager for good past MAX_GRAPHS. models/streaming.StreamingSeparator
+counts its captures and replays here too (`count`). While a
+torch.profiler session is active each call also records its spans
+(utils/observability.span): `graphed.call` (attribute `path`: replay,
+capture or eager) over `graphed.copy_in`, `graphed.replay` (the launch
+and the launch counters' bookkeeping) and `graphed.clone`, or
+`graphed.warm_up` and `graphed.capture`, or `graphed.eager`.
+
 The kernel wrappers count their launches, and parallel/comm.py its
 collectives, on the host, which a replay never reaches. What is counted
 while a key is captured (recorded, not executed) is taken off the
@@ -66,6 +78,7 @@ import torch.distributed as dist
 
 from ..ops.kernels import tcn_block, tcn_block_bwd
 from ..parallel import comm
+from ..utils.observability import span
 
 # Graphs kept per wrapper, read at each new key. Its graphs share one pool,
 # which grows to the largest key's activations plus every key's static
@@ -83,7 +96,9 @@ MAX_GRAPHS = 16
 # stateful function's warm-up is its capturing call's one run.
 CAPTURE_WARMUP = 1
 
-_COUNTS = {"captures": 0, "replays": 0, "eager_calls": 0}
+_COUNTS = {"captures": 0, "replays": 0, "eager_calls": 0, "over_cap": 0,
+           "capture_ns": 0, "replay_ns": 0, "eager_ns": 0}
+_NS = {"captures": "capture_ns", "replays": "replay_ns", "eager_calls": "eager_ns"}
 _LIVE: "weakref.WeakSet[GraphedForward]" = weakref.WeakSet()
 
 
@@ -101,6 +116,16 @@ class Program(NamedTuple):
     outputs: object
     pool: object
     pool_bytes: int
+
+
+def count(what: str, since: int) -> int:
+    """One more of `what` (captures, replays, eager_calls) in the layer's
+    counters, with the host nanoseconds since `since` (a
+    time.perf_counter_ns() reading); returns those nanoseconds."""
+    ns = time.perf_counter_ns() - since
+    _COUNTS[what] += 1
+    _COUNTS[_NS[what]] += ns
+    return ns
 
 
 def keep_cupti() -> None:
@@ -196,52 +221,64 @@ class GraphedForward:
         self.fn = fn
         self.tag = tuple(tag)
         self.stateful = stateful
-        self.calls = dict.fromkeys(_COUNTS, 0)  # this wrapper's share of _COUNTS
+        # this wrapper's share of _COUNTS' counts (not of their ns)
+        self.calls = dict.fromkeys((*_NS, "over_cap"), 0)
         self._state: Dict[tuple, object] = {}
         self._graphs: Dict[tuple, _Graph] = {}
         self._pool = None  # the pool of the first capture, shared by the rest
         _LIVE.add(self)
 
-    def _count(self, what: str) -> None:
-        _COUNTS[what] += 1
+    def _count(self, what: str, since: int) -> int:
         self.calls[what] += 1
+        return count(what, since)
 
     def key(self, inputs: Sequence[torch.Tensor]) -> tuple:
         return tuple((tuple(t.shape), t.dtype, t.device) for t in inputs) + self.tag
 
     def __call__(self, *inputs: torch.Tensor):
-        if not inputs or not all(isinstance(t, torch.Tensor) for t in inputs):
-            raise TypeError("GraphedForward takes tensors only")
-        backend = backend_for(inputs[0].device)
-        key = self.key(inputs)
-        state = self._state.get(key)
-        if isinstance(state, _Graph):
-            return self._replay(key, state, inputs)
-        if isinstance(state, GraphError):
-            raise GraphError(f"key {key} failed before: {state}")
-        if backend is not None and state is _SEEN:
-            if len(self._graphs) < MAX_GRAPHS:
-                return self._capture(key, backend, inputs)
-            self._state[key] = _EAGER
-        elif backend is not None and state is None:
-            self._state[key] = _SEEN
-        self._count("eager_calls")
-        return self.fn(*inputs)
+        t0 = time.perf_counter_ns()
+        with span("graphed.call") as sp:
+            if not inputs or not all(isinstance(t, torch.Tensor) for t in inputs):
+                raise TypeError("GraphedForward takes tensors only")
+            backend = backend_for(inputs[0].device)
+            key = self.key(inputs)
+            state = self._state.get(key)
+            if isinstance(state, _Graph):
+                sp.set("path", "replay")
+                return self._replay(key, state, inputs, t0)
+            if isinstance(state, GraphError):
+                raise GraphError(f"key {key} failed before: {state}")
+            if backend is not None and state is _SEEN:
+                if len(self._graphs) < MAX_GRAPHS:
+                    sp.set("path", "capture")
+                    return self._capture(key, backend, inputs)
+                self._state[key] = _EAGER
+                _COUNTS["over_cap"] += 1
+                self.calls["over_cap"] += 1
+            elif backend is not None and state is None:
+                self._state[key] = _SEEN
+            sp.set("path", "eager")
+            with span("graphed.eager"):
+                out = self.fn(*inputs)
+            self._count("eager_calls", t0)
+            return out
 
     def _capture(self, key, backend, inputs):
         static = tuple(t.clone() for t in inputs)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         try:
             ran = comm.counts()["collectives"]
-            warm = backend.warm_up(self.fn, static)
+            with span("graphed.warm_up"):
+                warm = backend.warm_up(self.fn, static)
             once = self.stateful or comm.counts()["collectives"] != ran
             before = _launches()
-            program = backend.capture(self.fn, static, self._pool)
+            with span("graphed.capture"):
+                program = backend.capture(self.fn, static, self._pool)
         except Exception as e:
             err = GraphError(f"capture of key {key} failed: {type(e).__name__}: {e}")
             self._state[key] = err
             raise err from e
-        capture_ms = (time.perf_counter() - t0) * 1e3
+        capture_ms = self._count("captures", t0) * 1e-6
         launches = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
         _add_launches({k: -v for k, v in launches.items()})  # recorded, not run
         single = isinstance(program.outputs, torch.Tensor)
@@ -249,21 +286,24 @@ class GraphedForward:
         graph = _Graph(program._replace(outputs=outs), static, single, launches, capture_ms)
         self._state[key] = self._graphs[key] = graph
         self._pool = program.pool
-        self._count("captures")
         if once:  # the warm-up was this call's run; the capture only recorded
             return _clones((warm,) if single else warm, single)
-        return self._replay(key, graph, inputs)
+        return self._replay(key, graph, inputs, time.perf_counter_ns())
 
-    def _replay(self, key, graph: _Graph, inputs):
+    def _replay(self, key, graph: _Graph, inputs, since: int):
         try:
-            for dst, src in zip(graph.inputs, inputs):
-                dst.copy_(src)
-            graph.program.replay()
+            with span("graphed.copy_in"):
+                for dst, src in zip(graph.inputs, inputs):
+                    dst.copy_(src)
+            with span("graphed.replay"):
+                graph.program.replay()
+                _add_launches(graph.launches)
         except Exception as e:
             raise GraphError(f"replay of key {key} failed: {type(e).__name__}: {e}") from e
-        _add_launches(graph.launches)
-        self._count("replays")
-        return _clones(graph.program.outputs, graph.single)
+        with span("graphed.clone"):
+            out = _clones(graph.program.outputs, graph.single)
+        self._count("replays", since)
+        return out
 
     def graphs(self) -> Dict[tuple, dict]:
         """Per captured key: capture_ms (host time of the warm-up and the
@@ -273,8 +313,8 @@ class GraphedForward:
                     "launches": dict(g.launches)} for k, g in self._graphs.items()}
 
     def stats(self) -> dict:
-        """This wrapper's captures, replays and eager_calls, the keys it has
-        seen, its graphs and the bytes of its pool."""
+        """This wrapper's captures, replays, eager_calls and over_cap, the
+        keys it has seen, its graphs and the bytes of its pool."""
         return {**self.calls, "keys": len(self._state), "graphs": len(self._graphs),
                 "pool_bytes": sum(g.program.pool_bytes for g in self._graphs.values())}
 
@@ -290,8 +330,11 @@ def graph_row(fn: Optional[GraphedForward]) -> dict:
 
 
 def counts() -> dict:
-    """captures, replays and eager_calls since reset_counts(); graphs and
-    pool_bytes held now by the live wrappers."""
+    """captures, replays, eager_calls, over_cap and the host ns of the
+    first three (module docstring) since reset_counts(), the streaming
+    separator's included; graphs and pool_bytes held now by the live
+    GraphedForward wrappers only (a StreamingSeparator's two graphs and
+    their pool are not among them)."""
     live = [g for f in list(_LIVE) for g in f._graphs.values()]
     return {**_COUNTS, "graphs": len(live),
             "pool_bytes": sum(g.program.pool_bytes for g in live)}

@@ -20,10 +20,20 @@ package's two jitted steps. The state then lives in static device buffers
 that the graph updates in place, and each chunk is copied into a static
 input buffer before the replay. On the CPU (or with graph=False) the same
 step runs eagerly.
+
+The separator's captures and replays count in models/graphed's counters
+(`graphed.counts()`: one replay per graphed push, with its host ns from
+entry to return of push; a capture's warm-ups and capture under
+`capture_ns`). While a torch.profiler session is active a push records
+its spans (utils/observability.span): `stream.push` over
+`stream.copy_in` (the chunk into the static input, or onto the device
+when eager), `stream.replay` and `stream.clone`, or `stream.eager`, and
+`stream.capture` at a key's first push.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -32,6 +42,8 @@ from ..config import ConvTasNetConfig
 from ..ops.activations import prelu
 from ..ops.conv import pointwise
 from ..ops.norms import channelwise_layer_norm
+from ..utils.observability import span
+from . import graphed
 from .conv_tasnet import decode, encode, resolve_device
 
 StreamState = Dict[str, Any]
@@ -200,33 +212,51 @@ class StreamingSeparator:
         """Feed [M, T_chunk] samples (host or device); returns a new tensor
         on the device with the separated samples that became final
         ([M, C, T_chunk - S] for the first chunk, then [M, C, T_chunk])."""
-        if chunk.dim() != 2 or chunk.shape[0] != self._batch:
-            raise ValueError(f"chunk of shape {tuple(chunk.shape)}: expected "
-                             f"[{self._batch}, T_chunk]")
-        first = self._warm == 0
+        t0 = time.perf_counter_ns()
+        with span("stream.push"):
+            if chunk.dim() != 2 or chunk.shape[0] != self._batch:
+                raise ValueError(f"chunk of shape {tuple(chunk.shape)}: expected "
+                                 f"[{self._batch}, T_chunk]")
+            first = self._warm == 0
+            if self.graphed:
+                key = (first, int(chunk.shape[1]))
+                if key not in self._graphs:
+                    self._graphs[key] = self._capture(first, tuple(chunk.shape))
+                    t0 = time.perf_counter_ns()  # the capture is counted apart
+                out = self._replay(self._graphs[key], chunk)
+            else:
+                with span("stream.copy_in"):
+                    x = chunk.to(self.device, torch.float32, non_blocking=True)
+                with span("stream.eager"):
+                    out, self.state = stream_step(self.params, self.state, self.cfg, x, first)
+            self._warm += 1
         if self.graphed:
-            out = self._replay(chunk, first)
-        else:
-            x = chunk.to(self.device, torch.float32, non_blocking=True)
-            out, self.state = stream_step(self.params, self.state, self.cfg, x, first)
-        self._warm += 1
+            graphed.count("replays", t0)
         return out
 
     def flush(self) -> torch.Tensor:
         """Emit the final overlap-add tail ([M, C, L - S]) as a new tensor."""
         return self.state["ola_tail"].clone()
 
-    def _replay(self, chunk: torch.Tensor, first: bool) -> torch.Tensor:
-        key = (first, int(chunk.shape[1]))
-        if key not in self._graphs:
-            self._graphs[key] = self._capture(first, tuple(chunk.shape))
-        graph, static_in, static_out = self._graphs[key]
-        static_in.copy_(chunk, non_blocking=True)
-        graph.replay()
-        # The next replay overwrites static_out.
-        return static_out.clone()
+    @staticmethod
+    def _replay(entry: tuple, chunk: torch.Tensor) -> torch.Tensor:
+        graph, static_in, static_out = entry
+        with span("stream.copy_in"):
+            static_in.copy_(chunk, non_blocking=True)
+        with span("stream.replay"):
+            graph.replay()
+        with span("stream.clone"):
+            # The next replay overwrites static_out.
+            return static_out.clone()
 
     def _capture(self, first: bool, shape) -> tuple:
+        t0 = time.perf_counter_ns()
+        with span("stream.capture"):
+            entry = self._record(first, shape)
+        graphed.count("captures", t0)
+        return entry
+
+    def _record(self, first: bool, shape) -> tuple:
         static_in = torch.zeros(shape, dtype=torch.float32, device=self.device)
 
         def step():

@@ -14,6 +14,10 @@ solver.py:12-210):
 * the CV mean weights each batch by its real utterance count;
 * device scalars (loss) are read back only at print_freq points and at
   the end of an epoch, so the host keeps queueing steps;
+* the host time spent waiting for data (the loader's next batch and its
+  copy to the device) is summed per epoch, always on, and written with
+  the training epoch as `data_wait_s` and `data_wait_share` (of the
+  epoch's time) into history.jsonl and its summary line;
 * with `visualize`, <save_folder>/loss.png is re-rendered each epoch and
   loss_iter.png from every iteration's loss (kept as a device scalar,
   drained at those read-back points, redrawn at most every
@@ -64,6 +68,7 @@ from ..parallel.context import make_cp_eval_step, make_cp_train_step
 from ..parallel.distributed import is_coordinator
 from ..parallel.mesh import (broadcast_tree, gather_params, shard_batch_fn, shard_params_fn,
                              steps_graphable, tp_sharded_paths)
+from ..utils.observability import span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .optim import Optimizer, clip_by_global_norm, set_lr, tree_leaves, tree_map
 
@@ -155,7 +160,9 @@ class GraphedStep:
     same addresses (the counterpart of donate_argnums). Trees passed in
     that are not the static ones (a checkpoint loaded later, a new `lr`
     tensor) are copied into them first. The returned loss and grad_norm
-    are clones, which the next replay leaves alone."""
+    are clones, which the next replay leaves alone. While a torch.profiler
+    session is active a call records the span `step.call` over
+    `step.adopt` (trees copied in) and the wrapper's `graphed.*` spans."""
 
     def __init__(self, step: Callable, params, opt_state, state, tag: tuple = ()):
         self.params, self.opt_state, self.state = params, opt_state, state
@@ -172,11 +179,13 @@ class GraphedStep:
 
     def _adopt(self, params, opt_state, state) -> None:
         if not (params is self.params and opt_state is self.opt_state and state is self.state):
-            _copy_into(self._static, params, opt_state, state)
+            with span("step.adopt"):
+                _copy_into(self._static, params, opt_state, state)
 
     def __call__(self, params, opt_state, state, mixture, source, lengths):
-        self._adopt(params, opt_state, state)
-        loss, grad_norm = self.graphed(mixture, source, lengths)
+        with span("step.call"):
+            self._adopt(params, opt_state, state)
+            loss, grad_norm = self.graphed(mixture, source, lengths)
         return self.params, self.opt_state, self.state, loss, grad_norm
 
     def eval_step(self, eval_step: Callable, tag: tuple = ()) -> Callable:
@@ -279,6 +288,8 @@ class Solver:
         self.halving = False
         self.val_no_impv = 0
         self.steps = 0
+        self.data_wait_s = 0.0   # the last epoch's wait for data, and its share of the epoch
+        self.data_wait_share = 0.0
         self.history: List[Dict[str, Any]] = []
         # Per-iteration loss points of loss_iter.png: (iter, epoch, device
         # loss) pending until a read-back point, then floats.
@@ -295,9 +306,11 @@ class Solver:
             self.log("Training...")
             t0 = time.time()
             tr_avg, audio_sps = self._run_one_epoch(epoch, cross_valid=False)
+            wait = {"data_wait_s": self.data_wait_s, "data_wait_share": self.data_wait_share}
             self.log(f"Train Summary | End of Epoch {epoch + 1} | "
                      f"Time {time.time() - t0:.2f}s | Train Loss {tr_avg:.3f} | "
-                     f"{audio_sps:.1f} audio-s/s")
+                     f"{audio_sps:.1f} audio-s/s | data wait {self.data_wait_s:.3f}s "
+                     f"({100 * self.data_wait_share:.1f} %)")
 
             self.log("Cross validation...")
             t0 = time.time()
@@ -335,7 +348,8 @@ class Solver:
                 self._save(path, epoch + 1)
                 self.log(f"Saving checkpoint model to {path}")
             self.history.append({"epoch": epoch + 1, "tr_loss": tr_avg, "cv_loss": val_loss,
-                                 "lr": float(self.opt_state.lr), "audio_sps": audio_sps})
+                                 "lr": float(self.opt_state.lr), "audio_sps": audio_sps,
+                                 **wait})
             if self.metric_logger is not None:
                 self.metric_logger.metrics(**self.history[-1])
             if cfg.visualize:
@@ -386,8 +400,11 @@ class Solver:
         it = loader.iter_from(skip) if skip else iter(loader)
         i = skip - 1
         last_loss = None
+        wait_ns = 0
+        t = time.perf_counter_ns()  # the wait for each batch starts here
         for i, batch in enumerate(it, start=skip):
             mixture, lengths, source = self._to_device(batch)
+            wait_ns += time.perf_counter_ns() - t
             if cross_valid:
                 loss = self.eval_step(self.params, self.state, mixture, source, lengths)
                 batch_w = int(np.sum(np.asarray(batch.lengths) > 0))
@@ -419,11 +436,15 @@ class Solver:
                 self._save(path, epoch, extra={"step_in_epoch": i + 1,
                                                "running_loss": float(total_loss),
                                                "running_audio_sec": total_audio_sec})
+            t = time.perf_counter_ns()
         n = total_w if cross_valid else i + 1
+        epoch_loss = float(total_loss)  # one wait for the epoch's queued steps
+        elapsed = max(time.time() - start, 1e-9)
+        self.data_wait_s = wait_ns * 1e-9
+        self.data_wait_share = self.data_wait_s / elapsed
         if n <= 0:
             return float("nan"), 0.0
-        epoch_loss = float(total_loss)  # one wait for the epoch's queued steps
-        audio_sps = total_audio_sec / max(time.time() - start, 1e-9)
+        audio_sps = total_audio_sec / elapsed
         if self.cfg.visualize and not cross_valid:
             self._drain_iter_points()
             self._maybe_plot_iter()

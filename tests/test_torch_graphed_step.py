@@ -266,8 +266,9 @@ def test_beyond_the_cap_a_key_stays_eager_and_updates_the_static_trees(record_on
     got = _run(cfg, opt, params, state, batches, len(batches))
     step = got[4]
     assert record_only.captures == 1 and len(step.graphed.graphs()) == 1
-    # The batch-2 key: eager, capture, replay; the batch-1 key: eager thrice.
-    assert step.graphed.calls == {"eager_calls": 4, "captures": 1, "replays": 1}
+    # The batch-2 key: eager, capture, replay; the batch-1 key: eager thrice,
+    # sent eager for good (over the cap) at its second call.
+    assert step.graphed.calls == {"eager_calls": 4, "captures": 1, "replays": 1, "over_cap": 1}
     assert got[1] is step.params and int(step.opt_state.step) == len(batches)
     _assert_bits(got, _run(cfg, opt, params, state, batches, len(batches), graph=False))
 
@@ -365,6 +366,7 @@ def test_train_cli_graphed_equals_eager_with_continue_and_mid_epoch_resume(
     train, cv = g[0]["graphs"]["train_step"], g[0]["graphs"]["cv_step"]
     assert train["captures"] >= 1 and train["replays"] >= 1 and cv["replays"] >= 1
     assert train["eager_calls"] + train["captures"] + train["replays"] == g[0]["steps"]
+    assert train["over_cap"] == cv["over_cap"] == 0
     assert e[0]["graphs"]["train_step"]["eager_calls"] == e[0]["steps"]
     log = open(dg / "full" / "train.log").read()
     assert "Graphs | End of Epoch 1" in log and "train_step graphs:" in log

@@ -4,7 +4,6 @@
 import contextlib
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -16,26 +15,12 @@ from convtasnet_torch.models import conv_tasnet as tm
 from convtasnet_torch.tools import bench_streaming, check_streaming_ckpt
 from convtasnet_torch.training.checkpoint import save_checkpoint
 from convtasnet_torch.utils import debugging
-from convtasnet_torch.utils.observability import StepTimer, profile_trace
-from convtasnet_tpu.utils.observability import StepTimer as JaxStepTimer
+from convtasnet_torch.utils.observability import profile_trace
 
 torch.set_num_threads(1)
 # Largest |streamed - offline| / max |offline| in f32 on the CPU: the two
 # paths differ only by the matmuls' summation order (~1e-7 measured).
 STREAM_REL_TOL = 1e-5
-
-
-@pytest.mark.parametrize("skip_first,n_ticks", [(2, 7), (2, 2), (0, 4), (5, 3)])
-def test_step_timer_matches_jax(monkeypatch, skip_first, n_ticks):
-    clock = [0.0, 0.5, 0.75, 1.0, 1.125, 1.625, 2.0, 2.25]
-    ticks = iter(clock[:n_ticks] * 2)  # the same script for each timer
-    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-    timers = [StepTimer(skip_first), JaxStepTimer(skip_first)]
-    for t in timers:
-        for _ in range(n_ticks):
-            t.tick()
-    assert timers[0].times == timers[1].times
-    assert timers[0].mean_ms == pytest.approx(timers[1].mean_ms, rel=1e-12)
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
