@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --timing   # the twelve kernels' warm and cold times alone
+    python3 chip_smoke.py --stream   # the stream phase and the stream block kernel's alone
 
 1. prints the card (nvidia-smi name and power limit);
 2. builds the kernels from convtasnet_torch/csrc with nvcc (timed);
@@ -85,6 +86,15 @@
    strict_mode (no host synchronisation); ms per chunk with a host fetch per
    chunk, RTF, device busy and device operations per chunk, eager and
    graphed, at 10 / 20 / 40 ms chunks (batch 1) and 20 ms at batch 1-1024;
+   the stream CLI's block-kernel launches (a multiple of R * X in bf16,
+   none in f32);
+7b. stream block phase: the stream chunk step's TCN-block kernel
+   (csrc/tcn_stream_block.cu) against stream_block_plain at the causal
+   widths in bf16, every dilation 1..128, 1, 15, 16 and 300 frames, 1 and
+   4 streams, two chunks in a row (relative L2 of the block's increment and
+   of the new history, the carried frames bit for bit, one launch a call);
+   then its device ms a launch at one 20 ms chunk, warm and cold, per
+   dilation, beside its byte bound and the plain version's;
 8. train phase: writes a synthetic 4 s, 8 kHz wav dataset (10 tr, 4 cv
    utterances) with the port's synthetic.py and runs
    `convtasnet_torch.cli.train` on cuda at the paper config, --batch_size
@@ -1584,7 +1594,8 @@ def stream_phase(cfg16, dev, tmp):
                 abs(v - want.get(k, 0) * -(-len(lengths) // bs)), 0)
         offline[(dt, form, bs)] = wavs(out_dir)
 
-    # The stream CLI (no kernel on its path).
+    # The stream CLI: the block kernel in bf16 (R * X launches a chunk), no
+    # other kernel; the library ops in f32.
     for dt, bs in (("bf16", 1), ("f32", 1), ("f32", 4)):
         out_dir = os.path.join(tmp, f"stream_{dt}_b{bs}")
         tb.reset_counts()
@@ -1596,7 +1607,12 @@ def stream_phase(cfg16, dev, tmp):
         log(f"  stream {dt} --batch {bs}: {n} mixtures in {wall:.2f} s")
         timing[f"stream_cli_{dt}_b{bs}_wall_s"] = wall
         chk(f"stream {dt} b{bs}: mixtures written", abs(n - len(lengths)), 0)
-        chk(f"stream {dt} b{bs}: kernel launches", sum(tb.counts().values()), 0)
+        sbl = tb.counts()["tcn_stream_block"]
+        chk(f"stream {dt} b{bs}: launches of other kernels",
+            sum(tb.counts().values()) - sbl, 0)
+        ok = sbl > 0 and sbl % NB == 0 if dt == "bf16" else sbl == 0
+        chk(f"stream {dt} b{bs}: block kernel launches ({sbl}; bf16 a positive multiple of "
+            "R * X, f32 none)", float(not ok), 0)
         got = wavs(out_dir)
         if dt == "f32":
             ref = offline[("f32", "0", bs)]
@@ -1714,6 +1730,125 @@ def stream_phase(cfg16, dev, tmp):
     log(f"stream phase timing: {json.dumps(timing)}")
     chk.done()
     return timing
+
+
+# ---- the stream chunk step's block kernel ----------------------------------
+
+STREAM_KEYS = ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma",
+               "dw_beta", "out_w")
+# Relative L2 of one block's increment x' - x and of its new history, the
+# kernel against stream_block_plain in bf16 (tests/test_torch_cuda.py's
+# STREAM_BLOCK_TOL).
+TOL_STREAM_BLOCK = 1e-2
+
+
+def stream_block_phase(dev, B=256, H=512, P=3):
+    """The stream chunk step's TCN-block kernel (csrc/tcn_stream_block.cu) at
+    the causal config's widths against its plain version, stream_block_plain,
+    in bf16: every dilation 1..128, Kc 1, 15, 16 and 300 frames (below and
+    above every span), M = 1 and 4 streams, two chunks in a row (the history
+    carried): the block's increment x' - x and the new history (relative
+    L2), the frames carried over from the old history bit for bit, one
+    launch a call. Then, per dilation at M = 1 and Kc = 16 (one 20 ms chunk),
+    its device ms a launch warm and with cold L2 beside its byte bound (in_w,
+    out_w, taps and affines, x in and out, the history read and written) and
+    the plain version's device ms. Returns the readings and the timing row."""
+    from convtasnet_torch.ops.kernels import stream_block as sb
+
+    chk = Checks("stream block phase")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    bp = {"in_w": randn(B, H, scale=(2 / (B + H)) ** 0.5).to(bf),
+          "in_prelu": torch.tensor(0.25, device=dev).to(bf),
+          "in_gamma": 1 + randn(H, scale=0.1), "in_beta": randn(H, scale=0.1),
+          "dw_w": randn(P, H, scale=0.5).to(bf),
+          "dw_prelu": torch.tensor(0.25, device=dev).to(bf),
+          "dw_gamma": 1 + randn(H, scale=0.1), "dw_beta": randn(H, scale=0.1),
+          "out_w": randn(H, B, scale=(2 / (B + H)) ** 0.5).to(bf)}
+    dilations = [2 ** i for i in range(8)]
+    worst = {"x": 0.0, "hist": 0.0}
+    readings = []
+    for d in dilations:
+        span = (P - 1) * d
+        for Kc in (1, 15, 16, 300):
+            for M in (1, 4):
+                hist = randn(M, span, H).to(bf)
+                want_h = hist.clone()
+                for step in range(2):
+                    old = hist.clone()
+                    x = randn(M, Kc, B).to(bf)
+                    want, want_h = sb.stream_block_plain(x, want_h, bp, d, bf)
+                    before = sb.stream_block.launches
+                    got, got_h = sb.stream_block(x, hist, bp, d, bf)
+                    torch.cuda.synchronize()
+                    ex = rel_l2(got.float() - x.float(), want.float() - x.float())
+                    eh = rel_l2(got_h, want_h) if span else 0.0
+                    carried = (torch.equal(got_h[:, : span - Kc], old[:, Kc:])
+                               if Kc < span else True)
+                    readings.append({"dilation": d, "Kc": Kc, "M": M, "chunk": step,
+                                     "x_rel_l2": ex, "hist_rel_l2": eh})
+                    worst["x"], worst["hist"] = max(worst["x"], ex), max(worst["hist"], eh)
+                    bad = (ex > TOL_STREAM_BLOCK or eh > TOL_STREAM_BLOCK or not carried
+                           or sb.stream_block.launches != before + 1 or got_h is not hist)
+                    if bad:
+                        chk(f"stream block d={d} Kc={Kc} M={M} chunk {step}: x' - x (rel L2)",
+                            ex, TOL_STREAM_BLOCK)
+                        chk(f"stream block d={d} Kc={Kc} M={M} chunk {step}: history (rel L2)",
+                            eh, TOL_STREAM_BLOCK)
+                        chk(f"stream block d={d} Kc={Kc} M={M} chunk {step}: carried frames "
+                            "bit for bit, one launch, history in place",
+                            float(not carried or sb.stream_block.launches != before + 1
+                                  or got_h is not hist), 0)
+    n = len(readings)
+    chk(f"stream block kernel vs plain, worst x' - x over {n} chunks (rel L2)", worst["x"],
+        TOL_STREAM_BLOCK)
+    chk(f"stream block kernel vs plain, worst new history over {n} chunks (rel L2)",
+        worst["hist"], TOL_STREAM_BLOCK)
+
+    # Device ms a launch at one 20 ms chunk (M = 1, Kc = 16), per dilation.
+    per_d = []
+    leaves = tuple(bp[k] for k in STREAM_KEYS)
+    wbytes = sum(t.numel() * t.element_size() for t in leaves)
+    for d in dilations:
+        span = (P - 1) * d
+        x, hist = randn(1, 16, B).to(bf), randn(1, span, H).to(bf)
+
+        def call(x, hist, *lv, d=d):  # the kernel alone (no programmatic dependent launch)
+            return sb.stream_block(x, hist, dict(zip(STREAM_KEYS, lv)), d, bf, pdl=False)[0]
+
+        def plain(d=d, x=x, hist=hist):
+            return sb.stream_block_plain(x, hist, bp, d, bf)
+
+        args = (x, hist) + leaves
+        nbytes = wbytes + 2 * x.numel() * 2 + 2 * hist.numel() * 2
+        row = {"dilation": d, "ms": device_ms(lambda: call(*args), label=f"stream block d={d}"),
+               "cold_ms": cold_timed(call, args, label=f"stream block d={d} cold").ms,
+               "plain_ms": device_ms(plain, label=f"stream block plain d={d}"),
+               "bytes": nbytes, "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+               "plan": list(sb.stream_plan(1, 16, B, H, P, d))}
+        per_d.append(row)
+        log(f"  stream block d={d}: {row['ms']:.4f} ms/launch warm, cold {row['cold_ms']:.4f}, "
+            f"bound {row['bytes_bound_ms']:.4f} by bytes ({nbytes} B), plain "
+            f"{row['plain_ms']:.4f} ms; plan {row['plan']}")
+    mean = {k: sum(r[k] for r in per_d) / len(per_d)
+            for k in ("ms", "cold_ms", "plain_ms", "bytes_bound_ms")}
+    row = {"name": "tcn_stream_block", "design": "cluster8+st.async+mma.sync+pdl",
+           "shape": f"M=1, Kc=16, B={B}, H={H}, P={P}, bf16", **mean,
+           "share_of_bound": mean["bytes_bound_ms"] / mean["ms"],
+           "cold_share_of_bound": mean["bytes_bound_ms"] / mean["cold_ms"],
+           "worst_rel_l2": worst, "per_dilation": per_d}
+    log(f"  stream block, mean over the 8 dilations: {mean['ms']:.4f} ms/launch warm, cold "
+        f"{mean['cold_ms']:.4f}, bound {mean['bytes_bound_ms']:.4f} by bytes, plain "
+        f"{mean['plain_ms']:.4f}; worst rel L2 x' - x {worst['x']:.3e}, history "
+        f"{worst['hist']:.3e} over {n} chunks")
+    low = [r["dilation"] for r in per_d if r["cold_ms"] < r["bytes_bound_ms"]]
+    chk(f"stream block: cold time below its byte bound at dilations {low}", float(len(low)), 0)
+    chk.done()
+    return row
 
 
 # ---- parallel phase ---------------------------------------------------------
@@ -3134,6 +3269,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of convtasnet_torch")
     ap.add_argument("--timing", action="store_true",
                     help="only build and time the kernels, warm and cold (no other phase)")
+    ap.add_argument("--stream", action="store_true",
+                    help="only the streaming phases: the stream phase and the stream block "
+                         "kernel's (no other)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -3161,13 +3299,25 @@ def main(argv=None) -> int:
 
     # ---- build ----------------------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build_all(["tcn_block", "tcn_block_bwd"])
+    reports = _build.build_all(["tcn_block", "tcn_stream_block"] if args.stream
+                               else ["tcn_block", "tcn_block_bwd", "tcn_stream_block"])
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    if args.stream:
+        log("stream phase:")
+        with tempfile.TemporaryDirectory() as tmp:
+            timing = stream_phase(ConvTasNetConfig(norm_type="cLN", causal=True), dev, tmp)
+        log("stream block phase:")
+        timing["stream_kernel"] = stream_block_phase(dev)
+        log(card_line())
+        log(json.dumps({"stream": timing, "profiler_blind": PROFILER_BLIND}))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0)}}))
+        return 0
     from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb
 
     idx = torch.cuda.current_device()
@@ -3368,6 +3518,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         stream_timing = stream_phase(ConvTasNetConfig(norm_type="cLN", causal=True), dev, tmp)
         stream_timing["phase_s"] = time.perf_counter() - t0
+        log("stream block phase:")
+        stream_timing["stream_kernel"] = stream_block_phase(dev)
 
     # ---- train phase: the train CLI and one step of each form ---------------
     log("train phase:")

@@ -12,14 +12,20 @@ so feeding a waveform chunk by chunk reproduces the offline forward (up to
 float associativity) with per-chunk latency. Requires causal=True and cLN:
 gLN normalises over all time and BN over the batch.
 
-`stream_step` is functional, op by op in the JAX step's rounding points
-(encode, decode, pointwise, prelu and cLN are the offline model's). On a
-CUDA device `StreamingSeparator` runs it as CUDA graphs, one per (first
-chunk or not, chunk length) at its batch: the counterpart of the JAX
-package's two jitted steps. The state then lives in static device buffers
-that the graph updates in place, and each chunk is copied into a static
-input buffer before the replay. On the CPU (or with graph=False) the same
-step runs eagerly.
+`stream_step` runs op by op in the JAX step's rounding points (encode,
+decode, pointwise, prelu and cLN are the offline model's). Each TCN block
+takes one of two forms (`block_form`, decided from the config before any
+launch): "kernel", ops/kernels/stream_block.stream_block, one launch of
+the hand-written block kernel (csrc/tcn_stream_block.cu) on a card, which
+writes the block's new history into its ring in place, and its plain
+version on the CPU; or "library", the same ops one by one
+(stream_block_plain) wherever the config takes no kernels or the kernel
+does not admit its widths or dtype. On a CUDA device `StreamingSeparator`
+runs the step as CUDA graphs, one per (first chunk or not, chunk length)
+at its batch: the counterpart of the JAX package's two jitted steps. The
+state then lives in static device buffers that the graph updates in place,
+and each chunk is copied into a static input buffer before the replay. On
+the CPU (or with graph=False) the same step runs eagerly.
 
 The separator's captures and replays count in models/graphed's counters
 (`graphed.counts()`: one replay per graphed push, with its host ns from
@@ -28,7 +34,9 @@ entry to return of push; a capture's warm-ups and capture under
 its spans (utils/observability.span): `stream.push` over
 `stream.copy_in` (the chunk into the static input, or onto the device
 when eager), `stream.replay` and `stream.clone`, or `stream.eager`, and
-`stream.capture` at a key's first push.
+`stream.capture` at a key's first push. The block kernel's launches count
+in `stream_block.launches` (tcn_block.counts()["tcn_stream_block"]), a
+graph's added back on each replay: R * X a push.
 """
 
 from __future__ import annotations
@@ -39,8 +47,9 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ..config import ConvTasNetConfig
-from ..ops.activations import prelu
 from ..ops.conv import pointwise
+from ..ops.kernels.limits import stream_limit
+from ..ops.kernels.stream_block import stream_block, stream_block_plain
 from ..ops.norms import channelwise_layer_norm
 from ..utils.observability import span
 from . import graphed
@@ -90,23 +99,17 @@ def state_leaves(state: StreamState) -> List[torch.Tensor]:
             + [state["ola_tail"]])
 
 
-def _causal_dw_streaming(x: torch.Tensor, hist: torch.Tensor, w: torch.Tensor,
-                         dilation: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal depthwise conv with carried history; the taps sum in x's dtype.
-
-    x: [M, Kc, H] current frames; hist: [M, span, H] previous frames.
-    Returns (y [M, Kc, H], new_hist)."""
-    P = w.shape[0]
-    span = (P - 1) * dilation
-    ext = torch.cat([hist, x], dim=1)  # [M, span + Kc, H]
-    Kc = x.shape[1]
-    wd = w.to(x.dtype)
-    out = None
-    for p in range(P):
-        tap = ext[:, p * dilation: p * dilation + Kc, :] * wd[p]
-        out = tap if out is None else out + tap
-    new_hist = ext[:, ext.shape[1] - span:, :] if span > 0 else hist
-    return out, new_hist
+def block_form(cfg: ConvTasNetConfig, device) -> str:
+    """How stream_step runs each TCN block on `device`: "kernel"
+    (stream_block: the hand-written kernel on a card, its plain version on
+    the CPU) where the config takes kernels (kernel_form is not "eager")
+    and the stream kernel admits its widths and dtype at every dilation,
+    else "library" (stream_block_plain). Decided from the config alone, as
+    kernel_form is, so it needs no card."""
+    if cfg.kernel_form(False, device) == "eager" or stream_limit(
+            cfg.B, cfg.H, cfg.P, cfg.X, cfg.compute_dtype == "bfloat16"):
+        return "library"
+    return "kernel"
 
 
 def stream_step(params, state: StreamState, cfg: ConvTasNetConfig, chunk: torch.Tensor,
@@ -118,7 +121,9 @@ def stream_step(params, state: StreamState, cfg: ConvTasNetConfig, chunk: torch.
     carried samples (a zero-filled tail would fabricate a leading frame
     the offline forward does not have). The concatenated outputs of all
     chunks plus the final ola_tail match the offline forward sample for
-    sample. `state` is read, never written."""
+    sample. `state` is read, never written, but by the block kernel on a
+    card, which writes each block's new history into its ring in place: the
+    new state then holds the same ring tensors."""
     _check(cfg)
     dt, S = cfg.dtype, cfg.stride
     M, Tc = chunk.shape
@@ -131,19 +136,14 @@ def stream_step(params, state: StreamState, cfg: ConvTasNetConfig, chunk: torch.
     sp = params["separator"]
     x = channelwise_layer_norm(w_mix, sp["ln"]["gamma"], sp["ln"]["beta"])
     x = pointwise(x, sp["bottleneck"]["w"], dt).to(dt)
+    block = stream_block if block_form(cfg, chunk.device) == "kernel" else stream_block_plain
     new_hist = []
     for r in range(cfg.R):
         row = []
         for xi in range(cfg.X):
             bp = {k: v[r, xi] for k, v in sp["blocks"].items()}
-            y = pointwise(x, bp["in_w"], dt).to(dt)
-            y = prelu(y, bp["in_prelu"])
-            y = channelwise_layer_norm(y, bp["in_gamma"], bp["in_beta"])
-            y, h = _causal_dw_streaming(y, state["conv_hist"][r][xi], bp["dw_w"], 2 ** xi)
+            x, h = block(x, state["conv_hist"][r][xi], bp, 2 ** xi, dt)
             row.append(h)
-            y = prelu(y, bp["dw_prelu"])
-            y = channelwise_layer_norm(y, bp["dw_gamma"], bp["dw_beta"])
-            x = x + pointwise(y, bp["out_w"], dt).to(dt)
         new_hist.append(row)
 
     Kc = x.shape[1]
@@ -192,6 +192,8 @@ class StreamingSeparator:
         self.state = init_stream_state(cfg, batch, self.device)
         # (first, chunk length) -> (graph, static input, static output)
         self._graphs: Dict[Tuple[bool, int], tuple] = {}
+        # (first, chunk length) -> the block kernel's launches a replay
+        self._launches: Dict[Tuple[bool, int], int] = {}
         self._warm = 0
 
     def reset(self) -> None:
@@ -224,6 +226,7 @@ class StreamingSeparator:
                     self._graphs[key] = self._capture(first, tuple(chunk.shape))
                     t0 = time.perf_counter_ns()  # the capture is counted apart
                 out = self._replay(self._graphs[key], chunk)
+                stream_block.launches += self._launches.get(key, 0)
             else:
                 with span("stream.copy_in"):
                     x = chunk.to(self.device, torch.float32, non_blocking=True)
@@ -258,20 +261,25 @@ class StreamingSeparator:
 
     def _record(self, first: bool, shape) -> tuple:
         static_in = torch.zeros(shape, dtype=torch.float32, device=self.device)
-
-        def step():
-            return stream_step(self.params, self.state, self.cfg, static_in, first)
+        # The warm-ups run on copies of the rings: the block kernel writes
+        # its history in place, and the stream's own must not move.
+        warm = {**self.state, "conv_hist": [[h.clone() for h in row]
+                                            for row in self.state["conv_hist"]]}
 
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             for _ in range(CAPTURE_WARMUP):
-                step()  # functional: the state is not touched
+                stream_step(self.params, warm, self.cfg, static_in, first)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        before = stream_block.launches
         with torch.cuda.graph(graph):
-            out, new_state = step()
+            out, new_state = stream_step(self.params, self.state, self.cfg, static_in, first)
             for dst, src in zip(state_leaves(self.state), state_leaves(new_state)):
-                dst.copy_(src)
+                if src is not dst:  # a ring the kernel updated in place needs no copy
+                    dst.copy_(src)
+        self._launches[(first, shape[1])] = stream_block.launches - before
+        stream_block.launches = before  # recorded, not run
         return graph, static_in, out

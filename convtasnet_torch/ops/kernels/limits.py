@@ -1,10 +1,12 @@
 """Launch limits of the CUDA kernels (csrc/), in one module with no imports.
 
-The wrappers (tcn_block.py, tcn_block_bwd.py) refuse a CUDA tensor beyond
-these limits with a ValueError; `ConvTasNetConfig.kernel_form` reads the
-same numbers to send such a config to the eager chain before any launch,
-as the JAX package's gate sends it to XLA (convtasnet_tpu/models/
-conv_tasnet.py:182-233).
+The wrappers (tcn_block.py, tcn_block_bwd.py, stream_block.py) refuse a
+CUDA tensor beyond these limits with a ValueError; `ConvTasNetConfig.
+kernel_form` reads the same numbers to send such a config to the eager
+chain before any launch, as the JAX package's gate sends it to XLA
+(convtasnet_tpu/models/conv_tasnet.py:182-233), and models/streaming.
+block_form reads `stream_limit` to send the stream step's blocks to their
+library ops.
 
   KERNEL_WIDTH    B and H are multiples of it: the GEMMs tile 128 columns
                   (and a depth of 64); every wrapper checks both widths.
@@ -49,4 +51,39 @@ def kernel_limit(B: int, H: int, P: int, X: int, bf16: bool, train: bool):
         return f"P={P} exceeds KB2's {BWD_MAXP} taps"
     if train and span > BWD_MAX_SPAN:
         return f"conv span {span} exceeds KB2's halo limit {BWD_MAX_SPAN}"
+    return None
+
+
+# The stream chunk step's TCN-block kernel (csrc/tcn_stream_block.cu): one
+# cluster of STREAM_CLUSTER CTAs per stream, each CTA H / 8 channels and
+# B / 8 output columns, frames in tiles of STREAM_ROWS; compiled for the
+# (B, H) of the streamable configs (the causal one's; each warp's n8 tiles
+# are template arguments, so a width is one more instantiation), bf16 only.
+STREAM_CLUSTER = 8
+STREAM_ROWS = 16
+STREAM_WIDTHS = ((256, 512),)
+STREAM_SMEM = 232448  # a CTA's dynamic shared memory (hop::SMEM_LIMIT)
+
+
+def stream_smem(B: int, H: int, P: int, span: int) -> int:
+    """Bytes of shared memory of one CTA of the stream kernel (its Layout):
+    in_w's and out_w's column slices and the x and e tiles, rows padded by
+    16 bytes; the ring of span + 16 frames; the taps; four f32 affines; the
+    two norms' exchanged pairs; the three exchanges' mbarriers (32 bytes)."""
+    hc, bc, pad, rows = H // STREAM_CLUSTER, B // STREAM_CLUSTER, 8, STREAM_ROWS
+    return (2 * (B * (hc + pad) + H * (bc + pad) + rows * (B + pad) + rows * (H + pad)
+                 + (span + rows) * hc + P * hc)
+            + 16 * hc + 2 * STREAM_CLUSTER * rows * 8 + 32)
+
+
+def stream_limit(B: int, H: int, P: int, X: int, bf16: bool):
+    """Why the stream kernel cannot run the blocks of a config with these
+    widths, or None when it admits every dilation 1 .. 2 ** (X - 1)."""
+    if not bf16:
+        return "the stream block kernel runs bf16 activations only"
+    if (B, H) not in STREAM_WIDTHS:
+        return f"the stream block kernel is built for (B, H) in {STREAM_WIDTHS}"
+    span = (P - 1) * 2 ** (X - 1)
+    if stream_smem(B, H, P, span) > STREAM_SMEM:
+        return f"conv span {span} overflows the stream kernel's shared-memory ring"
     return None

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from ...config import EPS
 from . import _build
 from .limits import DWCONV_MAX_SPAN, GEMM_MAX_H, KERNEL_WIDTH
+from .stream_block import stream_block
 
 # Tile sizes of csrc/tcn_block.cuh (the f32 SIMT GEMM tiles).
 BM, BN, BK = 64, 128, 32
@@ -630,6 +631,7 @@ def reset_counts() -> None:
     tcn_out_gemm.launches_fold = 0
     tcn_out_gemm.launches_unfold = 0
     tcn_fold_weights.launches = 0
+    stream_block.launches = 0
 
 
 def add_counts(delta: dict) -> None:
@@ -641,12 +643,17 @@ def add_counts(delta: dict) -> None:
     tcn_out_gemm.launches_fold += delta.get("tcn_out_gemm_fold", 0)
     tcn_out_gemm.launches_unfold += delta.get("tcn_out_gemm_unfold", 0)
     tcn_fold_weights.launches += delta.get("tcn_fold_weights", 0)
+    stream_block.launches += delta.get("tcn_stream_block", 0)
 
 
 def counts() -> dict:
+    """Launches of the forward kernels, and of the stream chunk step's
+    block kernel (stream_block.py): every kernel of csrc/ but the backward
+    ones (tcn_block_bwd.counts()), whose records the timers check."""
     return {"tcn_in_gemm": tcn_in_gemm.launches,
             "tcn_dwconv": tcn_dwconv.launches,
             "tcn_dwconv_save": tcn_dwconv.launches_save,
             "tcn_out_gemm_fold": tcn_out_gemm.launches_fold,
             "tcn_out_gemm_unfold": tcn_out_gemm.launches_unfold,
-            "tcn_fold_weights": tcn_fold_weights.launches}
+            "tcn_fold_weights": tcn_fold_weights.launches,
+            "tcn_stream_block": stream_block.launches}

@@ -61,7 +61,10 @@ def chunk_ms(sep: StreamingSeparator, chunks) -> list:
 def profile_chunks(sep: StreamingSeparator, chunks):
     """(device busy ms, device operations) per chunk from torch.profiler
     over pushes with a fetch each, its records counted (tools/_bench.timed);
-    (None, None) when no profile was complete."""
+    (None, None) when no profile was complete. Busy is the records' device
+    time summed: the stream block kernels launch as programmatic dependents,
+    each started while the one before runs, so their waits count and busy
+    reads above the chunk's span of device time where they run."""
     it = itertools.cycle(chunks)
     n = len(chunks)
     prof = timed(lambda: sep.push(next(it)).cpu(), iters=n, warm=0,

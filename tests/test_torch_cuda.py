@@ -819,6 +819,141 @@ def test_graphed_reset_zeroes_state_in_place(dev):
     assert torch.equal(first, fresh_a) and torch.equal(second, fresh_b)
 
 
+# ---- the stream chunk step's block kernel (csrc/tcn_stream_block.cu) ------
+
+STREAM_CAUSAL = dict(N=256, L=20, B=256, H=512, P=3, X=8, R=4, C=2, norm_type="cLN",
+                     causal=True)
+# Relative L2, bf16: one block's increment x' - x and its new history, the
+# kernel against stream_block_plain (the GEMMs' and the norms' f32 sums in
+# another order flip a bf16 rounding now and then; H100 readings over 128
+# chunks: worst 1.6e-3 and 1.1e-4); the separator's output and state after
+# 32 blocks, the kernel against the library ops, and the streamed output
+# against the offline causal forward (H100 readings, four seeds: output
+# 0.0091-0.0098, worst state leaf 0.0079-0.0132, against offline
+# 0.0092-0.0097, where the library ops read 0.0089-0.0098).
+STREAM_BLOCK_TOL = 1e-2
+STREAM_KERNEL_TOL = 3e-2
+
+
+def _stream_bp(dev):
+    """One block's leaves at the causal widths as the separator holds them:
+    the weights and slopes in bf16, the norms' affines in f32."""
+    one = [a[0] for a in _blocks(1, B=256, H=512, P=3, device=dev)]
+    bf = {"in_w", "in_prelu", "dw_w", "dw_prelu", "out_w"}
+    return {k: v.to(torch.bfloat16 if k in bf else torch.float32) for k, v in zip(ORDER, one)}
+
+
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("Kc", [1, 15, 300])
+@pytest.mark.parametrize("dilation", [2 ** i for i in range(8)])
+def test_stream_block_kernel_matches_plain(dev, dilation, Kc, M):
+    """Two chunks in a row, the history carried: the kernel's output and
+    the history it writes in place against stream_block_plain's, the frames
+    carried over from the old history bit for bit; one launch a call."""
+    from convtasnet_torch.ops.kernels import stream_block as sb
+
+    bp, bf = _stream_bp(dev), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1000 * dilation + 10 * Kc + M)
+    span = 2 * dilation
+    hist = torch.randn((M, span, 512), generator=gen, device=dev).to(bf)
+    want_h = hist.clone()
+    for _ in range(2):
+        old = hist.clone()
+        x = torch.randn((M, Kc, 256), generator=gen, device=dev).to(bf)
+        want, want_h = sb.stream_block_plain(x, want_h, bp, dilation, bf)
+        before = sb.stream_block.launches
+        got, got_h = sb.stream_block(x, hist, bp, dilation, bf)
+        torch.cuda.synchronize()
+        assert sb.stream_block.launches == before + 1 and got_h is hist
+        assert got.shape == x.shape and torch.isfinite(got.float()).all()
+        assert _rel_l2(got.float() - x.float(), want.float() - x.float()) <= STREAM_BLOCK_TOL
+        assert _rel_l2(got_h, want_h) <= STREAM_BLOCK_TOL
+        if Kc < span:
+            assert torch.equal(got_h[:, : span - Kc], old[:, Kc:])
+
+
+def test_stream_block_kernel_casts_f32_leaves_before_it_reads_them(dev):
+    """f32 leaves are cast in the wrapper, and the launch then waits for the
+    casts (no programmatic dependent launch): the bf16 leaves' bytes."""
+    from convtasnet_torch.ops.kernels import stream_block as sb
+
+    bp, bf = _stream_bp(dev), torch.bfloat16
+    f32 = {k: v.float() for k, v in bp.items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 16, 256), generator=gen, device=dev).to(bf)
+    hist = torch.randn((2, 8, 512), generator=gen, device=dev).to(bf)
+    h0, h2 = hist.clone(), torch.empty_like(hist)
+    want, _ = sb.stream_block(x, hist, bp, 4, bf)
+    for _ in range(3):
+        h2.copy_(h0)
+        got, _ = sb.stream_block(x, h2, f32, 4, bf)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(h2, hist)
+
+
+def test_stream_block_kernel_refuses_what_it_is_not_built_for(dev):
+    """Widths and dtypes it is not built for raise; its shared memory is
+    what the plan (limits.stream_smem) counts, at every built width."""
+    from convtasnet_torch.ops.kernels import stream_block as sb
+    from convtasnet_torch.ops.kernels.limits import STREAM_WIDTHS, stream_smem
+
+    for B, H in STREAM_WIDTHS:
+        for d in (1, 8, 128):
+            assert sb._lib().tcn_stream_block_smem(B, H, 3, d) == stream_smem(B, H, 3, 2 * d)
+
+    bp = _stream_bp(dev)
+    x = torch.zeros((1, 16, 256), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        sb.stream_block(x, torch.zeros((1, 2, 512), device=dev), bp, 1, torch.float32)
+    narrow = {k: v if v.dim() == 0 else v[:256] if k == "out_w" else v[..., :256]
+              for k, v in bp.items()}
+    with pytest.raises(ValueError, match="built for"):
+        sb.stream_block(x.to(torch.bfloat16), torch.zeros((1, 2, 256), dtype=torch.bfloat16,
+                                                          device=dev), narrow, 1, torch.bfloat16)
+
+
+def test_stream_kernel_separator_matches_library_and_offline(dev):
+    """The causal config in bf16, two streams of 20 ms chunks: the graphed
+    separator on the block kernel against the eager one on the library ops
+    (output, and every state leaf in state_leaves' order), and against the
+    offline causal forward; R * X launches a replayed push; reset() zeroes
+    every ring in place."""
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+    from convtasnet_torch.models.streaming import (CAPTURE_WARMUP, StreamingSeparator,
+                                                   block_form, state_leaves)
+    from convtasnet_torch.ops.kernels.stream_block import stream_block
+
+    cfg = ConvTasNetConfig(**STREAM_CAUSAL)
+    lib = ConvTasNetConfig(use_kernels=0, **STREAM_CAUSAL)
+    assert block_form(cfg, dev) == "kernel" and block_form(lib, dev) == "library"
+    params, state = init_params(torch.Generator(device=dev).manual_seed(6), cfg, device=dev)
+    x = torch.randn((2, 160 * 30), generator=torch.Generator().manual_seed(7)) * 0.3
+    k = StreamingSeparator(cfg, params, batch=2, device=dev)
+    p = StreamingSeparator(lib, params, batch=2, device=dev, graph=False)
+    NB = cfg.R * cfg.X
+    got, want, per_push = [], [], []
+    for i in range(0, x.shape[1], 160):
+        before = stream_block.launches
+        got.append(k.push(x[:, i:i + 160]))
+        per_push.append(stream_block.launches - before)
+        want.append(p.push(x[:, i:i + 160]))
+    assert per_push == [(CAPTURE_WARMUP + 1) * NB] * 2 + [NB] * (len(per_push) - 2)
+    assert len(state_leaves(k.state)) == len(state_leaves(p.state)) == 2 + NB
+    for i, (a, b) in enumerate(zip(state_leaves(k.state), state_leaves(p.state))):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        assert _rel_l2(a, b) <= STREAM_KERNEL_TOL, i
+    got = torch.cat(got + [k.flush()], dim=-1)
+    want = torch.cat(want + [p.flush()], dim=-1)
+    assert _rel_l2(got, want) <= STREAM_KERNEL_TOL
+    off, _ = forward(params, state, lib, x.to(dev))
+    assert _rel_l2(got, off[..., : got.shape[-1]]) <= STREAM_KERNEL_TOL
+    ptrs = [t.data_ptr() for t in state_leaves(k.state)]
+    k.reset()
+    assert [t.data_ptr() for t in state_leaves(k.state)] == ptrs
+    assert not any(t.any() for t in state_leaves(k.state))
+
+
 def test_world1_nccl_dp_step_equals_plain_step(dev, tmp_path):
     """The DP train step of a one-rank NCCL mesh (count and bucket
     all-reduces, the hybrid kernels) gives the plain step's loss, norm and

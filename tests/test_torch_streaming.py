@@ -159,3 +159,143 @@ def test_separator_defaults_to_cuda():
         ts.StreamingSeparator(cfg, tp)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ts.init_stream_state(cfg)
+
+
+# ---- the block kernel's plain version, its dispatch and its plan ----------
+
+from convtasnet_torch.ops.kernels import limits as klimits  # noqa: E402
+from convtasnet_torch.ops.kernels import stream_block as sb  # noqa: E402
+
+CAUSAL_WIDTHS = dict(N=256, L=20, B=256, H=512, P=3, X=8, R=4, C=2, norm_type="cLN",
+                     causal=True)
+
+
+def _former_block(x, hist, bp, dilation, dt):
+    """The per-block ops stream_step ran inline before they moved into
+    stream_block_plain, verbatim."""
+    from convtasnet_torch.ops.activations import prelu
+    from convtasnet_torch.ops.conv import pointwise
+    from convtasnet_torch.ops.norms import channelwise_layer_norm
+
+    def causal_dw(x, hist, w, dilation):
+        P = w.shape[0]
+        span = (P - 1) * dilation
+        ext = torch.cat([hist, x], dim=1)
+        Kc = x.shape[1]
+        wd = w.to(x.dtype)
+        out = None
+        for p in range(P):
+            tap = ext[:, p * dilation: p * dilation + Kc, :] * wd[p]
+            out = tap if out is None else out + tap
+        return out, (ext[:, ext.shape[1] - span:, :] if span > 0 else hist)
+
+    y = pointwise(x, bp["in_w"], dt).to(dt)
+    y = prelu(y, bp["in_prelu"])
+    y = channelwise_layer_norm(y, bp["in_gamma"], bp["in_beta"])
+    y, h = causal_dw(y, hist, bp["dw_w"], dilation)
+    y = prelu(y, bp["dw_prelu"])
+    y = channelwise_layer_norm(y, bp["dw_gamma"], bp["dw_beta"])
+    return x + pointwise(y, bp["out_w"], dt).to(dt), h
+
+
+def _block_leaves(gen, B, H, P, dt):
+    def rn(*s):
+        return torch.randn(s, generator=gen)
+    return {"in_w": (rn(B, H) * 0.3).to(dt), "in_prelu": torch.tensor(0.25).to(dt),
+            "in_gamma": 1 + 0.1 * rn(H), "in_beta": 0.1 * rn(H), "dw_w": (rn(P, H) * 0.5).to(dt),
+            "dw_prelu": torch.tensor(0.25).to(dt), "dw_gamma": 1 + 0.1 * rn(H),
+            "dw_beta": 0.1 * rn(H), "out_w": (rn(H, B) * 0.3).to(dt)}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Kc,dilation", [(3, 1), (5, 4), (12, 2), (16, 8)])
+def test_stream_block_plain_is_the_former_inline_ops_bit_for_bit(dt, Kc, dilation):
+    """stream_block_plain (and the wrapper on the CPU) gives the ops stream_step
+    ran inline, output and new history bit for bit, with Kc below and above
+    the span, two chunks in a row."""
+    gen = torch.Generator().manual_seed(Kc * 10 + dilation)
+    bp = _block_leaves(gen, 8, 16, 3, dt)
+    hist = torch.randn((2, 2 * dilation, 16), generator=gen).to(dt)
+    want_h = got_h = wrap_h = hist
+    for _ in range(2):
+        x = torch.randn((2, Kc, 8), generator=gen).to(dt)
+        want, want_h = _former_block(x, want_h, bp, dilation, dt)
+        got, got_h = sb.stream_block_plain(x, got_h, bp, dilation, dt)
+        wrap, wrap_h = sb.stream_block(x, wrap_h, bp, dilation, dt)
+        assert got.dtype == dt and got_h.shape == hist.shape
+        for a in (got, wrap):
+            assert torch.equal(a, want)
+        for a in (got_h, wrap_h):
+            assert torch.equal(a, want_h)
+
+
+@pytest.mark.parametrize("kw,device,form", [
+    (dict(CAUSAL_WIDTHS), "cuda", "kernel"),              # the causal config: bf16, auto
+    (dict(CAUSAL_WIDTHS), "cpu", "kernel"),               # the plain version on the CPU
+    (dict(CAUSAL_WIDTHS, use_kernels="block"), "cuda", "kernel"),
+    (dict(CAUSAL_WIDTHS, use_kernels=0), "cuda", "library"),
+    (dict(CAUSAL_WIDTHS, compute_dtype="float32"), "cuda", "library"),
+    (dict(CAUSAL_WIDTHS, B=128, H=256), "cuda", "library"),   # widths it is not built for
+    (dict(CAUSAL_WIDTHS, X=12), "cuda", "library"),           # a ring past shared memory
+    (dict(CAUSAL, compute_dtype="bfloat16"), "cuda", "library"),  # the tests' tiny widths
+    (dict(CAUSAL), "cuda", "library"),
+])
+def test_block_form_picks_the_kernel_only_where_it_runs(kw, device, form):
+    """Decided from the config with no card, as kernel_form is."""
+    cfg = ConvTasNetConfig(**kw)
+    assert ts.block_form(cfg, device) == form
+    bf16 = cfg.compute_dtype == "bfloat16"
+    assert (form == "kernel") == (cfg.kernel_form(False, device) != "eager"
+                                  and klimits.stream_limit(cfg.B, cfg.H, cfg.P, cfg.X, bf16)
+                                  is None)
+
+
+@pytest.mark.parametrize("M,Kc,tiles", [(1, 15, 1), (1, 16, 1), (64, 16, 1), (1, 800, 50),
+                                        (4, 799, 50)])
+def test_stream_plan_at_the_causal_widths(M, Kc, tiles):
+    """b1 at the first (15 frames) and steady (16) 20 ms chunk, b64, and a
+    1 s chunk: one cluster of 8 CTAs a stream, 64 channels and 32 output
+    columns a CTA, the frames in tiles of 16, a ring of span + 16 frames,
+    within shared memory at every dilation of the chain."""
+    B, H, P = 256, 512, 3
+    smems = []
+    for d in [2 ** i for i in range(8)]:
+        p = sb.stream_plan(M, Kc, B, H, P, d)
+        assert (p.clusters, p.cluster, p.ctas, p.threads) == (M, 8, 8 * M, 128)
+        assert (p.channels, p.columns, p.rows, p.tiles) == (64, 32, 16, tiles)
+        assert p.ring == 2 * d + 16 and p.smem == klimits.stream_smem(B, H, P, 2 * d)
+        assert p.smem <= klimits.STREAM_SMEM
+        smems.append(p.smem)
+    assert smems == sorted(smems) and smems[-1] < 150_000
+
+
+def test_stream_plan_refuses_what_the_kernel_is_not_built_for():
+    with pytest.raises(ValueError, match="built for"):
+        sb.stream_plan(1, 16, 128, 256, 3, 1)
+    with pytest.raises(ValueError, match="overflows"):
+        sb.stream_plan(1, 16, 256, 512, 3, 2048)
+    with pytest.raises(ValueError, match="no stream launch"):
+        sb.stream_plan(1, 0, 256, 512, 3, 1)
+    assert "bf16" in klimits.stream_limit(256, 512, 3, 8, False)
+    assert klimits.stream_limit(256, 512, 3, 8, True) is None
+    assert "overflows" in klimits.stream_limit(256, 512, 3, 12, True)
+    assert "built for" in klimits.stream_limit(512, 512, 3, 1, True)
+
+
+def test_stream_step_kernel_form_on_the_cpu_is_the_library_ops_bit_for_bit():
+    """At widths the kernel takes, bf16: the step through stream_block (its
+    plain version on the CPU) against the step on the library ops, first
+    and steady chunk, output and every state leaf bit for bit."""
+    kw = dict(CAUSAL_WIDTHS, N=16, L=8, X=2, R=1)
+    cfg, lib = ConvTasNetConfig(**kw), ConvTasNetConfig(use_kernels=0, **kw)
+    assert ts.block_form(cfg, "cpu") == "kernel" and ts.block_form(lib, "cpu") == "library"
+    params, _ = tm.init_params(torch.Generator().manual_seed(8), cfg, device="cpu")
+    params = ts._step_params(params, cfg, torch.device("cpu"))
+    x = torch.randn((2, 96), generator=torch.Generator().manual_seed(9))
+    sk, sl = (ts.init_stream_state(c, batch=2, device="cpu") for c in (cfg, lib))
+    for first, chunk in ((True, x[:, :48]), (False, x[:, 48:])):
+        ok, sk = ts.stream_step(params, sk, cfg, chunk, first=first)
+        ol, sl = ts.stream_step(params, sl, lib, chunk, first=first)
+        assert torch.equal(ok, ol)
+        for a, b in zip(ts.state_leaves(sk), ts.state_leaves(sl)):
+            assert torch.equal(a, b)
