@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --timing   # the twelve kernels' warm and cold times alone
     python3 chip_smoke.py --stream   # the stream phase and the stream block kernel's alone
+    python3 chip_smoke.py --skip     # the skip phase alone (the taslp widths' skip modes)
 
 1. prints the card (nvidia-smi name and power limit);
 2. builds the kernels from convtasnet_torch/csrc with nvcc (timed);
@@ -41,6 +42,15 @@
    bit for bit, every gradient leaf within TOL_BWD_CHAIN_BF16; forward +
    backward device time of both in turns; the torch ops of gradient
    allocation and accumulation per call (torch.profiler);
+4c. skip phase (skip_phase; alone with --skip): the skip modes of the
+   paper's final version at the taslp cell's widths (B=128, Sc=128,
+   H=512, 24 blocks; batch 8 x 4 s, K=3999 padded to 4096): each
+   skip-mode kernel (K3 fold / unfold, KB1, KW z, KF, KFW) against its
+   plain version, its launches counted under its `_skip` name; the
+   24-block fold chain and the training op against their plain stages;
+   the launches of the graphed hybrid train step's replays and of the
+   `auto` forward; the six kernels' warm and cold times and bounds, a
+   {"skip_kernels": [...]} line;
 5. slice phase: writes seeded paper-config weights with the port's
    save_checkpoint and synthetic 8 kHz mixtures with its wavio, then runs
    `convtasnet_torch.cli.separate` on cuda with --batch_size 8 and
@@ -274,9 +284,14 @@ DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": STENCIL, "tcn_out_gemm_fold"
           "tcn_bwd_dz": "wgmma+tma", "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": STENCIL,
           "tcn_bwd_dx": "wgmma+tma", "tcn_wgrad_in": "wgmma+tma",
           "tcn_bwd_finish": "grouped-stream", "tcn_fold_weights": "split-h+ticket"}
+# The skip modes share their first-version kernel's body and design.
+DESIGN.update({k + "_skip": DESIGN[k] for k in (
+    "tcn_out_gemm_fold", "tcn_out_gemm_unfold", "tcn_fold_weights", "tcn_bwd_dz",
+    "tcn_wgrad_out", "tcn_bwd_finish")})
 SOURCE_DW = "convtasnet_torch/csrc/tcn_dwconv_sm90.cuh"
 SOURCE_KF = "convtasnet_torch/csrc/tcn_bwd_finish.cuh"
 SOURCE_KFW = "convtasnet_torch/csrc/tcn_fold_weights.cuh"
+SKIP_REPLAYS = 3  # graphed train steps whose launches the skip phase counts
 TRAIN_KERNELS = ("tcn_dwconv_save", "tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv",
                  "tcn_bwd_dx", "tcn_wgrad_in", "tcn_bwd_finish")
 
@@ -566,14 +581,15 @@ def nan_pad(t, K):
 
 def kf_slots(parts, G, dev):
     """A FinishSlots of G slots filled from one block's kernel partials
-    (wz, win, chpart, colpart, da1part, da2part), slot j scaled by 1 + j /
-    64 so that no two slots are equal, and the block's PartCounts."""
+    (wz, win, chpart, colpart, da1part, da2part; wz [nz, H, B + Sc] with a
+    skip path), slot j scaled by 1 + j / 64 so that no two slots are
+    equal, and the block's PartCounts."""
     from convtasnet_torch.ops.kernels import tcn_block_bwd as tbb
 
     n = tbb.PartCounts(*(t.shape[0] for t in parts))
     _, B, H = parts[1].shape
     P = parts[2].shape[1] - 2
-    slots = tbb.FinishSlots.alloc(G, n, B, H, P, dev)
+    slots = tbb.FinishSlots.alloc(G, n, B, H, P, dev, parts[0].shape[2] - B)
     for j in range(G):
         for dst, src in zip(slots.slot(j, n), parts):
             dst.copy_(src * (1 + j / 64))
@@ -597,7 +613,7 @@ def kf_check(chk, what, parts, NB):
     _, B, H = parts[1].shape
     P = parts[2].shape[1] - 2
     shapes = [(NB, B, H), (NB,), (NB, H), (NB, H), (NB, P, H), (NB,), (NB, H), (NB, H),
-              (NB, H, B)]
+              (NB, H, parts[0].shape[2])]
     worst_abs = 0.0
     for G in (1, 3, NB):
         slots, n = kf_slots(parts, G, dev)
@@ -757,6 +773,352 @@ def hybrid_chain_phase(stacked, cfg, dev, M=5, K=3199):
     torch.cuda.synchronize()
     chk.done()
     return res
+
+
+# The final version's published widths (benchmark/configs/taslp.json): the
+# skip phase's configuration.
+TASLP = dict(N=512, L=16, B=128, Sc=128, H=512, P=3, X=8, R=3, C=2, norm_type="gLN",
+             causal=False, mask_nonlinear="sigmoid", encoder_relu=False, input_norm="gLN")
+
+
+def skip_kernel_specs(blocks, cfg, dev, M=8, K=3999):
+    """Timing specs of the six skip-mode kernels at the taslp cell's shapes
+    (bf16, batch 8 x 4 s at L = 16, block 3's weights; KFW on the stacked
+    weights; KF on the main path's group of blocks' slots), as
+    forward_kernel_specs. Bytes and operations as benchmark/kernels'
+    `*_skip` work files count them: e read once for both outputs, x, s, g
+    and g_s read (and x, s written) once."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import finish_plan
+
+    B, H, P, Sc, norm = cfg.B, cfg.H, cfg.P, cfg.Sc, cfg.norm_type
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    dt, it, rows, nb, bs = torch.bfloat16, 2, M * Kp, 3, cfg.B + cfg.Sc
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def rnd(ch, zero_pad=True):
+        t = torch.randn((M, Kp, ch), generator=gen, device=dev)
+        if zero_pad:
+            t[:, K:] = 0
+        return t.to(dt)
+
+    x, s, g, gs = rnd(B), rnd(Sc), rnd(B, False), rnd(Sc, False)
+    in_w = blocks["in_w"][nb].to(dt)
+    a1, g1, b1, w, a2, g2, b2 = (blocks[k][nb] for k in (
+        "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma", "dw_beta"))
+    out_w, skip_w = blocks["out_w"][nb], blocks["skip_w"][nb]
+    y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
+    e, s2, c = tb.tcn_dwconv(y1, s1, a1, g1, b1, w, a2, norm, 1, cfg.causal, K, save=True)
+    wp, ga, gb = tb.fold_weights(out_w, g2, b2, dt, skip_w)
+    ow = tb.out_weights(out_w, skip_w).to(dt)
+    wt = ow.t().contiguous()
+    out = torch.empty_like(x)
+    gcat = torch.cat([g, gs], dim=-1)
+    dz, colpart, gs2 = tbb.tcn_bwd_dz(g, wt, c, s2, a2, g2, norm, K, gs=gs)
+    db, chpart, gs1, da2part = tbb.tcn_bwd_dwconv(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2,
+                                                  g2, norm, 1, cfg.causal, K)
+    _, dy1, da1part = tbb.tcn_bwd_dx(db, y1, in_w.t().contiguous(), g, s1, gs1, a1, g1,
+                                     norm, K)
+    z = (s2, a2, g2, b2, norm)
+    kf_parts = (tbb.tcn_wgrad(c, g, K, z, gs=gs), tbb.tcn_wgrad(x, dy1, K), chpart, colpart,
+                da1part, da2part)
+    stacked = [blocks[k] for k in ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w",
+                                   "dw_prelu", "dw_gamma", "dw_beta")]
+    stacked.append(tb.out_weights(blocks["out_w"], blocks["skip_w"]))
+    NB = stacked[0].shape[0]
+    G = finish_plan(M, Kp, B, H, P, tuple(2 ** (i % cfg.X) for i in range(NB)), dt, False,
+                    x.device.index, None, Sc)[0]
+    kf_slots_, kf_n = kf_slots(kf_parts, G, dev)
+    kf_counts = [kf_n] * G
+    kf_grads = tbb.alloc_grads(stacked)
+    kf_bytes = 4 * (G * sum(t.numel() for t in kf_parts)
+                    + sum(t[:G].numel() for t in kf_grads))
+    kf_read = G * sum(t.numel() for t in kf_parts)
+    fold_in = (blocks["out_w"], blocks["dw_gamma"], blocks["dw_beta"], blocks["skip_w"])
+    fold_n = NB * H * bs
+    gemm = 2.0 * rows * bs * H
+    k3_bytes = (rows * H + 2 * rows * bs + H * bs) * it + s2.numel() * 4
+
+    def k3(fold, wmat, va, vb):
+        return dict(
+            source=SOURCE, replaces=WHOLE_TCN if fold else WHOLE_BLOCK,
+            call=lambda e_, s_, x_, w_, ga_, gb_, o_, sk_: tb.tcn_out_gemm(
+                e_, s_, x_, w_, ga_, gb_, norm, K, fold, o_, sk_),
+            args=(e, s2, x, wmat, va, vb, out, s.clone()),
+            plain=lambda: tb.out_gemm_plain(e, s2, x, wmat, va, vb, norm, K, fold,
+                                            skip=s.clone()),
+            library=lambda: torch.matmul(e.view(rows, H), wmat),
+            bytes=k3_bytes, flops=gemm, per=1)
+
+    return {
+        "tcn_out_gemm_fold_skip": k3(True, wp, ga, gb),
+        "tcn_out_gemm_unfold_skip": k3(False, ow, g2, b2),
+        "tcn_fold_weights_skip": dict(
+            source=SOURCE_KFW, replaces=WHOLE_TCN,
+            call=lambda o_, g_, b_, k_: tb.tcn_fold_weights(o_, g_, b_, dt, k_), args=fold_in,
+            plain=lambda: tb.fold_weights(*fold_in[:3], dt, fold_in[3]),
+            library=lambda: tb.fold_weights(*fold_in[:3], dt, fold_in[3]), turns=True,
+            shape=f"NB={NB}, H={H}, B + Sc={bs} (stacked weights)",
+            bytes=fold_n * (4 + it) + 2 * NB * (H + bs) * 4, flops=5.0 * fold_n, per=1,
+            dtype=torch.float32),
+        "tcn_bwd_dz_skip": dict(
+            source=SOURCE_BWD, replaces=BWD_BLOCK,
+            call=lambda g_, w_, c_, s_, gs_: tbb.tcn_bwd_dz(g_, w_, c_, s_, a2, g2, norm, K,
+                                                           gs=gs_),
+            args=(g, wt, c, s2, gs),
+            plain=lambda: tbb.bwd_dz_plain(g, wt, c, s2, a2, g2, norm, K, gs=gs),
+            library=lambda: torch.matmul(gcat.view(rows, bs), wt),
+            bytes=(rows * bs + bs * H + 2 * rows * H) * it
+            + (s2.numel() + colpart.numel() + gs2.numel()) * 4 + 2 * H * 4,
+            flops=gemm, per=1),
+        "tcn_wgrad_out_skip": dict(
+            source=SOURCE_KW, replaces=BWD_BLOCK,
+            call=lambda c_, g_, s_, gs_: tbb.tcn_wgrad(c_, g_, K, (s_, a2, g2, b2, norm),
+                                                       gs=gs_),
+            args=(c, g, s2, gs),
+            plain=lambda: tbb.wgrad_plain(c, g, K, z, gs=gs),
+            library=lambda: torch.matmul(c.view(rows, H).t(), gcat.view(rows, bs)),
+            bytes=rows * (bs + H) * it + H * bs * 4, flops=gemm, per=1),
+        "tcn_bwd_finish_skip": dict(
+            source=SOURCE_KF, replaces=BWD_BLOCK,
+            call=lambda sl, gr: tbb.tcn_bwd_finish(sl, kf_counts, gr, 0),
+            args=(kf_slots_, kf_grads),
+            plain=lambda: tbb.bwd_finish_plain(kf_slots_, kf_counts, kf_grads, 0),
+            library=lambda: [t.sum(1) for t in kf_slots_],
+            shape=f"a group of {G} blocks' slots, M={M}, K_pad={Kp}, B={B}, Sc={Sc}, H={H}",
+            bytes=kf_bytes, flops=float(kf_read), per=1, dtype=torch.float32),
+    }
+
+
+def skip_phase(dev, M=8, K=3999):
+    """The skip modes (a block with a skip path, the paper's final version)
+    at the taslp cell's widths and shapes (TASLP; batch 8 x 4 s at L = 16,
+    K = 3,999 padded to 4,096; seeded weights): (a) each skip-mode kernel
+    against its plain version, gLN and cLN (causal), bf16: K3 fold and
+    unfold (x and the skip sum s, in place), KB1 (NaN in the rows >= K of
+    g, g_s and c), KW z (NaN in those of g and g_s), KF (kf_check over the
+    skip partials), KFW over [out_w | skip_w]; rows >= K exact zeros, a
+    second launch bit for bit, each launch counted under its `_skip` name
+    and none under the first version's; (b) the 24-block whole-TCN fold
+    chain (x and s) and the training op (out, s, dx and every gradient, d
+    skip_w included) against their plain stages; the training op within
+    TOL_BWD_CHAIN_BF16 or twice what the same blocks without the skip path
+    read against theirs; (c) the hybrid train path's own launches: the
+    train step graphed (training/solver.GraphedStep: an eager call, a
+    capture, then SKIP_REPLAYS replays counted from zero), and the `auto`
+    forward (KFW and K3 fold skip) against the eager forward; (d) the six
+    kernels timed warm and cold beside their bounds. Returns (results,
+    kernel rows)."""
+    import dataclasses
+
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+    from convtasnet_torch.ops.kernels.whole_tcn import whole_tcn, whole_tcn_reference
+    from convtasnet_torch.ops.kernels.whole_tcn_hybrid import finish_plan, whole_tcn_train
+    from convtasnet_torch.training.optim import Optimizer, tree_map
+    from convtasnet_torch.training.solver import GraphedStep, make_train_step
+
+    cfg = ConvTasNetConfig(**TASLP, use_kernels="hybrid")
+    NB, B, H, P, Sc = cfg.R * cfg.X, cfg.B, cfg.H, cfg.P, cfg.Sc
+    Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+    dt, nb = torch.bfloat16, 3
+    params, state = init_params(torch.Generator(device=dev).manual_seed(24), cfg, device=dev)
+    blocks = {k: v.reshape((NB,) + tuple(v.shape[2:]))
+              for k, v in params["separator"]["blocks"].items()}
+    chk = Checks("skip phase")
+    res = {}
+    log(f"skip phase (taslp widths B={B}, Sc={Sc}, H={H}, NB={NB}; M={M}, K={K}, "
+        f"K_pad={Kp}; bf16):")
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def rnd(ch, zero_pad=True):
+        t = torch.randn((M, Kp, ch), generator=gen, device=dev)
+        if zero_pad:
+            t[:, K:] = 0
+        return t.to(dt)
+
+    def counted(name, n):
+        """The launches since the last reset: n of `name`, none of the
+        first version's kernel of the same mode."""
+        c = all_counts()
+        chk(f"{name}: {n} launches counted, none as {name[:-5]}",
+            float(abs(c[name] - n) + c[name[:-5]]), 0.0)
+
+    # (a) each kernel against its plain version
+    x, s0, g, gs = rnd(B), rnd(Sc), rnd(B, False), rnd(Sc, False)
+    in_w = blocks["in_w"][nb].to(dt)
+    a1, g1, b1, w, a2, g2, b2 = (blocks[k][nb] for k in (
+        "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma", "dw_beta"))
+    out_w, skip_w = blocks["out_w"][nb], blocks["skip_w"][nb]
+    for norm, causal in (("gLN", False), ("cLN", True)):
+        red = 1 if norm == "gLN" else 2
+        y1, s1 = tb.tcn_in_gemm(x, in_w, a1, norm)
+        e, s2, c = tb.tcn_dwconv(y1, s1, a1, g1, b1, w, a2, norm, 2, causal, K, save=True)
+        for fold in (True, False):
+            mode = "fold" if fold else "unfold"
+            if fold:
+                wmat, va, vb = tb.fold_weights(out_w, g2, b2, dt, skip_w)
+            else:
+                wmat, va, vb = tb.out_weights(out_w, skip_w).to(dt), g2, b2
+            sp, sk, sk2 = s0.clone(), s0.clone(), s0.clone()
+            want = tb.out_gemm_plain(e, s2, x, wmat, va, vb, norm, K, fold, skip=sp)
+            reset_all_counts()
+            got = tb.tcn_out_gemm(e, s2, x, wmat, va, vb, norm, K, fold, skip=sk)
+            counted(f"tcn_out_gemm_{mode}_skip", 1)
+            chk(f"K3 {mode} skip {norm} x", rel_max(got, want), TOL_BF16)
+            chk(f"K3 {mode} skip {norm} s (in place)", rel_max(sk, sp), TOL_BF16)
+            chk(f"K3 {mode} skip {norm} pad rows zero",
+                float(got[:, K:].abs().max() + sk[:, K:].abs().max()), 0.0)
+            again = tb.tcn_out_gemm(e, s2, x, wmat, va, vb, norm, K, fold, skip=sk2)
+            chk(f"K3 {mode} skip {norm} repeat",
+                float((not torch.equal(again, got)) + (not torch.equal(sk2, sk))), 0.0)
+        wt = tb.out_weights(out_w, skip_w).t().contiguous().to(dt)
+        gn, gsn, cn = nan_pad(g, K), nan_pad(gs, K), nan_pad(c, K)
+        args = (gn, wt, cn, s2, a2, g2, norm, K)
+        dzp, colp, gs2p = tbb.bwd_dz_plain(*args, gs=gsn)
+        reset_all_counts()
+        dzk, colk, gs2k = tbb.tcn_bwd_dz(*args, gs=gsn)
+        counted("tcn_bwd_dz_skip", 1)
+        chk(f"KB1 skip {norm} dz", rel_max(dzk, dzp), TOL_BF16)
+        chk(f"KB1 skip {norm} colpart", rel_max(colk.sum(0), colp.sum(0)), TOL_BF16)
+        chk(f"KB1 skip {norm} norm2 partials", rel_max(gs2k.sum(red), gs2p.sum(red)), TOL_BF16)
+        chk(f"KB1 skip {norm} pad rows zero", float(dzk[:, K:].abs().max()), 0.0)
+        chk(f"KB1 skip {norm} repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+            (dzk, colk, gs2k), tbb.tcn_bwd_dz(*args, gs=gsn)))), 0.0)
+        z = (s2, a2, g2, b2, norm)
+        want = tbb.wgrad_plain(c, gn, K, z, gs=gsn).sum(0)
+        reset_all_counts()
+        part = tbb.tcn_wgrad(c, gn, K, z, gs=gsn)
+        counted("tcn_wgrad_out_skip", 1)
+        chk(f"KW z skip {norm} d[out_w | skip_w] [{H}, {B + Sc}]",
+            rel_max(part.sum(0), want) + float(part.shape[1:] != (H, B + Sc)), TOL_BF16)
+        chk(f"KW z skip {norm} repeat",
+            float(not torch.equal(tbb.tcn_wgrad(c, gn, K, z, gs=gsn), part)), 0.0)
+        db, chpart, gs1, da2part = tbb.tcn_bwd_dwconv(y1, c, dzk, s1, s2, gs2k, a1, g1, b1, w,
+                                                      a2, g2, norm, 2, causal, K)
+        _, dy1, da1part = tbb.tcn_bwd_dx(db, y1, in_w.t().contiguous(), g, s1, gs1, a1, g1,
+                                         norm, K)
+        parts = (tbb.tcn_wgrad(c, g, K, z, gs=gs), tbb.tcn_wgrad(x, dy1, K), chpart, colk,
+                 da1part, da2part)
+        reset_all_counts()
+        res[f"kf_max_abs_{norm}"] = kf_check(chk, f"skip {norm}", parts, NB)
+        counted("tcn_bwd_finish_skip", 12)  # kf_check: 3 groups x 2 row ranges x 2 launches
+        del parts, e, c, y1
+    fold_in = (blocks["out_w"], blocks["dw_gamma"], blocks["dw_beta"])
+    reset_all_counts()
+    got = tb.tcn_fold_weights(*fold_in, dt, blocks["skip_w"])
+    counted("tcn_fold_weights_skip", 1)
+    want = tb.fold_weights(*fold_in, dt, blocks["skip_w"])
+    chk(f"KFW skip NB={NB} wp bit for bit (differing elements)",
+        float((got[0] != want[0]).sum()), 0)
+    wr = tb.out_weights(blocks["out_w"], blocks["skip_w"]).to(dt).float().abs()
+    for name, a, b, v in zip(("g2w", "b2w"), got[1:], want[1:], fold_in[1:]):
+        scale = torch.einsum("nh,nhb->nb", v.abs(), wr).clamp_min(1e-30)
+        chk(f"KFW skip {name} / sum |v| |W|", float(((a - b).abs() / scale).max()), TOL_F32)
+    chk("KFW skip repeat", float(sum(not torch.equal(u, v) for u, v in zip(
+        got, tb.tcn_fold_weights(*fold_in, dt, blocks["skip_w"])))), 0)
+
+    # (b) the chains of all NB blocks against their plain stages
+    order = ("in_w", "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma",
+             "dw_beta", "out_w")
+    stacked = [blocks[k] for k in order]
+    sw = blocks["skip_w"]
+    xin = rnd(B)
+    norm = cfg.norm_type
+    with torch.no_grad():
+        reset_all_counts()
+        got = whole_tcn(xin, *stacked, norm, False, cfg.X, valid_k=K, skip_w=sw)
+        counted("tcn_fold_weights_skip", 1)
+        counted("tcn_out_gemm_fold_skip", NB)
+        want = whole_tcn_reference(xin, *stacked, norm, False, cfg.X, valid_k=K, skip_w=sw)
+    for name, a, b in zip(("x", "s"), got, want):
+        res[f"whole_tcn_{name}_rel_l2"] = rel_l2(a, b)
+        chk(f"whole_tcn fold chain skip {name} (rel L2)", rel_l2(a, b), TOL_CHAIN_BF16)
+        chk(f"whole_tcn fold chain skip {name} pad rows zero", float(a[:, K:].abs().max()), 0.0)
+    del got, want
+    g = rnd(B, False)
+
+    def train_errors(skip):
+        outs = []
+        for plain in (True, False):
+            leaves = [p.clone().requires_grad_(True) for p in stacked]
+            swl = sw.clone().requires_grad_(True) if skip else None
+            xl = xin.clone().requires_grad_(True)
+            out, s = whole_tcn_train(xl, *leaves, norm, False, cfg.X, valid_k=K, plain=plain,
+                                     skip_w=swl)
+            torch.autograd.backward((out, s) if skip else out, (g, gs) if skip else g)
+            outs.append([out, xl.grad] + [p.grad for p in leaves]
+                        + ([s, swl.grad] if skip else []))
+        return [rel_l2(a.detach(), b.detach()) for a, b in zip(outs[1], outs[0])]
+
+    reset_all_counts()
+    errs = train_errors(True)
+    G = finish_plan(M, Kp, B, H, P, tuple(2 ** (i % cfg.X) for i in range(NB)), dt, False,
+                    torch.cuda.current_device(), None, Sc)[0]
+    groups = -(-NB // G)
+    for name in ("tcn_out_gemm_unfold_skip", "tcn_bwd_dz_skip", "tcn_wgrad_out_skip"):
+        counted(name, NB)
+    counted("tcn_bwd_finish_skip", groups)
+    first = train_errors(False)
+    names = ("out",) + GRAD_NAMES + ("s", "dskip_w")
+    bounds = [max(TOL_BWD_CHAIN_BF16, 2 * e) for e in first] + [TOL_BWD_CHAIN_BF16] * 2
+    res["train_op_rel_l2"] = dict(zip(names, errs))
+    res["train_op_first_version_rel_l2"] = dict(zip(names, first))
+    for name, err, bound in zip(names, errs, bounds):
+        chk(f"whole_tcn_train skip {name} (rel L2; first version's x 2 or the tolerance)",
+            err, bound)
+    del xin, g
+    torch.cuda.empty_cache()
+
+    # (c) the hybrid train path's own launches, graphed; the auto forward
+    T = K * cfg.L // 2 + cfg.L // 2
+    src = torch.randn((M, cfg.C, T), generator=gen, device=dev) * 0.1
+    mix, lengths = src.sum(1), torch.full((M,), T, dtype=torch.int32, device=dev)
+    opt = Optimizer("adam", lr=1e-3)
+    p0 = tree_map(torch.clone, params)
+    step = GraphedStep(make_train_step(cfg, opt, 5.0), p0, opt.init(p0), state)
+    losses = [float(step(step.params, step.opt_state, step.state, mix, src, lengths)[3])
+              for _ in range(2)]  # eager, then captured
+    reset_all_counts()
+    losses += [float(step(step.params, step.opt_state, step.state, mix, src, lengths)[3])
+               for _ in range(SKIP_REPLAYS)]
+    torch.cuda.synchronize()
+    stats = step.graphed.stats()
+    train_counts = {k: v for k, v in all_counts().items() if v}
+    res["train_step"] = {"losses": losses, "counts_per_step": {
+        k: v / SKIP_REPLAYS for k, v in train_counts.items()}, "graph": stats}
+    log(f"  graphed hybrid train step: losses {losses}, launches over {SKIP_REPLAYS} replays "
+        f"{train_counts}, {stats}")
+    per_step = {"tcn_in_gemm": 2 * NB, "tcn_dwconv_save": NB, "tcn_out_gemm_unfold_skip": NB,
+                "tcn_bwd_dz_skip": NB, "tcn_wgrad_out_skip": NB, "tcn_bwd_dwconv": NB,
+                "tcn_bwd_dx": NB, "tcn_wgrad_in": NB, "tcn_bwd_finish_skip": -(-NB // G)}
+    chk("graphed train step: the launches of SKIP_REPLAYS replays (differing names or counts)",
+        float(train_counts != {k: v * SKIP_REPLAYS for k, v in per_step.items()}), 0.0)
+    chk("graphed train step: replays", float(stats["replays"] != SKIP_REPLAYS), 0.0)
+    chk("graphed train step: losses finite", float(not np.all(np.isfinite(losses))), 0.0)
+    del step, p0
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        reset_all_counts()
+        est, _ = forward(params, state, dataclasses.replace(cfg, use_kernels="auto"), mix)
+        fwd_counts = {k: v for k, v in all_counts().items() if v}
+        ref_est, _ = forward(params, state, dataclasses.replace(cfg, use_kernels="0"), mix)
+    want = {"tcn_fold_weights_skip": 1, "tcn_in_gemm": NB, "tcn_dwconv": NB,
+            "tcn_out_gemm_fold_skip": NB}
+    chk("auto forward: launches (differing names or counts)", float(fwd_counts != want), 0.0)
+    res["auto_vs_eager_rel_l2"] = rel_l2(est, ref_est)
+    chk("auto forward vs eager (bf16, rel L2)", res["auto_vs_eager_rel_l2"], TOL_E2E_BF16)
+    torch.cuda.synchronize()
+    chk.done()
+
+    # (d) the six kernels' times
+    rows = time_kernels(skip_kernel_specs(blocks, cfg, dev, M, K),
+                        f"M={M}, K_pad={Kp}, B={B}, Sc={Sc}, H={H}")
+    kernels = [{"name": k, **{kk: vv for kk, vv in v.items() if kk != "turns_ms"}}
+               for k, v in rows.items()]
+    check_cold(kernels)
+    return res, kernels
 
 
 def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
@@ -3272,6 +3634,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", action="store_true",
                     help="only the streaming phases: the stream phase and the stream block "
                          "kernel's (no other)")
+    ap.add_argument("--skip", action="store_true",
+                    help="only the skip phase: the skip modes' kernels at the taslp widths "
+                         "(no other)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -3300,6 +3665,7 @@ def main(argv=None) -> int:
     # ---- build ----------------------------------------------------------
     t0 = time.perf_counter()
     reports = _build.build_all(["tcn_block", "tcn_stream_block"] if args.stream
+                               else ["tcn_block", "tcn_block_bwd"] if args.skip
                                else ["tcn_block", "tcn_block_bwd", "tcn_stream_block"])
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s")
@@ -3315,6 +3681,16 @@ def main(argv=None) -> int:
         timing["stream_kernel"] = stream_block_phase(dev)
         log(card_line())
         log(json.dumps({"stream": timing, "profiler_blind": PROFILER_BLIND}))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0)}}))
+        return 0
+    if args.skip:
+        skip_res, skip_kernels = skip_phase(dev)
+        log(card_line())
+        log(json.dumps({"skip": skip_res, "skip_kernels": skip_kernels,
+                        "profiler_blind": PROFILER_BLIND}))
+        if PROFILER_BLIND:
+            raise AssertionError(f"torch.profiler fell short for {PROFILER_BLIND}")
         log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                "kind": torch.cuda.get_device_name(0)}}))
         return 0
@@ -3403,19 +3779,19 @@ def main(argv=None) -> int:
         # Both 32-block chains, every dilation in scan order.
         for norm in ("gLN", "cLN"):
             for causal in (False, True):
-                want = whole_tcn_reference(x, *stacked, norm, causal, cfg.X, valid_k=K)
-                got = whole_tcn(x, *stacked, norm, causal, cfg.X, valid_k=K)
+                want, _ = whole_tcn_reference(x, *stacked, norm, causal, cfg.X, valid_k=K)
+                got, _ = whole_tcn(x, *stacked, norm, causal, cfg.X, valid_k=K)
                 ctol = TOL_F32 if dt == torch.float32 else TOL_CHAIN_BF16
                 chk(f"whole_tcn chain {tag} {norm} causal={causal}", rel_l2(got, want), ctol)
-                wantb = tcn_chain(x, *stacked, norm, causal,
-                                  [2 ** (i % cfg.X) for i in range(NB)], K, False,
-                                  PLAIN_STAGES)
+                wantb, _ = tcn_chain(x, *stacked, norm, causal,
+                                     [2 ** (i % cfg.X) for i in range(NB)], K, False,
+                                     PLAIN_STAGES)
                 gotb = x.clone()
                 scratch = alloc_scratch(M, Kp, H, dt, dev)
                 for i in range(NB):
-                    gotb = whole_block(gotb, *[t[i] for t in stacked], norm,
-                                       2 ** (i % cfg.X), causal, valid_k=K,
-                                       scratch=scratch)
+                    gotb, _ = whole_block(gotb, *[t[i] for t in stacked], norm,
+                                          2 ** (i % cfg.X), causal, valid_k=K,
+                                          scratch=scratch)
                 chk(f"whole_block chain {tag} {norm} causal={causal}", rel_l2(gotb, wantb), ctol)
                 chk(f"chains {tag} {norm} causal={causal} pad rows zero",
                     float(got[:, K:].abs().max() + gotb[:, K:].abs().max()), 0.0)
@@ -3429,6 +3805,8 @@ def main(argv=None) -> int:
     # ---- training kernel phase ---------------------------------------------
     train_errs = train_kernel_phase(blocks, stacked, cfg, dev)
     hybrid_chain = hybrid_chain_phase(stacked, cfg, dev)
+    skip_res, skip_kernels = skip_phase(dev)
+    torch.cuda.empty_cache()
 
     # ---- slice phase: the separate CLI ------------------------------------
     from convtasnet_torch.cli.separate import main as separate_main
@@ -3597,12 +3975,13 @@ def main(argv=None) -> int:
         par_timing = parallel_phase(cfg, dev, train_tmp.name, hybrid_run)
     par_timing["phase_s"] = time.perf_counter() - t0
     log(json.dumps({"build_s": build_s, "latency": latency, "train": train_timing,
-                    "hybrid_chain": hybrid_chain,
+                    "hybrid_chain": hybrid_chain, "skip": skip_res,
                     "train_graph": train_graph, "evaluate": eval_timing, "graph": graph_timing,
                     "stream": stream_timing, "options": opt_res, "parallel": par_timing,
                     "profiler_blind": PROFILER_BLIND}))
     log(card_line())
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"skip_kernels": skip_kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

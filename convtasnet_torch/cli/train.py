@@ -71,7 +71,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--C", default=2, type=int)
     p.add_argument("--norm_type", default="gLN", choices=["gLN", "cLN", "BN"])
     p.add_argument("--causal", type=int, default=0)
-    p.add_argument("--mask_nonlinear", default="relu", choices=["relu", "softmax"])
+    p.add_argument("--mask_nonlinear", default="relu", choices=["relu", "softmax", "sigmoid"])
+    # The paper's final version (arXiv:1809.07454v3), first-version defaults
+    p.add_argument("--Sc", default=0, type=int,
+                   help="skip-connection channels per block; 0 = no skip path")
+    p.add_argument("--encoder_relu", default=1, type=int, help="0 = a linear encoder")
+    p.add_argument("--input_norm", default="cLN", choices=["cLN", "gLN"])
     # Training
     p.add_argument("--epochs", default=30, type=int)
     p.add_argument("--half_lr", default=0, type=int)
@@ -130,6 +135,7 @@ def _train(args, device, mesh):
         N=args.N, L=args.L, B=args.B, H=args.H, P=args.P, X=args.X, R=args.R, C=args.C,
         norm_type=args.norm_type, causal=bool(args.causal),
         mask_nonlinear=args.mask_nonlinear, compute_dtype=args.compute_dtype,
+        Sc=args.Sc, encoder_relu=bool(args.encoder_relu), input_norm=args.input_norm,
         use_kernels=args.use_kernels,
         remat={"0": False, "none": False, "1": "repeat"}.get(args.remat, args.remat),
         scan_unroll=args.scan_unroll)

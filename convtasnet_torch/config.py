@@ -52,6 +52,10 @@ _JAX_ONLY_KEYS = ("use_pallas",)
 
 REMAT_CHOICES = ("none", "repeat", "block", "dots")
 
+# The keys of the paper's final version (arXiv:1809.07454v3) at their
+# first-version values: a config that holds them all is the first design.
+_FINAL_VERSION_KEYS = {"Sc": 0, "encoder_relu": True, "input_norm": "cLN"}
+
 
 def remat_mode(remat) -> str:
     """The JAX package's remat values as one of REMAT_CHOICES: False and
@@ -74,7 +78,18 @@ class ConvTasNetConfig:
       P: depthwise kernel size             X: blocks per repeat (d = 2**x)
       R: repeats                           C: speakers
       norm_type: "gLN" | "cLN" | "BN"      causal: left-only padding
-      mask_nonlinear: "relu" | "softmax"
+      mask_nonlinear: "relu" | "softmax" | "sigmoid"
+
+    The keys of the paper's final version (Luo & Mesgarani, IEEE/ACM TASLP
+    2019, arXiv:1809.07454v3; the authors' utility/models.py), each at the
+    first version's value by default:
+
+      Sc: skip-connection channels. With Sc > 0 every block has a second
+          output, e @ skip_w, summed over the blocks into s, and the mask
+          is computed from PReLU(s) instead of the last block's output;
+          0 is the first version's block, one residual output.
+      encoder_relu: ReLU on the encoder output (False: a linear encoder).
+      input_norm: the separator's input norm, "cLN" or "gLN".
     """
 
     N: int = 256
@@ -99,12 +114,21 @@ class ConvTasNetConfig:
     # The JAX package's unroll of its scan over the R repeats; kept for
     # the checkpoint header and the CLI, no effect here.
     scan_unroll: int = 1
+    Sc: int = 0
+    encoder_relu: bool = True
+    input_norm: str = "cLN"
 
     def __post_init__(self):
         if self.norm_type not in ("gLN", "cLN", "BN"):
             raise ValueError(f"unsupported norm_type: {self.norm_type}")
-        if self.mask_nonlinear not in ("relu", "softmax"):
+        if self.mask_nonlinear not in ("relu", "softmax", "sigmoid"):
             raise ValueError(f"unsupported mask_nonlinear: {self.mask_nonlinear}")
+        if self.input_norm not in ("cLN", "gLN"):
+            raise ValueError(f"unsupported input_norm: {self.input_norm}")
+        if int(self.Sc) < 0:
+            raise ValueError(f"Sc must be >= 0, got {self.Sc}")
+        object.__setattr__(self, "Sc", int(self.Sc))
+        object.__setattr__(self, "encoder_relu", bool(self.encoder_relu))
         if self.L % 2 != 0:
             raise ValueError("L must be even (stride is L // 2)")
         if self.compute_dtype not in ("bfloat16", "float32"):
@@ -122,6 +146,13 @@ class ConvTasNetConfig:
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
+    @property
+    def first_version(self) -> bool:
+        """Whether the model is the first version's design: no skip path, a
+        ReLU encoder and the cLN input norm (what streaming and TP / CP
+        run)."""
+        return all(getattr(self, k) == v for k, v in _FINAL_VERSION_KEYS.items())
+
     def kernel_form(self, train: bool = False, device=None) -> str:
         """How the TCN chain runs for a forward with `train` on `device`
         (default CUDA, the entry points' default): "eager", the inference
@@ -129,7 +160,12 @@ class ConvTasNetConfig:
         "whole_tcn_train" (use_kernels="hybrid") / "whole_block_train"
         ("whole"). Decided from the config before any launch: on a card a
         config beyond the launch limits of the form's kernels runs eager
-        (the CPU's plain versions take any config)."""
+        (the CPU's plain versions take any config).
+
+        A skip config (Sc > 0) runs every form but "whole_block_train":
+        the recompute chain (whole_block_vjp.py) saves only the block
+        inputs and has no skip path, so use_kernels="whole" trains it on
+        the eager chain."""
         flag = str(self.use_kernels).lower()
         if self.norm_type == "BN" or flag in ("0", "false"):
             return "eager"
@@ -137,9 +173,12 @@ class ConvTasNetConfig:
             form = "whole_block" if flag == "block" else "whole_tcn"
         else:
             form = {"hybrid": "whole_tcn_train", "whole": "whole_block_train"}.get(flag, "eager")
+        if form == "whole_block_train" and self.Sc:
+            return "eager"
         on_card = device is None or torch.device(device).type != "cpu"
         if form != "eager" and on_card and kernel_limit(
-                self.B, self.H, self.P, self.X, self.compute_dtype == "bfloat16", train):
+                self.B, self.H, self.P, self.X, self.compute_dtype == "bfloat16", train,
+                self.Sc):
             return "eager"
         return form
 
@@ -155,9 +194,14 @@ class ConvTasNetConfig:
 
     def header_dict(self) -> dict:
         """The model_config a checkpoint header stores: the keys both
-        packages read (the kernel switch is a run-time choice)."""
+        packages read (the kernel switch is a run-time choice), and those
+        of the final version's design where they depart from the first's
+        (a first-version header stays the one the JAX package reads)."""
         d = dataclasses.asdict(self)
         d.pop("use_kernels")
+        for k, v in _FINAL_VERSION_KEYS.items():
+            if d[k] == v:
+                d.pop(k)
         return d
 
 

@@ -15,6 +15,9 @@
 //                             o = inv * t + (b2 @ W - inv * mean * g2 @ W)
 //                      unfold (whole_block) z = round(norm2(e)) is formed
 //                             in the A-operand load, o = z @ out_w
+//                    With a skip path (the paper's final version, Sc > 0),
+//                    K3's skip mode: o over [out_w | skip_w], its last Sc
+//                    columns added into the skip sum s in place (bf16).
 //
 // and, once per whole-TCN forward over all NB blocks, KFW tcn_fold_weights
 // (tcn_fold_weights.cuh): K3 fold's operand round(g2 * out_w) and its
@@ -261,12 +264,15 @@ extern "C" int tcn_in_gemm(int device, int dtype, const void* x, const void* in_
 }
 
 // CTAs of the bf16 wgmma kernel in `mode` (tcn_gemm_sm90.cuh HMode: 0 fold,
-// 1 unfold, 3 K1) with tile (bm, bn) resident per SM; -1 if not built here.
+// 1 unfold, 3 K1; or-ed with 8, the skip kernel of fold / unfold) with tile
+// (bm, bn) resident per SM; -1 if not built here.
 extern "C" int tcn_gemm_resident(int device, int mode, int bm, int bn) {
   cudaSetDevice(device);
   if (mode == H_FOLD) return hgemm_resident<H_FOLD>(bm, bn);
   if (mode == H_UNFOLD) return hgemm_resident<H_UNFOLD>(bm, bn);
   if (mode == H_IN) return hgemm_resident<H_IN>(bm, bn);
+  if (mode == (H_FOLD | 8)) return hgemm_resident<H_FOLD, true>(bm, bn);
+  if (mode == (H_UNFOLD | 8)) return hgemm_resident<H_UNFOLD, true>(bm, bn);
   return -1;
 }
 
@@ -293,20 +299,26 @@ extern "C" int tcn_dwconv(int device, int dtype, const void* y1, const float* st
 }
 
 // bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;
-// f32 ignores them.
+// f32 ignores them. Sc > 0 (bf16 only): the skip mode, wmat [H, B + Sc]
+// (fold: vec_a / vec_b [B + Sc]) and the skip sum `skip` [rows, Sc]
+// updated in place.
 extern "C" int tcn_out_gemm(int device, int dtype, int fold, const void* e,
                             const float* stats2, int n2, const void* wmat,
                             const float* vec_a, const float* vec_b, const void* res,
-                            void* out, int rows, int kpad, int k_valid, int H, int B,
-                            int gln, int bm, int bn, void* stream) {
+                            void* out, void* skip, int rows, int kpad, int k_valid, int H,
+                            int B, int Sc, int gln, int bm, int bn, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sc && (!dtype || !skip)) return cudaErrorInvalidValue;
   if (dtype) {
     HMaps m;
-    if (!hop::tensor_map(&m.a, e, rows, H, bm) || !hop::tensor_map(&m.w, wmat, H, B, 64) ||
+    if (!hop::tensor_map(&m.a, e, rows, H, bm) || !hop::tensor_map(&m.w, wmat, H, B + Sc, 64) ||
         !hop::tensor_map(&m.res, res, rows, B, 64) || !hop::tensor_map(&m.out, out, rows, B, 64))
       return cudaErrorInvalidValue;
     m.a2 = m.dy1 = m.a;
+    m.res2 = m.out2 = m.res;
+    if (Sc && !hop::tensor_map(&m.res2, skip, rows, Sc, 64)) return cudaErrorInvalidValue;
+    if (Sc) m.out2 = m.res2;
     HArgs h{};
     h.stats = stats2;
     h.n_stats = n2;
@@ -315,8 +327,12 @@ extern "C" int tcn_out_gemm(int device, int dtype, int fold, const void* e,
     h.kpad = kpad;
     h.k_valid = k_valid;
     h.kdim = H;
-    h.ncols = B;
+    h.ncols = B + Sc;
     h.gln = gln;
+    h.nsplit = B;
+    if (Sc)
+      return fold ? hgemm<H_FOLD, true>(m, h, rows, bm, bn, s)
+                  : hgemm<H_UNFOLD, true>(m, h, rows, bm, bn, s);
     return fold ? hgemm<H_FOLD>(m, h, rows, bm, bn, s) : hgemm<H_UNFOLD>(m, h, rows, bm, bn, s);
   }
   GemmArgs g{};
@@ -342,10 +358,11 @@ extern "C" int tcn_out_gemm(int device, int dtype, int fold, const void* e,
 // FW_COLS, splits, 2, FW_COLS] f32 and ticket [NB * B / FW_COLS] (zero
 // between launches) are the slices' sums and the last-arrival tickets;
 // `reset` zeroes the tickets first (buffers new to this launch).
-extern "C" int tcn_fold_weights(int device, int dtype, const float* out_w, const float* g2,
-                                const float* b2, void* wp, float* g2w, float* b2w, float* part,
-                                unsigned* ticket, int reset, int splits, int rows, int NB, int H,
-                                int B, void* stream) {
+template <bool SKIP>
+static int fold_weights_entry(int device, int dtype, const float* out_w, const float* g2,
+                              const float* b2, void* wp, float* g2w, float* b2w, float* part,
+                              unsigned* ticket, int reset, int splits, int rows, int NB, int H,
+                              int B, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (reset && splits > 1) {
@@ -354,7 +371,25 @@ extern "C" int tcn_fold_weights(int device, int dtype, const float* out_w, const
     if (e != cudaSuccess) return e;
   }
   const FwArgs a{out_w, g2, b2, wp, g2w, b2w, part, ticket, H, B, splits, rows};
-  return dtype ? fold_weights<bf16>(a, NB, s) : fold_weights<float>(a, NB, s);
+  return dtype ? fold_weights<bf16, SKIP>(a, NB, s) : fold_weights<float, SKIP>(a, NB, s);
+}
+
+extern "C" int tcn_fold_weights(int device, int dtype, const float* out_w, const float* g2,
+                                const float* b2, void* wp, float* g2w, float* b2w, float* part,
+                                unsigned* ticket, int reset, int splits, int rows, int NB, int H,
+                                int B, void* stream) {
+  return fold_weights_entry<false>(device, dtype, out_w, g2, b2, wp, g2w, b2w, part, ticket,
+                                   reset, splits, rows, NB, H, B, stream);
+}
+
+// The skip mode (a block with a skip path): out_w = [out_w | skip_w], B its
+// B + Sc columns, in KFW's skip kernel.
+extern "C" int tcn_fold_weights_skip(int device, int dtype, const float* out_w, const float* g2,
+                                     const float* b2, void* wp, float* g2w, float* b2w,
+                                     float* part, unsigned* ticket, int reset, int splits,
+                                     int rows, int NB, int H, int B, void* stream) {
+  return fold_weights_entry<true>(device, dtype, out_w, g2, b2, wp, g2w, b2w, part, ticket,
+                                  reset, splits, rows, NB, H, B, stream);
 }
 
 // CTAs of KFW resident per SM on `device` (-1 if the query fails).

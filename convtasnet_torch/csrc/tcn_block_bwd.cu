@@ -433,19 +433,23 @@ using namespace tcn;
 // bf16: (bm, bn) is the tile of the wgmma kernel, from tcn_block.gemm_plan;
 // colpart holds rows / bm rows, npart H / bn pairs per row (cLN) or per row
 // tile (gLN). f32: the SIMT tiles (BM, BN).
+// Sc > 0 (bf16 only): the skip mode, dz = [g | gs] @ wt with wt = [out_w |
+// skip_w]^T [B + Sc, H] and gs [rows, Sc], the skip sum's cotangent.
 extern "C" int tcn_bwd_dz(int device, int dtype, const void* g, const void* wt,
                           const void* c, const float* stats2, int n2, const float* alpha2,
                           const float* g2, void* dz, float* colpart, float* npart,
-                          int rows, int kpad, int k_valid, int B, int H, int gln, int bm,
-                          int bn, void* stream) {
+                          const void* gs, int rows, int kpad, int k_valid, int B, int Sc, int H,
+                          int gln, int bm, int bn, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sc && (!dtype || !gs)) return cudaErrorInvalidValue;
   if (dtype) {
     HMaps m;
-    if (!hop::tensor_map(&m.a, g, rows, B, bm) || !hop::tensor_map(&m.w, wt, B, H, 64) ||
+    if (!hop::tensor_map(&m.a, g, rows, B, bm) || !hop::tensor_map(&m.w, wt, B + Sc, H, 64) ||
         !hop::tensor_map(&m.res, c, rows, H, 64) || !hop::tensor_map(&m.out, dz, rows, H, 64))
       return cudaErrorInvalidValue;
-    m.a2 = m.dy1 = m.a;  // unused
+    m.a2 = m.dy1 = m.res2 = m.out2 = m.a;  // unused
+    if (Sc && !hop::tensor_map(&m.a2, gs, rows, Sc, bm)) return cudaErrorInvalidValue;
     HArgs h{};
     h.stats = stats2;
     h.n_stats = n2;
@@ -455,10 +459,11 @@ extern "C" int tcn_bwd_dz(int device, int dtype, const void* g, const void* wt,
     h.colpart = colpart;
     h.kpad = kpad;
     h.k_valid = k_valid;
-    h.kdim = B;
+    h.kdim = B + Sc;
     h.ncols = H;
     h.gln = gln;
-    return hgemm<H_DZ>(m, h, rows, bm, bn, s);
+    h.nsplit = B;
+    return Sc ? hgemm<H_DZ, true>(m, h, rows, bm, bn, s) : hgemm<H_DZ>(m, h, rows, bm, bn, s);
   }
   DzArgs a{g, wt, c, stats2, n2, alpha2, g2, dz, colpart, npart, kpad, k_valid, B, H, gln};
   bwd_dz_kernel<float><<<dim3(rows / BM, H / BN), GEMM_THREADS, 0, s>>>(a);
@@ -471,28 +476,35 @@ extern "C" int tcn_gemm_resident(int device, int mode, int bm, int bn) {
   cudaSetDevice(device);
   if (mode == H_DX) return hgemm_resident<H_DX>(bm, bn);
   if (mode == H_DZ) return hgemm_resident<H_DZ>(bm, bn);
+  if (mode == (H_DZ | 8)) return hgemm_resident<H_DZ, true>(bm, bn);
   return -1;
 }
 
 // bf16: `splits` ranges of 64-row slices in clusters of `cluster` CTAs
 // (tcn_block_bwd.wgrad_plan), part [splits / cluster, n1, n2]; f32: `splits`
 // is the chunk of rows per split, part [rows / chunk, n1, n2].
+// Sc > 0 (bf16 z form only): the skip mode, N side [Bm | gs] (gs [rows, Sc],
+// the skip sum's cotangent), partials [.., n1, n2 + Sc].
 extern "C" int tcn_wgrad(int device, int dtype, int zmode, const void* A, const void* Bm,
-                         float* part, const float* stats2, int n2s, const float* alpha2,
-                         const float* g2, const float* b2, int rows, int kpad, int k_valid,
-                         int n1, int n2, int splits, int cluster, int gln, void* stream) {
+                         const void* gs, float* part, const float* stats2, int n2s,
+                         const float* alpha2, const float* g2, const float* b2, int rows,
+                         int kpad, int k_valid, int n1, int n2, int Sc, int splits, int cluster,
+                         int gln, void* stream) {
   cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sc && (!dtype || !zmode || !gs)) return cudaErrorInvalidValue;
   if (dtype) {
     // z form: M side c, N side g; din form: M side dy1 (= Bm), N side x.
     const void* mside = zmode ? A : Bm;
     const void* nside = zmode ? Bm : A;
-    WArgs w{part, stats2, n2s, alpha2, g2, b2, kpad, k_valid, zmode ? n1 : n2, zmode ? n2 : n1,
-            rows / 64, splits, cluster, gln};
+    WArgs w{part, stats2, n2s, alpha2, g2, b2, kpad, k_valid, zmode ? n1 : n2,
+            zmode ? n2 + Sc : n1, rows / 64, splits, cluster, gln, Sc ? n2 : 0};
     WMaps m;
     if (!hop::tensor_map(&m.m, mside, rows, w.m_cols, 64) ||
-        !hop::tensor_map(&m.n, nside, rows, w.n_cols, 64))
+        !hop::tensor_map(&m.n, nside, rows, zmode ? n2 : n1, 64))
       return cudaErrorInvalidValue;
+    m.n2 = m.n;
+    if (Sc && !hop::tensor_map(&m.n2, gs, rows, Sc, 64)) return cudaErrorInvalidValue;
     return wgrad_sm90(m, w, rows, zmode != 0, s);
   }
   WgArgs a{A, Bm, part, stats2, n2s, alpha2, g2, b2, kpad, k_valid, n1, n2, splits, gln};
@@ -583,7 +595,9 @@ extern "C" int tcn_bwd_dx(int device, int dtype, const void* db, const void* y1,
 // (tcn_bwd_finish.cuh FinKind; tcn_block_bwd.py builds them once per
 // shape and pointers). The grid is the CTAs resident on every SM, or the
 // units of work if fewer.
-extern "C" int tcn_bwd_finish(int device, const FinGroup* host, void* stream) {
+// skip: KF's skip kernel (a chain with a skip path: dout_w is d[out_w |
+// skip_w], [NB, H, B + Sc]); the same sums under a name of their own.
+extern "C" int tcn_bwd_finish(int device, const FinGroup* host, int skip, void* stream) {
   cudaSetDevice(device);
   if (!host || host->n < 1 || host->n > FIN_MAX_GROUP) return cudaErrorInvalidValue;
   FinGroup g = *host;
@@ -604,7 +618,10 @@ extern "C" int tcn_bwd_finish(int device, const FinGroup* host, void* stream) {
     ctas[device] = sms * per_sm > 0 ? sms * per_sm : 1;
   }
   const int grid = units < ctas[device] ? units : ctas[device];
-  bwd_finish_kernel<<<grid, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  if (skip)
+    bwd_finish_skip_kernel<<<grid, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  else
+    bwd_finish_kernel<<<grid, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(g);
   return cudaGetLastError();
 }
 

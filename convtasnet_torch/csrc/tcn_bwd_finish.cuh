@@ -80,7 +80,7 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.w += b.w;
 }
 
-__global__ void __launch_bounds__(FIN_THREADS) bwd_finish_kernel(const __grid_constant__ FinGroup g) {
+__device__ __forceinline__ void bwd_finish_body(const FinGroup& g) {
   __shared__ float4 red[FIN_THREADS];
   for (int u = blockIdx.x; u < g.units; u += gridDim.x) {
     int k = 0;
@@ -133,6 +133,17 @@ __global__ void __launch_bounds__(FIN_THREADS) bwd_finish_kernel(const __grid_co
         *d = acc.x;
     }
   }
+}
+
+__global__ void __launch_bounds__(FIN_THREADS) bwd_finish_kernel(const __grid_constant__ FinGroup g) {
+  bwd_finish_body(g);
+}
+
+// A chain with a skip path (dout_w = d[out_w | skip_w]): the same sums under
+// a name of their own, so that their records can be told apart.
+__global__ void __launch_bounds__(FIN_THREADS)
+    bwd_finish_skip_kernel(const __grid_constant__ FinGroup g) {
+  bwd_finish_body(g);
 }
 
 inline int fin_log2(int x) {

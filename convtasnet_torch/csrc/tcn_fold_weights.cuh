@@ -79,7 +79,7 @@ __device__ __forceinline__ void store4(bf16* p, const float4& v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(FW_THREADS, 4) fold_weights_kernel(const FwArgs a) {
+__device__ __forceinline__ void fold_weights_body(const FwArgs& a) {
   __shared__ float4 red[2][FW_THREADS];
   __shared__ bool last;
   const int tiles = a.B / FW_COLS;
@@ -185,6 +185,18 @@ __global__ void __launch_bounds__(FW_THREADS, 4) fold_weights_kernel(const FwArg
 }
 
 template <typename T>
+__global__ void __launch_bounds__(FW_THREADS, 4) fold_weights_kernel(const FwArgs a) {
+  fold_weights_body<T>(a);
+}
+
+// The skip mode (out_w = [out_w | skip_w], the paper's final version): the
+// same work under a name of its own, so that its records can be told apart.
+template <typename T>
+__global__ void __launch_bounds__(FW_THREADS, 4) fold_weights_skip_kernel(const FwArgs a) {
+  fold_weights_body<T>(a);
+}
+
+template <typename T, bool SKIP = false>
 static cudaError_t fold_weights(const FwArgs& a, int NB, cudaStream_t s) {
   if (NB < 1 || a.H < 1 || a.B < FW_COLS || a.B % FW_COLS || a.splits < 1 || a.rows < 1 ||
       (long long)a.splits * a.rows < a.H || (a.splits > 1 && (!a.part || !a.ticket)) ||
@@ -192,7 +204,10 @@ static cudaError_t fold_weights(const FwArgs& a, int NB, cudaStream_t s) {
       reinterpret_cast<uintptr_t>(a.g2w) % 16 || reinterpret_cast<uintptr_t>(a.b2w) % 16)
     return cudaErrorInvalidValue;
   dim3 grid(a.B / FW_COLS, NB, a.splits);
-  fold_weights_kernel<T><<<grid, FW_THREADS, 0, s>>>(a);
+  if constexpr (SKIP)
+    fold_weights_skip_kernel<T><<<grid, FW_THREADS, 0, s>>>(a);
+  else
+    fold_weights_kernel<T><<<grid, FW_THREADS, 0, s>>>(a);
   return cudaGetLastError();
 }
 

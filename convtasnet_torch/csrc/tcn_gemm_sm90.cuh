@@ -24,6 +24,14 @@
 // Rows >= K (per item) of out / dz come out exactly zero; the rounding
 // points are those of the SIMT versions in tcn_block.cu / tcn_block_bwd.cu.
 //
+// Skip modes (hgemm_skip_kernel, the same body with SKIP; a block with a
+// skip path, the paper's final version): FOLD and UNFOLD over the columns
+// of [out_w | skip_w], those < nsplit (= B) added into res / out as above
+// and those >= nsplit into the skip sum (res2 = out2 = s) in place, so e
+// is read once for both; every column tile lies wholly on one side. DZ
+// with a depth of B + Sc from two operands: slices < nsplit from a (g),
+// the rest from a2 (g_s, the skip sum's cotangent).
+//
 // Design (bound: device-memory bytes, ~40-57 MB per launch at the paper
 // config, against 6.7-8.4 GFLOP):
 // - A CTA takes BM = 64 * NC rows and BN output columns: BN is all of B
@@ -75,13 +83,16 @@ struct HArgs {
                         // [rows, ncols / BN] pairs, gLN [rows / BM * ncols / BN]
   float* colpart;       // DZ: [rows / BM, 2, ncols]: sum dz*ehat, sum dz
   int kpad, k_valid, kdim, ncols, gln;
+  int nsplit;           // skip modes: B, the column (FOLD / UNFOLD) or depth (DZ) of the seam
 };
 
 // a: the A stream [rows, kdim] (e; db in DX; x in IN; g in DZ), box [BM, 64];
-// a2: y1 (DX); w: [kdim, ncols], box [64, 64]; res, out: [rows, ncols], box
-// [64, 64] (res: c in DZ, unused in IN); dy1: [rows, kdim], box [64, 64] (DX).
+// a2: y1 (DX); g_s (DZ skip); w: [kdim, ncols], box [64, 64]; res, out:
+// [rows, ncols], box [64, 64] (res: c in DZ, unused in IN); dy1: [rows,
+// kdim], box [64, 64] (DX); res2, out2: the skip sum [rows, ncols - nsplit]
+// (FOLD / UNFOLD skip).
 struct HMaps {
-  CUtensorMap a, a2, w, res, out, dy1;
+  CUtensorMap a, a2, w, res, out, dy1, res2, out2;
 };
 
 template <int MODE, int BN, int NC> struct HCfg {
@@ -119,9 +130,8 @@ __device__ __forceinline__ void fold_half(float (&v)[N], int mask, bool up) {
   }
 }
 
-template <int MODE, int BN, int NC>
-__global__ void __launch_bounds__(128 * (NC + 1), 1)
-    hgemm_kernel(const __grid_constant__ HMaps maps, const HArgs g) {
+template <int MODE, int BN, int NC, bool SKIP>
+__device__ __forceinline__ void hgemm_body(const HMaps& maps, const HArgs& g) {
   using C = HCfg<MODE, BN, NC>;
   using namespace hop;
   extern __shared__ uint8_t smem_raw[];
@@ -143,6 +153,12 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * C::STAGES;
   const uint32_t resbar = full0 + 16 * C::STAGES;
   const bool leader = tid == NC * 128;  // the producer's issuing thread
+  // The residual / output tile's map and column: the skip sum's past the
+  // seam (FOLD / UNFOLD skip).
+  const bool to_skip = SKIP && MODE != H_DZ && col0 >= g.nsplit;
+  const CUtensorMap* res_map = to_skip ? &maps.res2 : &maps.res;
+  const CUtensorMap* out_map = to_skip ? &maps.out2 : &maps.out;
+  const int ocol0 = to_skip ? col0 - g.nsplit : col0;
 
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -158,7 +174,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     const int s = kb % C::STAGES;
     const uint32_t st = sbase + s * C::STAGE_BYTES, bar = full0 + 8 * s;
     mbar_expect_tx(bar, C::STAGE_BYTES);
-    tma_load(st, &maps.a, bar, kb * HBK, row0);
+    if (SKIP && MODE == H_DZ && kb * HBK >= g.nsplit)
+      tma_load(st, &maps.a2, bar, kb * HBK - g.nsplit, row0);
+    else
+      tma_load(st, &maps.a, bar, kb * HBK, row0);
     if constexpr (MODE == H_DX) tma_load(st + C::A_BYTES, &maps.a2, bar, kb * HBK, row0);
 #pragma unroll
     for (int c = 0; c < BN / 64; ++c)
@@ -172,7 +191,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       for (int w = 0; w < NC; ++w)
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c)
-          tma_load(sres + (w * (BN / 64) + c) * BOX_BYTES, &maps.res, resbar, col0 + 64 * c,
+          tma_load(sres + (w * (BN / 64) + c) * BOX_BYTES, res_map, resbar, ocol0 + 64 * c,
                    row0 + 64 * w);
     }
     for (int kb = 0; kb < C::STAGES && kb < nk; ++kb) issue_stage(kb);
@@ -345,7 +364,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       if ((tid & 127) == 0) {
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c)
-          tma_store(&maps.out, smem_u32(box) + c * BOX_BYTES, col0 + 64 * c, row0 + 64 * wg);
+          tma_store(out_map, smem_u32(box) + c * BOX_BYTES, ocol0 + 64 * c, row0 + 64 * wg);
         bulk_commit();
       }
     };
@@ -523,14 +542,35 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   }
 }
 
+template <int MODE, int BN, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    hgemm_kernel(const __grid_constant__ HMaps maps, const HArgs g) {
+  hgemm_body<MODE, BN, NC, false>(maps, g);
+}
+
+// The skip modes, a kernel of their own so that their records carry
+// their own name.
+template <int MODE, int BN, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    hgemm_skip_kernel(const __grid_constant__ HMaps maps, const HArgs g) {
+  hgemm_body<MODE, BN, NC, true>(maps, g);
+}
+
+template <int MODE, int BN, int NC, bool SKIP> constexpr auto hgemm_fn() {
+  if constexpr (SKIP)
+    return hgemm_skip_kernel<MODE, BN, NC>;
+  else
+    return hgemm_kernel<MODE, BN, NC>;
+}
+
 // The shared-memory opt-in, once per device (a host call of its own).
-template <int MODE, int BN, int NC> static cudaError_t hgemm_opt_in() {
+template <int MODE, int BN, int NC, bool SKIP> static cudaError_t hgemm_opt_in() {
   static bool opted[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!opted[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(hgemm_kernel<MODE, BN, NC>,
+    cudaError_t e = cudaFuncSetAttribute(hgemm_fn<MODE, BN, NC, SKIP>(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          HCfg<MODE, BN, NC>::SMEM);
     if (e != cudaSuccess) return e;
@@ -539,40 +579,48 @@ template <int MODE, int BN, int NC> static cudaError_t hgemm_opt_in() {
   return cudaSuccess;
 }
 
-template <int MODE, int BN, int NC>
+template <int MODE, int BN, int NC, bool SKIP>
 static cudaError_t hgemm_launch(const HMaps& m, const HArgs& g, int rows, cudaStream_t s) {
   using C = HCfg<MODE, BN, NC>;
-  cudaError_t e = hgemm_opt_in<MODE, BN, NC>();
+  cudaError_t e = hgemm_opt_in<MODE, BN, NC, SKIP>();
   if (e != cudaSuccess) return e;
-  hgemm_kernel<MODE, BN, NC><<<dim3(rows / C::BM, g.ncols / BN), C::THREADS, C::SMEM, s>>>(m, g);
+  const dim3 grid(rows / C::BM, g.ncols / BN);
+  if constexpr (SKIP)
+    hgemm_skip_kernel<MODE, BN, NC><<<grid, C::THREADS, C::SMEM, s>>>(m, g);
+  else
+    hgemm_kernel<MODE, BN, NC><<<grid, C::THREADS, C::SMEM, s>>>(m, g);
   return cudaGetLastError();
 }
 
 // CTAs of the (bm, bn) kernel resident per SM at its shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for tcn_block.gemm_plan;
 // -1 for a tile the kernels do not take or a failed query.
-template <int MODE, int BN, int NC> static int hgemm_resident_t() {
+template <int MODE, int BN, int NC, bool SKIP> static int hgemm_resident_t() {
   int n = -1;
-  if (hgemm_opt_in<MODE, BN, NC>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, hgemm_kernel<MODE, BN, NC>,
+  if (hgemm_opt_in<MODE, BN, NC, SKIP>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, hgemm_fn<MODE, BN, NC, SKIP>(),
                                                     HCfg<MODE, BN, NC>::THREADS,
                                                     HCfg<MODE, BN, NC>::SMEM) != cudaSuccess)
     return -1;
   return n;
 }
-template <int MODE> static int hgemm_resident(int bm, int bn) {
-  if (bm == 128 && bn == 256) return hgemm_resident_t<MODE, 256, 2>();
-  if (bm == 64 && bn == 256) return hgemm_resident_t<MODE, 256, 1>();
-  if (bm == 128 && bn == 128) return hgemm_resident_t<MODE, 128, 2>();
-  if (bm == 64 && bn == 128) return hgemm_resident_t<MODE, 128, 1>();
+template <int MODE, bool SKIP = false> static int hgemm_resident(int bm, int bn) {
+  if (bm == 128 && bn == 256) return hgemm_resident_t<MODE, 256, 2, SKIP>();
+  if (bm == 64 && bn == 256) return hgemm_resident_t<MODE, 256, 1, SKIP>();
+  if (bm == 128 && bn == 128) return hgemm_resident_t<MODE, 128, 2, SKIP>();
+  if (bm == 64 && bn == 128) return hgemm_resident_t<MODE, 128, 1, SKIP>();
   return -1;
 }
 
 // (bm, bn) as chosen by the wrapper (tcn_block.gemm_plan); anything the
-// kernels do not tile is refused before a launch.
-template <int MODE>
+// kernels do not tile is refused before a launch. SKIP: the skip modes of
+// FOLD, UNFOLD (no column tile across the seam) and DZ (a seam between
+// whole depth slices, and depth on both sides of it).
+template <int MODE, bool SKIP = false>
 static cudaError_t hgemm(const HMaps& m, const HArgs& g, int rows, int bm, int bn,
                          cudaStream_t s) {
+  static_assert(!SKIP || MODE == H_FOLD || MODE == H_UNFOLD || MODE == H_DZ,
+                "no skip mode of this kernel");
   const int vec = MODE == H_FOLD  ? 2 * bn
                 : MODE == H_DZ  ? bn
                 : MODE == H_IN  ? 0
@@ -580,10 +628,13 @@ static cudaError_t hgemm(const HMaps& m, const HArgs& g, int rows, int bm, int b
   if ((bm != 64 && bm != 128) || (bn != 128 && bn != 256) || rows % bm || g.kpad % bm ||
       g.ncols % bn || g.kdim % hop::HBK || vec * 4 > hop::VEC_BYTES)
     return cudaErrorInvalidValue;
-  if (bm == 128 && bn == 256) return hgemm_launch<MODE, 256, 2>(m, g, rows, s);
-  if (bm == 64 && bn == 256) return hgemm_launch<MODE, 256, 1>(m, g, rows, s);
-  if (bm == 128 && bn == 128) return hgemm_launch<MODE, 128, 2>(m, g, rows, s);
-  if (bm == 64 && bn == 128) return hgemm_launch<MODE, 128, 1>(m, g, rows, s);
+  if (SKIP && (MODE == H_DZ ? g.nsplit <= 0 || g.nsplit >= g.kdim || g.nsplit % hop::HBK
+                            : g.nsplit <= 0 || g.nsplit >= g.ncols || g.nsplit % bn))
+    return cudaErrorInvalidValue;
+  if (bm == 128 && bn == 256) return hgemm_launch<MODE, 256, 2, SKIP>(m, g, rows, s);
+  if (bm == 64 && bn == 256) return hgemm_launch<MODE, 256, 1, SKIP>(m, g, rows, s);
+  if (bm == 128 && bn == 128) return hgemm_launch<MODE, 128, 2, SKIP>(m, g, rows, s);
+  if (bm == 64 && bn == 128) return hgemm_launch<MODE, 128, 1, SKIP>(m, g, rows, s);
   return cudaErrorInvalidValue;
 }
 

@@ -47,6 +47,9 @@
 //   over ranks 0..CS-1 in rank order (distributed shared memory), and the
 //   cluster stores one partial. No float atomics: results repeat bit for
 //   bit. CS = 1 is a cluster of one: each CTA stores its own partial.
+// - Skip mode (wgrad_skip_kernel, the same body with SKIP; z form, a block
+//   with a skip path): the N side is [g | g_s], N-side tiles < nsplit (= B)
+//   from g and the rest from g_s (map n2), every tile wholly on one side.
 // - Tried and dropped: multicasting the N-side boxes over a cluster of the
 //   M tiles that share them (half the L2-to-SM bytes at 4 tiles) measured
 //   1.4-2.4x slower on the H100.
@@ -67,12 +70,14 @@ struct WArgs {
   int kpad, k_valid;
   int m_cols, n_cols;    // widths of the wgmma A (M side) and B (N side) operands
   int slices, splits, cluster, gln;
+  int nsplit;            // skip mode: the N-side column where g_s starts (B)
 };
 
-// m: the M-side operand [rows, m_cols]; n: the N side [rows, n_cols];
-// both with boxes of [64 rows, 64 cols].
+// m: the M-side operand [rows, m_cols]; n: the N side [rows, n_cols]
+// (skip mode: n [rows, nsplit] and n2 [rows, n_cols - nsplit]); all with
+// boxes of [64 rows, 64 cols].
 struct WMaps {
-  CUtensorMap m, n;
+  CUtensorMap m, n, n2;
 };
 
 template <int BN> struct WCfg {
@@ -92,9 +97,8 @@ template <int BN> struct WCfg {
   static_assert(BMW * LD_Z * 4 <= RING && BN * LD_T * 4 <= RING, "the tile fits the ring");
 };
 
-template <bool ZMODE, int BN>
-__global__ void __launch_bounds__(WCfg<BN>::THREADS, 1)
-    wgrad_sm90_kernel(const __grid_constant__ WMaps maps, const WArgs g) {
+template <bool ZMODE, int BN, bool SKIP>
+__device__ __forceinline__ void wgrad_body(const WMaps& maps, const WArgs& g) {
   using C = WCfg<BN>;
   using namespace hop;
   extern __shared__ uint8_t smem_raw[];
@@ -105,6 +109,9 @@ __global__ void __launch_bounds__(WCfg<BN>::THREADS, 1)
   const int tid = threadIdx.x, wg = tid / 128;
   const int ntn = g.n_cols / BN;
   const int m0 = (blockIdx.x / ntn) * C::BMW, n0 = (blockIdx.x % ntn) * BN;
+  const bool n_skip = SKIP && n0 >= g.nsplit;  // this tile's N side is g_s
+  const CUtensorMap* n_map = n_skip ? &maps.n2 : &maps.n;
+  const int ncol0 = n_skip ? n0 - g.nsplit : n0;
   const int lo = (int)((long long)blockIdx.y * g.slices / g.splits);
   const int nk = (int)((long long)(blockIdx.y + 1) * g.slices / g.splits) - lo;
   const uint32_t sbase = smem_u32(base), full0 = smem_u32(bars), empty0 = full0 + 8 * C::STAGES;
@@ -165,7 +172,7 @@ __global__ void __launch_bounds__(WCfg<BN>::THREADS, 1)
             tma_load(st + c * BOX_BYTES, &maps.m, bar, m0 + 64 * c, row0);
 #pragma unroll
           for (int c = 0; c < BN / 64; ++c)
-            tma_load(st + (C::BMW / 64 + c) * BOX_BYTES, &maps.n, bar, n0 + 64 * c, row0);
+            tma_load(st + (C::BMW / 64 + c) * BOX_BYTES, n_map, bar, ncol0 + 64 * c, row0);
         }
         if constexpr (ZMODE) {
           mom_s[s * 64 + lane] = m_lo;
@@ -331,14 +338,35 @@ __global__ void __launch_bounds__(WCfg<BN>::THREADS, 1)
   }
 }
 
-template <bool ZMODE, int BN> static cudaError_t wgrad_opt_in() {
+template <bool ZMODE, int BN>
+__global__ void __launch_bounds__(WCfg<BN>::THREADS, 1)
+    wgrad_sm90_kernel(const __grid_constant__ WMaps maps, const WArgs g) {
+  wgrad_body<ZMODE, BN, false>(maps, g);
+}
+
+// The skip mode (z form), a kernel of its own so that its records carry its
+// own name.
+template <int BN>
+__global__ void __launch_bounds__(WCfg<BN>::THREADS, 1)
+    wgrad_skip_kernel(const __grid_constant__ WMaps maps, const WArgs g) {
+  wgrad_body<true, BN, true>(maps, g);
+}
+
+template <bool ZMODE, int BN, bool SKIP> constexpr auto wgrad_fn() {
+  if constexpr (SKIP)
+    return wgrad_skip_kernel<BN>;
+  else
+    return wgrad_sm90_kernel<ZMODE, BN>;
+}
+
+template <bool ZMODE, int BN, bool SKIP = false> static cudaError_t wgrad_opt_in() {
   // The shared-memory opt-in, once per device (a host call of its own).
   static bool opted[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!opted[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(wgrad_sm90_kernel<ZMODE, BN>,
+    cudaError_t e = cudaFuncSetAttribute(wgrad_fn<ZMODE, BN, SKIP>(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          WCfg<BN>::SMEM);
     if (e != cudaSuccess) return e;
@@ -364,18 +392,22 @@ static cudaLaunchConfig_t wgrad_config(int ctas, int splits, int cluster, cudaSt
   return cfg;
 }
 
-template <bool ZMODE, int BN>
+template <bool ZMODE, int BN, bool SKIP = false>
 static cudaError_t wgrad_launch(const WMaps& m, const WArgs& g, cudaStream_t s) {
-  cudaError_t e = wgrad_opt_in<ZMODE, BN>();
+  cudaError_t e = wgrad_opt_in<ZMODE, BN, SKIP>();
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = wgrad_config<ZMODE, BN>(
       (g.m_cols / WCfg<BN>::BMW) * (g.n_cols / BN), g.splits, g.cluster, s, &attr);
-  e = cudaLaunchKernelEx(&cfg, wgrad_sm90_kernel<ZMODE, BN>, m, g);
+  e = cudaLaunchKernelEx(&cfg, wgrad_fn<ZMODE, BN, SKIP>(), m, g);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-static inline int wgrad_bn(int n_cols) { return n_cols % 256 == 0 ? 256 : 128; }
+// N-side columns per CTA (tcn_block_bwd.wgrad_bn): 256 where they tile
+// n_cols and a tile starts at the skip mode's seam, else 128.
+static inline int wgrad_bn(int n_cols, int seam = 0) {
+  return n_cols % 256 == 0 && seam % 256 == 0 ? 256 : 128;
+}
 
 // Checks the plan (tcn_block_bwd.wgrad_plan) and launches; anything the
 // kernel does not tile is refused before a launch.
@@ -385,6 +417,11 @@ static cudaError_t wgrad_sm90(const WMaps& m, const WArgs& g, int rows, bool z, 
       g.n_cols % 128 || g.slices != rows / 64 || g.splits < 1 || g.splits > g.slices ||
       (cs != 1 && cs != 2 && cs != 4 && cs != 8) || g.splits % cs)
     return cudaErrorInvalidValue;
+  if (g.nsplit) {
+    if (!z || g.nsplit < 0 || g.nsplit >= g.n_cols || g.nsplit % 128) return cudaErrorInvalidValue;
+    return wgrad_bn(g.n_cols, g.nsplit) == 256 ? wgrad_launch<true, 256, true>(m, g, s)
+                                               : wgrad_launch<true, 128, true>(m, g, s);
+  }
   if (wgrad_bn(g.n_cols) == 256)
     return z ? wgrad_launch<true, 256>(m, g, s) : wgrad_launch<false, 256>(m, g, s);
   return z ? wgrad_launch<true, 128>(m, g, s) : wgrad_launch<false, 128>(m, g, s);

@@ -20,6 +20,17 @@ that recompute chain itself; else the eager
 stacked [R, X, ...] block parameters reach the ops as [NB, ...] views, so
 their gradients flow back to the leaves.
 
+The paper's final version (ConvTasNetConfig's Sc, encoder_relu,
+input_norm; the authors' utility/models.py) changes three places: a
+linear encoder, a gLN input norm, and a skip path. With Sc > 0 every
+block adds e @ skip_w (blocks/skip_w [R, X, H, Sc]) into a skip sum s
+[M, K, Sc], stored in the compute dtype and rounded after each add as x
+is, and the mask is mask_nonlinear(PReLU(s) @ mask/w) with mask/w
+[Sc, C*N] and mask/prelu one slope, instead of mask_nonlinear(x_last @
+mask/w). The kernel forms carry s through every block (whole_tcn.py,
+whole_tcn_hybrid.py); TP, CP and streaming run the first version's design
+only and refuse the others.
+
 `par` (parallel/comm.ParallelContext, default None) carries the process
 groups of a parallel run. Under TP (its model group) every rank holds the
 pieces parallel/mesh._TP_RULES cut: the input cLN runs on the whole w and
@@ -100,8 +111,10 @@ def _chain_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int, width: int) -> int:
 
 
 def residual_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int) -> int:
-    """Bytes of the whole-TCN training op's residuals x_nb and c_nb."""
-    return _chain_bytes(cfg, M, K_pad, cfg.B + cfg.H)
+    """Bytes of the whole-TCN training op's residuals x_nb and c_nb, and
+    its one skip-sum buffer [M, K_pad, Sc]."""
+    skip = M * K_pad * cfg.Sc * torch.empty((), dtype=cfg.dtype).element_size()
+    return _chain_bytes(cfg, M, K_pad, cfg.B + cfg.H) + skip
 
 
 def fallback_bytes(cfg: ConvTasNetConfig, M: int, K_pad: int) -> int:
@@ -114,11 +127,13 @@ def chain_form(cfg: ConvTasNetConfig, train: bool, M: int, K: int, device) -> st
     """The form the TCN chain of a forward of M rows of K frames takes on
     `device`: cfg.kernel_form, with "whole_tcn_train" turned into the
     `whole` chain, "whole_block_train", when its residuals exceed the
-    memory gate."""
+    memory gate; a skip config goes to the eager chain there instead, as
+    kernel_form sends its "whole" training (the recompute chain has no skip
+    path)."""
     form = cfg.kernel_form(train, device)
     Kp = -(-K // ROW_ALIGN) * ROW_ALIGN
     if form == "whole_tcn_train" and residual_bytes(cfg, M, Kp) > residual_budget(device):
-        return "whole_block_train"
+        return "eager" if cfg.Sc else "whole_block_train"
     return form
 
 
@@ -141,7 +156,9 @@ def init_params(generator: torch.Generator, cfg: ConvTasNetConfig,
     """Parameters with the reference's init distribution: xavier-normal on
     every torch parameter with ndim > 1, including the [1, ch, 1] gLN/cLN
     affines under cfg.reference_norm_init; PReLU slopes 0.25; BN affines
-    1 / 0. `generator` must live on `device` (CPU by default)."""
+    1 / 0. `generator` must live on `device` (CPU by default). With Sc > 0
+    also blocks/skip_w [R, X, H, Sc] and mask/prelu, drawn after the
+    first version's leaves; mask/w is then [Sc, C*N]."""
     dev = torch.device("cpu") if device is None else torch.device(device)
     N, L, B, H, P, X, R, C = (cfg.N, cfg.L, cfg.B, cfg.H, cfg.P, cfg.X,
                               cfg.R, cfg.C)
@@ -157,9 +174,10 @@ def init_params(generator: torch.Generator, cfg: ConvTasNetConfig,
     def stack(fn):
         return torch.stack([torch.stack([fn() for _ in range(X)]) for _ in range(R)])
 
+    head = cfg.Sc or B  # the mask's input: the skip sum, or the last block's output
     enc_U = xn((N, 1, L), (L, N))
     dec_V = xn((L, N), (N, L))
-    ln_gamma, ln_beta = norm_init(N, "cLN")  # the input norm is always cLN
+    ln_gamma, ln_beta = norm_init(N, cfg.input_norm)
     blocks = {
         "in_w": stack(lambda: xn((H, B, 1), (B, H))),
         "in_prelu": torch.full((R, X), 0.25, device=dev),
@@ -177,10 +195,13 @@ def init_params(generator: torch.Generator, cfg: ConvTasNetConfig,
             "ln": {"gamma": ln_gamma, "beta": ln_beta},
             "bottleneck": {"w": xn((B, N, 1), (N, B))},
             "blocks": blocks,
-            "mask": {"w": xn((C * N, B, 1), (B, C * N))},
+            "mask": {"w": xn((C * N, head, 1), (head, C * N))},
         },
         "decoder": {"V": dec_V},
     }
+    if cfg.Sc:
+        blocks["skip_w"] = stack(lambda: xn((cfg.Sc, H, 1), (H, cfg.Sc)))
+        params["separator"]["mask"]["prelu"] = torch.tensor(0.25, device=dev)
     state: State = {}
     if cfg.norm_type == "BN":
         state = {"blocks": {
@@ -210,18 +231,21 @@ def params_from_jax(params_np, state_np, device=None) -> Tuple[Params, State]:
 # --------------------------------------------------------------------------
 
 def encode(params: Params, cfg: ConvTasNetConfig, mixture: torch.Tensor) -> torch.Tensor:
-    """Learned analysis basis: [M, T] -> nonnegative [M, K, N] (compute dtype)."""
+    """Learned analysis basis: [M, T] -> [M, K, N] (compute dtype),
+    nonnegative under cfg.encoder_relu, else linear."""
     frames = frame_signal(mixture, cfg.L, cfg.stride)  # [M, K, L]
     w = pointwise(frames, params["encoder"]["U"], cfg.dtype)
-    return torch.relu(w).to(cfg.dtype)
+    return (torch.relu(w) if cfg.encoder_relu else w).to(cfg.dtype)
 
 
-def _temporal_block(x: torch.Tensor, bp: Dict[str, torch.Tensor],
+def _temporal_block(x: torch.Tensor, s: Optional[torch.Tensor], bp: Dict[str, torch.Tensor],
                     bstate: Optional[Dict[str, torch.Tensor]],
                     cfg: ConvTasNetConfig, dilation: int, train: bool,
-                    par: ParallelContext) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+                    par: ParallelContext):
     """One residual block, op by op (conv_tasnet.py:212-272): 1x1 -> PReLU
-    -> norm -> dilated depthwise -> PReLU -> norm -> 1x1, + residual."""
+    -> norm -> dilated depthwise -> PReLU -> norm -> 1x1, + residual; with
+    a skip path (s not None) also s + norm2 output @ skip_w. Returns (x,
+    s, new BN state or None)."""
     dt = cfg.dtype
     tp = par.model
     a1, a2 = bp["in_prelu"], bp["dw_prelu"]
@@ -243,10 +267,12 @@ def _temporal_block(x: torch.Tensor, bp: Dict[str, torch.Tensor],
     if bstate is not None:
         new_state = {"in_mean": s_in["mean"], "in_var": s_in["var"],
                      "dw_mean": s_dw["mean"], "dw_var": s_dw["var"]}
+    if s is not None:
+        s = s + pointwise(y, bp["skip_w"], dt).to(dt)
     y = pointwise(y, bp["out_w"], dt)
     if tp is not None:
         y = reduce_from(y, tp)
-    return x + y.to(dt), new_state
+    return x + y.to(dt), s, new_state
 
 
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -264,85 +290,89 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
-def _repeat(x: torch.Tensor, blocks_r: Params, state_r: Optional[State],
-            cfg: ConvTasNetConfig, train: bool, par: ParallelContext, mode: str
-            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+def _repeat(x: torch.Tensor, s: Optional[torch.Tensor], blocks_r: Params,
+            state_r: Optional[State], cfg: ConvTasNetConfig, train: bool, par: ParallelContext,
+            mode: str):
     """The X blocks of one repeat (leaves [X, ...]), each checkpointed
-    under mode "block" / "dots" -> (x, the repeat's new BN state [X, H]
+    under mode "block" / "dots" -> (x, s, the repeat's new BN state [X, H]
     or None)."""
     new: Dict[str, list] = {}
     for xi in range(cfg.X):
         bp = {k: v[xi] for k, v in blocks_r.items()}
         bs = None if state_r is None else {k: v[xi] for k, v in state_r.items()}
-        args = (x, bp, bs, cfg, 2 ** xi, train, par)
+        args = (x, s, bp, bs, cfg, 2 ** xi, train, par)
         if mode == "block":
-            x, nbs = checkpoint(_temporal_block, *args, use_reentrant=False)
+            x, s, nbs = checkpoint(_temporal_block, *args, use_reentrant=False)
         elif mode == "dots":
-            x, nbs = checkpoint(_temporal_block, *args, use_reentrant=False,
-                                context_fn=_dots_context)
+            x, s, nbs = checkpoint(_temporal_block, *args, use_reentrant=False,
+                                   context_fn=_dots_context)
         else:
-            x, nbs = _temporal_block(*args)
+            x, s, nbs = _temporal_block(*args)
         for k, v in (nbs or {}).items():
             new.setdefault(k, []).append(v)
-    return x, ({k: torch.stack(v) for k, v in new.items()} if state_r is not None else None)
+    return x, s, ({k: torch.stack(v) for k, v in new.items()} if state_r is not None else None)
 
 
 def _eager_chain(x: torch.Tensor, blocks: Params, block_state: Optional[State],
-                 cfg: ConvTasNetConfig, train: bool, par: ParallelContext
-                 ) -> Tuple[torch.Tensor, Optional[State]]:
+                 cfg: ConvTasNetConfig, train: bool, par: ParallelContext):
     """The R x X `_temporal_block` chain under cfg.remat (the JAX scan body,
     conv_tasnet.py:346-370): "repeat" checkpoints each repeat, "block" and
     "dots" each block (torch.utils.checkpoint, non-reentrant: the block
     parameters reach it inside dicts). A recompute's outputs are dropped,
     so BN's running statistics are the first forward's and advance once;
     under TP / CP it issues the block's collectives again in backward.
-    Without autograd (inference) nothing is checkpointed. Returns (x, new
-    BN block state [R, X, H] or None)."""
+    Without autograd (inference) nothing is checkpointed. Returns (x, the
+    skip sum s [M, K, Sc] or None, new BN block state [R, X, H] or None)."""
     mode = remat_mode(cfg.remat) if torch.is_grad_enabled() else "none"
+    s = x.new_zeros(x.shape[:2] + (cfg.Sc,)) if cfg.Sc else None
     new: Dict[str, list] = {}
     for r in range(cfg.R):
         blocks_r = {k: v[r] for k, v in blocks.items()}
         state_r = None if block_state is None else {k: v[r] for k, v in block_state.items()}
         if mode == "repeat":
-            x, nbs = checkpoint(_repeat, x, blocks_r, state_r, cfg, train, par, "none",
-                                use_reentrant=False)
+            x, s, nbs = checkpoint(_repeat, x, s, blocks_r, state_r, cfg, train, par, "none",
+                                   use_reentrant=False)
         else:
-            x, nbs = _repeat(x, blocks_r, state_r, cfg, train, par, mode)
+            x, s, nbs = _repeat(x, s, blocks_r, state_r, cfg, train, par, mode)
         for k, v in (nbs or {}).items():
             new.setdefault(k, []).append(v)
     if block_state is None:
-        return x, None
-    return x, {k: torch.stack(v) for k, v in new.items()}
+        return x, s, None
+    return x, s, {k: torch.stack(v) for k, v in new.items()}
 
 
 def _kernel_chain(x: torch.Tensor, blocks: Params, cfg: ConvTasNetConfig,
-                  form: str) -> torch.Tensor:
+                  form: str):
     """The TCN chain through ops/kernels in `form` (cfg.kernel_form): K is
     padded to ROW_ALIGN once here (pad rows exact zeros, statistics over
-    the true K frames)."""
+    the true K frames). Returns (x, the skip sum s or None)."""
     M, K, _ = x.shape
     Kp = -(-K // ROW_ALIGN) * ROW_ALIGN
     x = F.pad(x, (0, 0, 0, Kp - K))
     bp = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in blocks.items()}
     args = [bp[k] for k in _BLOCK_ORDER]
+    skip_w = bp.get("skip_w")
     if form == "whole_tcn":
-        x = whole_tcn(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
+        x, s = whole_tcn(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K, skip_w=skip_w)
     elif form == "whole_tcn_train":
-        x = whole_tcn_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
+        x, s = whole_tcn_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K,
+                               skip_w=skip_w)
     elif form == "whole_block_train":
-        x = whole_chain_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K)
+        x, s = whole_chain_train(x, *args, cfg.norm_type, cfg.causal, cfg.X, valid_k=K), None
     else:
         scratch = (alloc_scratch(M, Kp, cfg.H, x.dtype, x.device)
                    if x.is_cuda else None)
         in_w = bp["in_w"].to(cfg.dtype)
         out_w = bp["out_w"].to(cfg.dtype)
+        s = x.new_zeros((M, Kp, cfg.Sc)) if cfg.Sc else None
         for nb in range(cfg.R * cfg.X):
-            x = whole_block(x, in_w[nb], bp["in_prelu"][nb], bp["in_gamma"][nb],
-                            bp["in_beta"][nb], bp["dw_w"][nb], bp["dw_prelu"][nb],
-                            bp["dw_gamma"][nb], bp["dw_beta"][nb], out_w[nb],
-                            cfg.norm_type, 2 ** (nb % cfg.X), cfg.causal,
-                            valid_k=K, scratch=scratch)
-    return x[:, :K]
+            x, s = whole_block(x, in_w[nb], bp["in_prelu"][nb], bp["in_gamma"][nb],
+                               bp["in_beta"][nb], bp["dw_w"][nb], bp["dw_prelu"][nb],
+                               bp["dw_gamma"][nb], bp["dw_beta"][nb], out_w[nb],
+                               cfg.norm_type, 2 ** (nb % cfg.X), cfg.causal,
+                               valid_k=K, scratch=scratch,
+                               skip_w=None if skip_w is None else skip_w[nb], s=s)
+    return x[:, :K], (None if s is None else s[:, :K])
 
 
 def _n_piece(x: torch.Tensor, tp) -> torch.Tensor:
@@ -352,18 +382,32 @@ def _n_piece(x: torch.Tensor, tp) -> torch.Tensor:
     return copy_to(x, tp)[..., r * n:(r + 1) * n]
 
 
+def mask_of(score: torch.Tensor, cfg: ConvTasNetConfig) -> torch.Tensor:
+    """cfg.mask_nonlinear of the f32 scores [M, K, C, N] (softmax over C)."""
+    if cfg.mask_nonlinear == "softmax":
+        return torch.softmax(score, dim=2)
+    if cfg.mask_nonlinear == "sigmoid":
+        return torch.sigmoid(score)
+    return torch.relu(score)
+
+
 def separate(params: Params, state: State, cfg: ConvTasNetConfig,
              mixture_w: torch.Tensor, train: bool = False,
              par: Optional[ParallelContext] = None) -> Tuple[torch.Tensor, State]:
     """Mask estimation TCN: [M, K, N] -> ([M, K, C, N] mask, new_state);
     under TP the mask is this rank's [M, K, C, N / tp] piece."""
     par = par or ParallelContext()
+    if par.sharded and not cfg.first_version:
+        raise ValueError("TP and CP run the first version's design only (Sc=0, a ReLU "
+                         "encoder, the cLN input norm): the skip path and the gLN input "
+                         "norm are not ported there")
     sp = params["separator"]
     dt = cfg.dtype
     tp = par.model
     M, K, _ = mixture_w.shape
-    # The input norm is always cLN whatever norm_type (conv_tasnet.py:167).
-    x, _ = apply_norm("cLN", mixture_w, sp["ln"], None, train)
+    # The first version's input norm is always cLN whatever norm_type
+    # (conv_tasnet.py:167); the final version's is cfg.input_norm.
+    x, _ = apply_norm(cfg.input_norm, mixture_w, sp["ln"], None, train)
     if tp is not None:
         x = reduce_from(pointwise(_n_piece(x, tp), sp["bottleneck"]["w"], dt), tp).to(dt)
     else:
@@ -372,21 +416,19 @@ def separate(params: Params, state: State, cfg: ConvTasNetConfig,
     new_state = state
     form = "eager" if par.sharded else chain_form(cfg, train, M, K, mixture_w.device)
     if form != "eager":
-        x = _kernel_chain(x, sp["blocks"], cfg, form)
+        x, s = _kernel_chain(x, sp["blocks"], cfg, form)
     else:
         block_state = state.get("blocks") if cfg.norm_type == "BN" else None
-        x, new_bs = _eager_chain(x, sp["blocks"], block_state, cfg, train, par)
+        x, s, new_bs = _eager_chain(x, sp["blocks"], block_state, cfg, train, par)
         if new_bs is not None:
             new_state = {"blocks": new_bs}
 
     if tp is not None:
         x = copy_to(x, tp)
-    score = pointwise(x, sp["mask"]["w"], dt).reshape(M, K, cfg.C, -1)  # f32
-    if cfg.mask_nonlinear == "softmax":
-        mask = torch.softmax(score, dim=2)
-    else:
-        mask = torch.relu(score)
-    return mask.to(dt), new_state
+    # The final version's head reads the skip sum through its own PReLU.
+    head = x if s is None else prelu(s, sp["mask"]["prelu"])
+    score = pointwise(head, sp["mask"]["w"], dt).reshape(M, K, cfg.C, -1)  # f32
+    return mask_of(score, cfg).to(dt), new_state
 
 
 def decode_frames(params: Params, cfg: ConvTasNetConfig, mixture_w: torch.Tensor,

@@ -53,7 +53,7 @@ from ..ops.kernels.stream_block import stream_block, stream_block_plain
 from ..ops.norms import channelwise_layer_norm
 from ..utils.observability import span
 from . import graphed
-from .conv_tasnet import decode, encode, resolve_device
+from .conv_tasnet import decode, encode, mask_of, resolve_device
 
 StreamState = Dict[str, Any]
 
@@ -73,6 +73,9 @@ def _check(cfg: ConvTasNetConfig) -> None:
     if cfg.norm_type != "cLN":
         raise ValueError("streaming requires norm_type='cLN' (gLN needs "
                          "global time statistics; BN uses batch statistics)")
+    if not cfg.first_version:
+        raise ValueError("streaming runs the first version's design only (Sc=0, a ReLU "
+                         "encoder, the cLN input norm): the skip path is not ported there")
 
 
 def init_stream_state(cfg: ConvTasNetConfig, batch: int = 1, device=None) -> StreamState:
@@ -148,10 +151,7 @@ def stream_step(params, state: StreamState, cfg: ConvTasNetConfig, chunk: torch.
 
     Kc = x.shape[1]
     score = pointwise(x, sp["mask"]["w"], dt).reshape(M, Kc, cfg.C, cfg.N)
-    if cfg.mask_nonlinear == "softmax":
-        mask = torch.softmax(score, dim=2)
-    else:
-        mask = torch.relu(score)
+    mask = mask_of(score, cfg)
     local = decode(params, cfg, w_mix, mask.to(dt))  # [M, C, Kc*S + (L-S)]
     body = local[..., : Kc * S].clone()
     body[..., : cfg.L - S] += state["ola_tail"]

@@ -35,13 +35,19 @@ BWD_MAXP = 8
 BWD_MAX_SPAN = 1024
 
 
-def kernel_limit(B: int, H: int, P: int, X: int, bf16: bool, train: bool):
+def kernel_limit(B: int, H: int, P: int, X: int, bf16: bool, train: bool, Sc: int = 0):
     """Why the kernel chain cannot run a config with these widths on a card,
     or None when every kernel it launches admits it. `train` adds the
     backward kernels (KB2's taps and span); the largest dilation of the
-    chain is 2 ** (X - 1)."""
+    chain is 2 ** (X - 1). Sc > 0 (skip channels) takes the skip modes of
+    K3, KFW, KB1, KW z and KF, built for bf16 only, whose column tiles
+    lie wholly in x or in s."""
     if B % KERNEL_WIDTH or H % KERNEL_WIDTH:
         return f"B={B} and H={H} must be multiples of {KERNEL_WIDTH}"
+    if Sc and Sc % KERNEL_WIDTH:
+        return f"Sc={Sc} must be a multiple of {KERNEL_WIDTH}"
+    if Sc and not bf16:
+        return "the skip modes run bf16 activations only"
     if bf16 and H > GEMM_MAX_H:
         return f"H={H} exceeds the bf16 GEMM kernels' {GEMM_MAX_H}"
     span = (P - 1) * 2 ** (X - 1)

@@ -19,6 +19,14 @@ One temporal block runs as
 The fold's weight terms come from KFW tcn_fold_weights
 (csrc/tcn_fold_weights.cuh), once per forward for all blocks.
 
+A block with a skip path (the paper's final version, Sc skip channels)
+runs K3 and KFW in their skip modes: K3's product is e @ [out_w | skip_w]
+over B + Sc columns, the column tiles < B added into x as above and those
+>= B into the skip sum s [M, K_pad, Sc] in place, s' = round(s +
+round(norm2(e) @ skip_w)), so e is read once for both; KFW folds norm2
+into all B + Sc columns. The skip modes run bf16 only, and have kernels
+and launch counters of their own (`*_skip`).
+
 Tensors are [M, K_pad, ch] with K_pad a multiple of 128 and rows >= K zero.
 The norm statistics travel between the kernels as (sum, sum of squares)
 partials: gLN [M, n, 2] per item, cLN [M, K_pad, n, 2] per row. The kernels
@@ -53,10 +61,11 @@ _SIGNATURES = {
     "tcn_in_gemm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_dwconv": [_I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _P],
+    "tcn_out_gemm": [_I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
     "tcn_fold_weights": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_fold_weights_skip": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tcn_fold_resident": [_I, _I],
 }
 
@@ -98,12 +107,13 @@ def _check_widths(Kp: int, B: int, H: int, dt: torch.dtype) -> None:
 # Modes of the bf16 wgmma template (csrc/tcn_gemm_sm90.cuh HMode) and the
 # tiles it takes, smallest first.
 H_FOLD, H_UNFOLD, H_DX, H_IN, H_DZ = range(5)
+H_SKIP = 8  # or-ed into a mode: its skip kernel (K3 fold / unfold, KB1)
 GEMM_TILES = ((64, 128), (64, 256), (128, 128), (128, 256))
 
 
 @functools.lru_cache(maxsize=256)
 def gemm_plan(rows: int, ncols: int, kdim: int, sms: int, split: bool = True,
-              io_tiles: int = 2, resident: Tuple = ()) -> Tuple[int, int]:
+              io_tiles: int = 2, resident: Tuple = (), seam: int = 0) -> Tuple[int, int]:
     """(rows, columns) per CTA of the bf16 wgmma kernels (K1, K3, KB1,
     KB3) for a [rows, kdim] @ [kdim, ncols] product on a card with `sms`
     SMs, where `resident` gives ((tile, CTAs resident per SM), ...) from the
@@ -123,10 +133,13 @@ def gemm_plan(rows: int, ncols: int, kdim: int, sms: int, split: bool = True,
     and 5; at batch 1 (3,200 rows) K3 takes 64 x 128 and KB3 64 x 256. K1
     takes 64 x 128 at every batch (two CTAs resident per SM); KB1 128 x 256
     at batch 8 and 5, 64 x 256 at batch 1. rows is a multiple of 128 (K_pad
-    is)."""
+    is). `seam`: a column at which a tile must start (K3's skip mode: B,
+    where x's columns end and s's begin), so 256 columns only where it is a
+    multiple of 256."""
     _require(ncols % 128 == 0, f"{ncols} output columns are not a multiple of 128")
     _require(rows > 0 and rows % ROW_ALIGN == 0, f"{rows} rows are not a multiple of {ROW_ALIGN}")
-    bn = 256 if ncols % 256 == 0 else 128
+    _require(seam % 128 == 0, f"a column seam at {seam} is not a multiple of 128")
+    bn = 256 if ncols % 256 == 0 and seam % 256 == 0 else 128
     res = dict(resident)
 
     def cost(tile):
@@ -459,11 +472,18 @@ tcn_dwconv.launches_save = 0
 # K3: norm2 -> out_w -> residual add (in place)
 # ---------------------------------------------------------------------------
 
-def fold_weights(out_w, g2, b2, dtype):
+def out_weights(out_w, skip_w=None):
+    """The weight of K3's product: out_w [..., H, B], or [out_w | skip_w]
+    [..., H, B + Sc] for a block with a skip path (one copy a call)."""
+    return out_w if skip_w is None else torch.cat([out_w, skip_w], dim=-1)
+
+
+def fold_weights(out_w, g2, b2, dtype, skip_w=None):
     """Per-block terms of the norm2 -> out_w fold (whole_tcn.py:189-228)
     for stacked [NB, H, B] / [NB, H] weights: (round(g2 * W), g2 @ W,
-    b2 @ W) with W = out_w rounded to the activation dtype."""
-    ow32 = out_w.to(dtype).float()
+    b2 @ W) with W = out_w (or [out_w | skip_w], B + Sc columns) rounded
+    to the activation dtype."""
+    ow32 = out_weights(out_w, skip_w).to(dtype).float()
     wp = (g2[..., :, None] * ow32).to(dtype)
     g2w = torch.matmul(g2[..., None, :], ow32)[..., 0, :]
     b2w = torch.matmul(b2[..., None, :], ow32)[..., 0, :]
@@ -513,14 +533,18 @@ def _fold_scratch(device, tiles: int, splits: int):
     return (*_FOLD_SCRATCH[key], fresh)
 
 
-def tcn_fold_weights(out_w, g2, b2, dtype):
+def tcn_fold_weights(out_w, g2, b2, dtype, skip_w=None):
     """KFW: fold_weights in one launch over all NB blocks. out_w f32
     [NB, H, B], g2 / b2 f32 [NB, H] -> (wp [NB, H, B] in `dtype`, g2w,
     b2w f32 [NB, B]); wp equals the plain version's bit for bit, g2w / b2w
     sum in a fixed order of their own (fold_plan's slices of H, added in
-    slice order by the last CTA of each column tile)."""
+    slice order by the last CTA of each column tile). With skip_w [NB, H,
+    Sc] the fold covers [out_w | skip_w], B + Sc columns, in KFW's skip
+    kernel (counter tcn_fold_weights_skip)."""
     if out_w.device.type == "cpu":
-        return fold_weights(out_w, g2, b2, dtype)
+        return fold_weights(out_w, g2, b2, dtype, skip_w)
+    skip = skip_w is not None
+    out_w = out_weights(out_w, skip_w)
     NB, H, B = out_w.shape
     _require(dtype in _DTYPES, f"unsupported activation dtype {dtype}")
     _require(B % FOLD_COLS == 0, f"B={B} is not a multiple of {FOLD_COLS}")
@@ -534,25 +558,32 @@ def tcn_fold_weights(out_w, g2, b2, dtype):
     wp = torch.empty((NB, H, B), dtype=dtype, device=out_w.device)
     g2w = torch.empty((NB, B), dtype=torch.float32, device=out_w.device)
     b2w = torch.empty_like(g2w)
-    rc = _lib().tcn_fold_weights(idx, _DTYPES[dtype], out_w.data_ptr(), g2.data_ptr(),
-                                 b2.data_ptr(), wp.data_ptr(), g2w.data_ptr(), b2w.data_ptr(),
-                                 part.data_ptr(), ticket.data_ptr(), int(fresh), splits, rows,
-                                 NB, H, B, _stream(out_w))
+    launch = _lib().tcn_fold_weights_skip if skip else _lib().tcn_fold_weights
+    rc = launch(idx, _DTYPES[dtype], out_w.data_ptr(), g2.data_ptr(), b2.data_ptr(),
+                wp.data_ptr(), g2w.data_ptr(), b2w.data_ptr(), part.data_ptr(), ticket.data_ptr(),
+                int(fresh), splits, rows, NB, H, B, _stream(out_w))
     _build.check(rc, "tcn_fold_weights")
-    tcn_fold_weights.launches += 1
+    if skip:
+        tcn_fold_weights.launches_skip += 1
+    else:
+        tcn_fold_weights.launches += 1
     return wp, g2w, b2w
 
 
 tcn_fold_weights.launches = 0
+tcn_fold_weights.launches_skip = 0
 
 
 def out_gemm_plain(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k,
-                   fold, out=None):
+                   fold, out=None, skip=None):
     """Plain version of K3: returns round(res + o) with rows >= valid_k
     zero, written into `out` when given (which may be `res`).
 
     fold:   wmat = round(g2 * out_w), vec_a = g2 @ W, vec_b = b2 @ W;
-    unfold: wmat = out_w (activation dtype), vec_a = g2, vec_b = b2."""
+    unfold: wmat = out_w (activation dtype), vec_a = g2, vec_b = b2.
+    With `skip` (the skip sum s [M, K_pad, Sc]), wmat and the fold's
+    vectors cover [out_w | skip_w], and o's last Sc columns are added
+    into s in place the same way."""
     M, Kp, H = e.shape
     dt = e.dtype
     if norm_type == "gLN":
@@ -571,32 +602,44 @@ def out_gemm_plain(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k,
         z = (vec_a * ((e.float() - mean) * inv) + vec_b).to(dt)
         o = torch.matmul(z.float(), wmat.float())
     rows = (torch.arange(Kp, device=e.device) < valid_k)[None, :, None]
-    return _into(out, torch.where(rows, res + o.to(dt),
-                                  torch.zeros((), dtype=dt, device=e.device)))
+    zero = torch.zeros((), dtype=dt, device=e.device)
+    B = res.shape[2]
+    if skip is not None:
+        skip.copy_(torch.where(rows, skip + o[..., B:].to(dt), zero))
+    return _into(out, torch.where(rows, res + o[..., :B].to(dt), zero))
 
 
 def tcn_out_gemm(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k, fold,
-                 out=None):
+                 out=None, skip=None):
     """K3: round(res + round(norm2(e) @ out_w)), rows >= valid_k zeroed,
-    into `out` (a new tensor when None; in place when out is res)."""
+    into `out` (a new tensor when None; in place when out is res). With
+    `skip` (s [M, K_pad, Sc], bf16), K3's skip mode: wmat [H, B + Sc] and
+    the fold's vectors [B + Sc], the last Sc columns added into s in
+    place."""
     if e.device.type == "cpu":
         return out_gemm_plain(e, stats2, res, wmat, vec_a, vec_b, norm_type,
-                              valid_k, fold, out)
+                              valid_k, fold, out, skip)
     M, Kp, H = e.shape
     B = res.shape[2]
+    Sc = 0 if skip is None else skip.shape[2]
     dt = e.dtype
     _check_widths(Kp, B, H, dt)
-    _require(res.shape == (M, Kp, B) and wmat.shape == (H, B),
+    _require(res.shape == (M, Kp, B) and wmat.shape == (H, B + Sc),
              "residual / weight shapes do not match e")
     if out is None:
         out = torch.empty_like(res)
     _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
-    nv = B if fold else H
+    nv = B + Sc if fold else H
     _require(vec_a.shape == (nv,) and vec_b.shape == (nv,),
              "norm2 vectors have the wrong length")
     _check_gemm_h(H, dt)
     gln = norm_type == "gLN"
     _check_cuda(e, res, out, wmat, dtype=dt)
+    if skip is not None:
+        _require(dt == torch.bfloat16, "K3's skip mode runs bf16 only")
+        _require(Sc % KERNEL_WIDTH == 0, f"Sc={Sc} is not a multiple of {KERNEL_WIDTH}")
+        _require(skip.shape == (M, Kp, Sc), "the skip sum does not match e")
+        _check_cuda(e, skip, dtype=dt)
     _require(out.shape == res.shape, "out does not match the residual")
     _check_cuda(e, stats2, vec_a, vec_b)
     for t in (stats2, vec_a, vec_b):
@@ -605,55 +648,57 @@ def tcn_out_gemm(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k, fold,
     _require(stats2.shape[0] == M and (gln or stats2.shape[1] == Kp),
              "stats2 does not match e")
     idx = e.device.index
-    bm, bn = (gemm_plan(M * Kp, B, H, _sm_count(idx),
-                        resident=_resident(idx, H_FOLD if fold else H_UNFOLD))
+    mode = (H_FOLD if fold else H_UNFOLD) | (H_SKIP if Sc else 0)
+    bm, bn = (gemm_plan(M * Kp, B + Sc, H, _sm_count(idx), resident=_resident(idx, mode),
+                        seam=B if Sc else 0)
               if dt == torch.bfloat16 else (0, 0))
     rc = _lib().tcn_out_gemm(e.device.index, _DTYPES[dt], int(fold), e.data_ptr(),
                              stats2.data_ptr(), n2, wmat.data_ptr(), vec_a.data_ptr(),
                              vec_b.data_ptr(), res.data_ptr(), out.data_ptr(),
-                             M * Kp, Kp, valid_k, H, B, int(gln), bm, bn, _stream(e))
+                             skip.data_ptr() if Sc else None, M * Kp, Kp, valid_k, H, B, Sc,
+                             int(gln), bm, bn, _stream(e))
     _build.check(rc, "tcn_out_gemm")
-    if fold:
-        tcn_out_gemm.launches_fold += 1
-    else:
-        tcn_out_gemm.launches_unfold += 1
+    name = ("fold" if fold else "unfold") + ("_skip" if Sc else "")
+    setattr(tcn_out_gemm, f"launches_{name}", getattr(tcn_out_gemm, f"launches_{name}") + 1)
     return out
 
 
 tcn_out_gemm.launches_fold = 0
 tcn_out_gemm.launches_unfold = 0
+tcn_out_gemm.launches_fold_skip = 0
+tcn_out_gemm.launches_unfold_skip = 0
+
+
+# Counter name -> (wrapper, attribute): every forward kernel of csrc/ and
+# the stream chunk step's block kernel (stream_block.py).
+_COUNTERS = {
+    "tcn_in_gemm": (tcn_in_gemm, "launches"),
+    "tcn_dwconv": (tcn_dwconv, "launches"),
+    "tcn_dwconv_save": (tcn_dwconv, "launches_save"),
+    "tcn_out_gemm_fold": (tcn_out_gemm, "launches_fold"),
+    "tcn_out_gemm_unfold": (tcn_out_gemm, "launches_unfold"),
+    "tcn_fold_weights": (tcn_fold_weights, "launches"),
+    "tcn_stream_block": (stream_block, "launches"),
+    "tcn_out_gemm_fold_skip": (tcn_out_gemm, "launches_fold_skip"),
+    "tcn_out_gemm_unfold_skip": (tcn_out_gemm, "launches_unfold_skip"),
+    "tcn_fold_weights_skip": (tcn_fold_weights, "launches_skip"),
+}
 
 
 def reset_counts() -> None:
-    tcn_in_gemm.launches = 0
-    tcn_dwconv.launches = 0
-    tcn_dwconv.launches_save = 0
-    tcn_out_gemm.launches_fold = 0
-    tcn_out_gemm.launches_unfold = 0
-    tcn_fold_weights.launches = 0
-    stream_block.launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def add_counts(delta: dict) -> None:
     """Add launches executed without passing through a wrapper (a CUDA
     graph's replay, models/graphed.py); names of other modules are skipped."""
-    tcn_in_gemm.launches += delta.get("tcn_in_gemm", 0)
-    tcn_dwconv.launches += delta.get("tcn_dwconv", 0)
-    tcn_dwconv.launches_save += delta.get("tcn_dwconv_save", 0)
-    tcn_out_gemm.launches_fold += delta.get("tcn_out_gemm_fold", 0)
-    tcn_out_gemm.launches_unfold += delta.get("tcn_out_gemm_unfold", 0)
-    tcn_fold_weights.launches += delta.get("tcn_fold_weights", 0)
-    stream_block.launches += delta.get("tcn_stream_block", 0)
+    for name, (fn, attr) in _COUNTERS.items():
+        setattr(fn, attr, getattr(fn, attr) + delta.get(name, 0))
 
 
 def counts() -> dict:
     """Launches of the forward kernels, and of the stream chunk step's
     block kernel (stream_block.py): every kernel of csrc/ but the backward
     ones (tcn_block_bwd.counts()), whose records the timers check."""
-    return {"tcn_in_gemm": tcn_in_gemm.launches,
-            "tcn_dwconv": tcn_dwconv.launches,
-            "tcn_dwconv_save": tcn_dwconv.launches_save,
-            "tcn_out_gemm_fold": tcn_out_gemm.launches_fold,
-            "tcn_out_gemm_unfold": tcn_out_gemm.launches_unfold,
-            "tcn_fold_weights": tcn_fold_weights.launches,
-            "tcn_stream_block": stream_block.launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}

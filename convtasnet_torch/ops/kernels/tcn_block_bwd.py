@@ -31,6 +31,16 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
                        their rows of the stacked [NB, ...] f32 gradients:
                        one launch per group (csrc/tcn_bwd_finish.cuh).
 
+A block with a skip path (Sc skip channels, the paper's final version:
+s += e @ skip_w) gets a second cotangent, g_s [M, K_pad, Sc] of the skip
+sum, the same for every block. KB1 and KW z then run in their skip modes
+over [g | g_s] and [out_w | skip_w]: dz = round([g | g_s] @ [out_w |
+skip_w]^T), a depth of B + Sc from two operands, and d[out_w | skip_w] =
+z^T [g | g_s], [H, B + Sc]; KF sums those partials in its skip kernel into
+the stacked [NB, H, B + Sc] gradient. KB2, KB3 and KW din are unchanged
+(g_s never enters x's gradient). The skip modes run bf16 only, and have
+kernels and launch counters of their own (`*_skip`).
+
 `block_partials` runs the five into one slot and returns dx; `block_bwd`
 is one block's backward, finished (a group of one). Rows >= K of g are
 ignored. The
@@ -55,16 +65,17 @@ import torch.nn.functional as F
 
 from . import _build
 from .limits import BWD_MAX_SPAN, BWD_MAXP
-from .tcn_block import (_DTYPES, BM, BN, H_DX, H_DZ, _check_cuda, _check_dw_plan, _check_gemm_h,
-                        _check_widths, _moments, _prelu_f32, _require, _sm_count, _stream,
-                        card_resident, dw_plan, gemm_plan)
+from .limits import KERNEL_WIDTH
+from .tcn_block import (_DTYPES, BM, BN, H_DX, H_DZ, H_SKIP, _check_cuda, _check_dw_plan,
+                        _check_gemm_h, _check_widths, _moments, _prelu_f32, _require, _sm_count,
+                        _stream, card_resident, dw_plan, gemm_plan)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tcn_bwd_dz": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "tcn_wgrad": [_I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_bwd_dz": [_I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tcn_wgrad": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_wgrad_max_clusters": [_I, _I, _I],
     "tcn_bwd_dwconv": [_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -72,7 +83,7 @@ _SIGNATURES = {
     "tcn_bwd_dx": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "tcn_gemm_resident": [_I, _I, _I, _I],
-    "tcn_bwd_finish": [_I, _P, _P],
+    "tcn_bwd_finish": [_I, _P, _I, _P],
     "tcn_bwd_finish_args_bytes": [],
 }
 
@@ -162,10 +173,11 @@ def _into(out, val):
     return out.copy_(val)
 
 
-def _dz_tile(rows: int, B: int, H: int, dt, index) -> Tuple[int, int]:
-    """KB1's (rows, columns) per CTA."""
+def _dz_tile(rows: int, B: int, H: int, dt, index, Sc: int = 0) -> Tuple[int, int]:
+    """KB1's (rows, columns) per CTA (skip mode: a depth of B + Sc)."""
     if dt == torch.bfloat16:
-        return gemm_plan(rows, H, B, _sm_count(index), resident=_resident(index, H_DZ))
+        return gemm_plan(rows, H, B + Sc, _sm_count(index),
+                         resident=_resident(index, H_DZ | (H_SKIP if Sc else 0)))
     return BM, BN
 
 
@@ -178,7 +190,8 @@ def _dx_tile(rows: int, B: int, H: int, dt, index) -> Tuple[int, int]:
 
 
 _LAUNCHES = {"tcn_bwd_dz": 0, "tcn_wgrad_out": 0, "tcn_bwd_dwconv": 0,
-             "tcn_bwd_dx": 0, "tcn_wgrad_in": 0, "tcn_bwd_finish": 0}
+             "tcn_bwd_dx": 0, "tcn_wgrad_in": 0, "tcn_bwd_finish": 0,
+             "tcn_bwd_dz_skip": 0, "tcn_wgrad_out_skip": 0, "tcn_bwd_finish_skip": 0}
 
 
 def counts() -> dict:
@@ -201,16 +214,22 @@ def add_counts(delta: dict) -> None:
 # KB1: dz and the norm2-backward partials
 # ---------------------------------------------------------------------------
 
-def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=None):
+def _skip_cat(g, gs):
+    """[g | gs] along the channels (the skip modes' operand), or g."""
+    return g if gs is None else torch.cat([g, gs.to(g.dtype)], dim=-1)
+
+
+def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=None, gs=None):
     """Plain version of KB1. g [M, K_pad, B], out_wt = out_w^T [B, H]
     (activation dtype), c [M, K_pad, H]. Returns (dz, colpart [1, 2, H]
     = (sum dz*ehat, sum dz), norm2-backward partials); colpart is written
-    into `colpart` when given."""
+    into `colpart` when given. With gs [M, K_pad, Sc] (skip mode), out_wt
+    is [out_w | skip_w]^T [B + Sc, H] and dz = [g | gs] @ out_wt."""
     M, Kp, _ = g.shape
     H = out_wt.shape[1]
     dt = g.dtype
     rows = _rows(Kp, valid_k, g.device)
-    gm = torch.where(rows, g, torch.zeros((), dtype=dt, device=g.device))
+    gm = torch.where(rows, _skip_cat(g, gs), torch.zeros((), dtype=dt, device=g.device))
     dz = torch.matmul(gm.float(), out_wt.float()).to(dt)
     mean, inv = _norm_terms(stats2, norm_type, valid_k, H)
     cf = torch.where(rows, c.float(), 0.0)
@@ -221,20 +240,22 @@ def bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=N
     return dz, _into(colpart, cp), _pair_sums(dzg, dzg * ehat, norm_type)
 
 
-def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=None):
+def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=None, gs=None):
     """KB1. Same signature and results as bwd_dz_plain, with one colpart
     row per row tile (bwd_dz_parts) and norm2-backward partials per row and
     column tile (cLN) or per CTA (gLN). bf16 runs on the TMA + wgmma
     pipeline (mode H_DZ), tiled by tcn_block.gemm_plan with c and dz as the
-    epilogue's two tiles."""
+    epilogue's two tiles; with gs its skip mode (bf16 only) reads the depth
+    B + Sc from g, then gs."""
     if g.device.type == "cpu":
-        return bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart)
+        return bwd_dz_plain(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart, gs)
     M, Kp, B = g.shape
     H = out_wt.shape[1]
+    Sc = 0 if gs is None else gs.shape[2]
     dt = g.dtype
     _check_widths(Kp, B, H, dt)
     _require(0 < valid_k <= Kp, f"valid_k={valid_k} outside (0, {Kp}]")
-    _require(out_wt.shape == (B, H) and c.shape == (M, Kp, H) and g2.shape == (H,),
+    _require(out_wt.shape == (B + Sc, H) and c.shape == (M, Kp, H) and g2.shape == (H,),
              "KB1 operand shapes do not match")
     gln = norm_type == "gLN"
     alpha2 = alpha2.reshape(1)
@@ -242,7 +263,12 @@ def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=Non
     _check_cuda(g, stats2, alpha2, g2)
     _check_stats(stats2, M, Kp, gln, "stats2")
     _check_params(alpha2, g2)
-    bm, bn = _dz_tile(M * Kp, B, H, dt, g.device.index)
+    if Sc:
+        _require(dt == torch.bfloat16, "KB1's skip mode runs bf16 only")
+        _require(Sc % KERNEL_WIDTH == 0 and gs.shape == (M, Kp, Sc),
+                 "the skip cotangent does not match g")
+        _check_cuda(g, gs, dtype=dt)
+    bm, bn = _dz_tile(M * Kp, B, H, dt, g.device.index, Sc)
     nct = H // bn
     dz = torch.empty((M, Kp, H), dtype=dt, device=g.device)
     colpart = _part_out(colpart, (M * Kp // bm, 2, H), g.device, "KB1 colpart")
@@ -251,10 +277,10 @@ def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=Non
     rc = _lib().tcn_bwd_dz(g.device.index, _DTYPES[dt], g.data_ptr(), out_wt.data_ptr(),
                            c.data_ptr(), stats2.data_ptr(), _n_parts(stats2, gln),
                            alpha2.data_ptr(), g2.data_ptr(), dz.data_ptr(),
-                           colpart.data_ptr(), npart.data_ptr(), M * Kp, Kp, valid_k,
-                           B, H, int(gln), bm, bn, _stream(g))
+                           colpart.data_ptr(), npart.data_ptr(), _ptr(gs), M * Kp, Kp,
+                           valid_k, B, Sc, H, int(gln), bm, bn, _stream(g))
     _build.check(rc, "tcn_bwd_dz")
-    _LAUNCHES["tcn_bwd_dz"] += 1
+    _LAUNCHES["tcn_bwd_dz_skip" if Sc else "tcn_bwd_dz"] += 1
     return dz, colpart, npart
 
 
@@ -289,9 +315,17 @@ class WgradPlan(NamedTuple):
     parts: int
 
 
+def wgrad_bn(n_cols: int, seam: int = 0) -> int:
+    """N-side columns per CTA of bf16 KW: 256 where they tile n_cols and a
+    tile starts at `seam` (the skip mode's B, where g's columns end and
+    g_s's begin), else 128."""
+    return 256 if n_cols % 256 == 0 and seam % 256 == 0 else 128
+
+
 @functools.lru_cache(maxsize=256)
 def wgrad_plan(rows: int, kpad: int, m_cols: int, n_cols: int, sms: int,
-               max_clusters: Optional[Tuple[Tuple[int, int], ...]] = None) -> WgradPlan:
+               max_clusters: Optional[Tuple[Tuple[int, int], ...]] = None,
+               seam: int = 0) -> WgradPlan:
     """Plan of the bf16 KW kernel for a [rows, m_cols]^T @ [rows, n_cols]
     product (m_cols: wgmma's M side, c in the z form and dy1 in the din
     form) on a card with `sms` SMs, one CTA per SM.
@@ -305,14 +339,14 @@ def wgrad_plan(rows: int, kpad: int, m_cols: int, n_cols: int, sms: int,
     cluster. At the paper widths (4 tiles) on an H100 (clusters of 2, 4, 8:
     66, 30, 15 resident): batch 8 and 5 take 28 splits in clusters of 4 (7
     partials), batch 1 12 splits in clusters of 4 (3 partials); a card of
-    one SM one split."""
+    one SM one split. `seam`: see wgrad_bn."""
     _require(kpad > 0 and kpad % WGRAD_SLICE == 0,
              f"K_pad={kpad} is not a multiple of {WGRAD_SLICE}")
     _require(rows > 0 and rows % kpad == 0, f"{rows} rows are not whole items of {kpad}")
     _require(m_cols > 0 and n_cols > 0 and m_cols % 128 == 0 and n_cols % 128 == 0,
              f"KW widths {m_cols}, {n_cols} are not multiples of 128")
     _require(sms > 0, "no SMs")
-    bn = 256 if n_cols % 256 == 0 else 128
+    bn = wgrad_bn(n_cols, seam)
     tiles = (m_cols // 128) * (n_cols // bn)
     slices = rows // WGRAD_SLICE
     top = max(1, min(sms // tiles, slices // WGRAD_MIN_SLICES))
@@ -347,36 +381,42 @@ def _check_wgrad_plan(splits: int, cluster: int, rows: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _max_clusters(index: int, n_cols: int) -> Tuple[Tuple[int, int], ...]:
-    """((cluster size, clusters resident at once), ...) of bf16 KW on the card."""
-    return tuple((cs, _lib().tcn_wgrad_max_clusters(index, n_cols, cs))
+def _max_clusters(index: int, bn: int) -> Tuple[Tuple[int, int], ...]:
+    """((cluster size, clusters resident at once), ...) of bf16 KW with
+    `bn` N-side columns per CTA on the card."""
+    return tuple((cs, _lib().tcn_wgrad_max_clusters(index, bn, cs))
                  for cs in WGRAD_CLUSTERS[1:])
 
 
 @functools.lru_cache(maxsize=256)
 def _card_plan(index: int, rows: int, kpad: int, m_cols: int, n_cols: int,
-               sms: int) -> WgradPlan:
-    return wgrad_plan(rows, kpad, m_cols, n_cols, sms, _max_clusters(index, n_cols))
+               sms: int, seam: int = 0) -> WgradPlan:
+    return wgrad_plan(rows, kpad, m_cols, n_cols, sms,
+                      _max_clusters(index, wgrad_bn(n_cols, seam)), seam)
 
 
-def wgrad_launch_plan(A, Bm, z=None) -> WgradPlan:
+def wgrad_launch_plan(A, Bm, z=None, gs=None) -> WgradPlan:
     """The plan `tcn_wgrad` takes for these bf16 CUDA operands (cached per
-    shape and card: the wrapper's host time is on the train step's path)."""
+    shape and card: the wrapper's host time is on the train step's path);
+    gs: the skip mode's second N-side operand."""
     M, Kp, n1 = A.shape
     n2 = Bm.shape[2]
     mc, nc = (n1, n2) if z is not None else (n2, n1)
+    Sc = 0 if gs is None else gs.shape[2]
     idx = A.device.index
-    return _card_plan(idx, M * Kp, Kp, mc, nc, _sm_count(idx))
+    return _card_plan(idx, M * Kp, Kp, mc, nc + Sc, _sm_count(idx), n2 if Sc else 0)
 
 
-def wgrad_plain(A, Bm, valid_k, z=None, part=None):
+def wgrad_plain(A, Bm, valid_k, z=None, part=None, gs=None):
     """Plain version of KW: [1, n1, n2] = A^T @ Bm over the rows < valid_k
     of each item (Bm's other rows are read as zero, whatever they hold),
     written into `part` when given. z = (stats2, alpha2, g2, b2,
     norm_type) makes the A operand round(g2 * ehat + b2) with ehat from
-    A = c (dout_w)."""
+    A = c (dout_w). gs (skip mode, z form): Bm is [Bm | gs], n2 + Sc
+    columns."""
     M, Kp, n1 = A.shape
     dt = A.dtype
+    Bm = _skip_cat(Bm, gs)
     rows = _rows(Kp, valid_k, A.device)
     Bm = torch.where(rows, Bm, torch.zeros((), dtype=Bm.dtype, device=Bm.device))
     if z is not None:
@@ -388,15 +428,18 @@ def wgrad_plain(A, Bm, valid_k, z=None, part=None):
                                     Bm.float().reshape(M * Kp, -1))[None])
 
 
-def tcn_wgrad(A, Bm, valid_k, z=None, plan=None, part=None):
+def tcn_wgrad(A, Bm, valid_k, z=None, plan=None, part=None, gs=None):
     """KW. Returns f32 partials [n_part, n1, n2] (written into `part` when
     given); their sum over axis 0 is the weight gradient. bf16 takes
     `plan`, a WgradPlan or (splits, cluster) (default `wgrad_launch_plan`),
-    and returns splits / cluster partials; f32 one per `wgrad_chunk` rows."""
+    and returns splits / cluster partials; f32 one per `wgrad_chunk` rows.
+    gs [M, K_pad, Sc] (z form, bf16 only): the skip mode, N side [Bm | gs],
+    partials [n_part, n1, n2 + Sc]."""
     if A.device.type == "cpu":
-        return wgrad_plain(A, Bm, valid_k, z, part)
+        return wgrad_plain(A, Bm, valid_k, z, part, gs)
     M, Kp, n1 = A.shape
     n2 = Bm.shape[2]
+    Sc = 0 if gs is None else gs.shape[2]
     dt = A.dtype
     _check_widths(Kp, n1, n2, dt)
     _require(Bm.shape[:2] == (M, Kp), "KW operands must have the same rows")
@@ -404,13 +447,18 @@ def tcn_wgrad(A, Bm, valid_k, z=None, plan=None, part=None):
     if plan is not None:
         _check_wgrad_plan(*plan[:2], M * Kp)
     _check_cuda(A, Bm, dtype=dt)
+    if Sc:
+        _require(z is not None and dt == torch.bfloat16, "KW's skip mode is the bf16 z form")
+        _require(Sc % KERNEL_WIDTH == 0 and gs.shape == (M, Kp, Sc),
+                 "the skip cotangent does not match Bm")
+        _check_cuda(A, gs, dtype=dt)
     if dt == torch.bfloat16:
-        splits, cluster = (plan or wgrad_launch_plan(A, Bm, z))[:2]
+        splits, cluster = (plan or wgrad_launch_plan(A, Bm, z, gs))[:2]
         n_part = splits // cluster
     else:
         splits, cluster = wgrad_chunk(Kp), 1
         n_part = M * Kp // splits
-    part = _part_out(part, (n_part, n1, n2), A.device, "KW")
+    part = _part_out(part, (n_part, n1, n2 + Sc), A.device, "KW")
     stats2 = alpha2 = g2 = b2 = None
     gln, n2s = 0, 0
     if z is not None:
@@ -423,11 +471,12 @@ def tcn_wgrad(A, Bm, valid_k, z=None, plan=None, part=None):
         _require(g2.shape == (n1,) and b2.shape == (n1,), "norm2 vectors do not match")
         n2s = _n_parts(stats2, gln)
     rc = _lib().tcn_wgrad(A.device.index, _DTYPES[dt], int(z is not None), A.data_ptr(),
-                          Bm.data_ptr(), part.data_ptr(), _ptr(stats2), n2s, _ptr(alpha2),
-                          _ptr(g2), _ptr(b2), M * Kp, Kp, valid_k, n1, n2, splits, cluster,
-                          gln, _stream(A))
+                          Bm.data_ptr(), _ptr(gs), part.data_ptr(), _ptr(stats2), n2s,
+                          _ptr(alpha2), _ptr(g2), _ptr(b2), M * Kp, Kp, valid_k, n1, n2, Sc,
+                          splits, cluster, gln, _stream(A))
     _build.check(rc, "tcn_wgrad")
-    _LAUNCHES["tcn_wgrad_out" if z is not None else "tcn_wgrad_in"] += 1
+    _LAUNCHES["tcn_wgrad_out_skip" if Sc else
+              "tcn_wgrad_out" if z is not None else "tcn_wgrad_in"] += 1
     return part
 
 
@@ -620,26 +669,28 @@ class PartCounts(NamedTuple):
 
 
 def part_counts(M: int, Kp: int, B: int, H: int, P: int, dilation: int, dt,
-                plain: bool, index=None) -> PartCounts:
+                plain: bool, index=None, Sc: int = 0) -> PartCounts:
     """The partials the kernels (plain: the plain versions) write for one
-    block of M items of K_pad rows at `dilation`, by the wrappers' plans."""
+    block of M items of K_pad rows at `dilation`, by the wrappers' plans
+    (Sc: the skip modes of KB1 and KW z)."""
     if plain:
         return PartCounts(1, 1, 1, 1, 1, 1)
     rows = M * Kp
     if dt == torch.bfloat16:
-        nw = _card_plan(index, rows, Kp, H, B, _sm_count(index)).parts
+        nz = _card_plan(index, rows, Kp, H, B + Sc, _sm_count(index), B if Sc else 0).parts
+        nin = _card_plan(index, rows, Kp, H, B, _sm_count(index)).parts
     else:
-        nw = rows // wgrad_chunk(Kp)
+        nz = nin = rows // wgrad_chunk(Kp)
     plan = dw_plan(P, dilation, H, torch.empty((), dtype=dt).element_size(), backward=True)
     nch = rows // plan.rows
-    return PartCounts(nw, nw, nch, rows // _dz_tile(rows, B, H, dt, index)[0],
+    return PartCounts(nz, nin, nch, rows // _dz_tile(rows, B, H, dt, index, Sc)[0],
                       rows // _dx_tile(rows, B, H, dt, index)[0], nch * (H // plan.cols))
 
 
-def slot_bytes(n: PartCounts, B: int, H: int, P: int) -> int:
+def slot_bytes(n: PartCounts, B: int, H: int, P: int, Sc: int = 0) -> int:
     """Bytes of one slot of FinishSlots holding `n` partials."""
-    return 4 * ((n.nz + n.nin) * H * B + n.nch * (P + 2) * H + n.ncol * 2 * H + n.nda1
-                + n.nda2)
+    return 4 * (n.nz * H * (B + Sc) + n.nin * H * B + n.nch * (P + 2) * H + n.ncol * 2 * H
+                + n.nda1 + n.nda2)
 
 
 def finish_group(NB: int, nbytes: int) -> int:
@@ -651,8 +702,9 @@ def finish_group(NB: int, nbytes: int) -> int:
 class FinishSlots(NamedTuple):
     """The f32 partials of a group of G blocks' backwards, slot j one
     block's, each buffer [G, most partials of any block of the chain, ...]:
-    wz [G, nz, H, B], win [G, nin, B, H], chpart [G, nch, P + 2, H],
-    colpart [G, ncol, 2, H], da1part [G, nda1], da2part [G, nda2]."""
+    wz [G, nz, H, B (+ Sc with a skip path)], win [G, nin, B, H], chpart
+    [G, nch, P + 2, H], colpart [G, ncol, 2, H], da1part [G, nda1], da2part
+    [G, nda2]."""
     wz: torch.Tensor
     win: torch.Tensor
     chpart: torch.Tensor
@@ -661,10 +713,11 @@ class FinishSlots(NamedTuple):
     da2part: torch.Tensor
 
     @staticmethod
-    def alloc(G: int, cap: PartCounts, B: int, H: int, P: int, device) -> "FinishSlots":
+    def alloc(G: int, cap: PartCounts, B: int, H: int, P: int, device,
+              Sc: int = 0) -> "FinishSlots":
         def buf(*shape):
             return torch.empty((G,) + shape, dtype=torch.float32, device=device)
-        return FinishSlots(buf(cap.nz, H, B), buf(cap.nin, B, H), buf(cap.nch, P + 2, H),
+        return FinishSlots(buf(cap.nz, H, B + Sc), buf(cap.nin, B, H), buf(cap.nch, P + 2, H),
                            buf(cap.ncol, 2, H), buf(cap.nda1), buf(cap.nda2))
 
     def slot(self, j: int, n: PartCounts) -> tuple:
@@ -721,6 +774,7 @@ def _fin_args(slots: FinishSlots, counts, grads, nb0: int) -> _FinGroup:
         return args
     din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = grads
     B, H = din_w.shape[1:]
+    Bz = dout_w.shape[2]  # B, or B + Sc with a skip path
     P = dw.shape[1]
     G, ncap = slots.chpart.shape[:2]
     ch, kinds = (P + 2) * H, []
@@ -740,7 +794,7 @@ def _fin_args(slots: FinishSlots, counts, grads, nb0: int) -> _FinGroup:
     kind(slots.da2part, 0, slots.da2part.shape[1], 1, 1, slots.da2part.shape[1], da2, 1, "nda2")
     nin, nz = slots.win.shape[1], slots.wz.shape[1]
     kind(slots.win, 0, nin * B * H, B * H, B * H, nin, din_w, B * H, "nin")
-    kind(slots.wz, 0, nz * H * B, H * B, H * B, nz, dout_w, H * B, "nz")
+    kind(slots.wz, 0, nz * H * Bz, H * Bz, H * Bz, nz, dout_w, H * Bz, "nz")
     args = _FinGroup()
     args.n = len(counts)
     for k, (src, dst, slot, row, stride, cols, cap, parts) in zip(args.kind, kinds):
@@ -755,21 +809,23 @@ def _fin_args(slots: FinishSlots, counts, grads, nb0: int) -> _FinGroup:
 
 def tcn_bwd_finish(slots: FinishSlots, counts, grads, nb0: int) -> None:
     """KF. Same arguments and result as bwd_finish_plain, one launch for
-    the whole group (at most FIN_MAX_GROUP slots)."""
+    the whole group (at most FIN_MAX_GROUP slots). A skip path's dout_w is
+    d[out_w | skip_w], [NB, H, B + Sc]: KF's skip kernel."""
     if slots.wz.device.type == "cpu":
         return bwd_finish_plain(slots, counts, grads, nb0)
     din_w, da1, dg1, db1, dw, da2, dg2, db2, dout_w = grads
     NB, B, H = din_w.shape
+    Bz = dout_w.shape[2]
     P = dw.shape[1]
     n = len(counts)
     G = slots.wz.shape[0]
     _require(0 < n <= min(G, FIN_MAX_GROUP) and 0 <= nb0 and nb0 + n <= NB,
              f"rows {nb0}..{nb0 + n - 1} of {NB} from {G} slots")
-    _require(slots.wz.shape[2:] == (H, B) and slots.win.shape[2:] == (B, H)
+    _require(slots.wz.shape[2:] == (H, Bz) and slots.win.shape[2:] == (B, H)
              and slots.chpart.shape[2:] == (P + 2, H) and slots.colpart.shape[2:] == (2, H)
              and all(t.shape[0] == G for t in slots),
              "KF slot shapes do not match the gradients")
-    _require(dout_w.shape == (NB, H, B) and dw.shape == (NB, P, H)
+    _require(dout_w.shape == (NB, H, Bz) and Bz >= B and dw.shape == (NB, P, H)
              and all(t.shape == (NB, H) for t in (dg1, db1, dg2, db2))
              and da1.numel() == NB and da2.numel() == NB,
              "the stacked gradients' shapes do not match")
@@ -778,11 +834,12 @@ def tcn_bwd_finish(slots: FinishSlots, counts, grads, nb0: int) -> None:
     _require(all(0 < c <= m for cn in counts for c, m in zip(cn, cap)),
              "a slot's partial counts exceed the slots")
     _check_cuda(*slots, *grads, dtype=torch.float32)
+    skip = Bz != B
     rc = _lib().tcn_bwd_finish(din_w.device.index,
-                               ctypes.byref(_fin_args(slots, counts, grads, nb0)),
+                               ctypes.byref(_fin_args(slots, counts, grads, nb0)), int(skip),
                                _stream(din_w))
     _build.check(rc, "tcn_bwd_finish")
-    _LAUNCHES["tcn_bwd_finish"] += 1
+    _LAUNCHES["tcn_bwd_finish_skip" if skip else "tcn_bwd_finish"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -795,23 +852,27 @@ KERNEL_BWD = (tcn_bwd_dz, tcn_wgrad, tcn_bwd_dwconv, tcn_bwd_dx, tcn_bwd_finish)
 
 def alloc_grads(params) -> list:
     """The nine stacked f32 gradients [NB, ...] of the stacked block
-    parameters (in_w, a1, g1, b1, w, a2, g2, b2, out_w), each row written by
-    the KF launch of its block's group."""
+    parameters (in_w, a1, g1, b1, w, a2, g2, b2, out_w; with a skip path
+    [out_w | skip_w] last), each row written by the KF launch of its
+    block's group."""
     return [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in params]
 
 
 def block_partials(g, x, y1, s1, c, s2, in_wt, a1, g1, b1, w, a2, g2, b2, out_wt,
-                   norm_type, dilation, causal, valid_k, slot, stages=KERNEL_BWD
-                   ) -> torch.Tensor:
+                   norm_type, dilation, causal, valid_k, slot, stages=KERNEL_BWD,
+                   gs=None) -> torch.Tensor:
     """The five producing kernels of a block's backward. g, x [M, K_pad, B]
     and y1, c [M, K_pad, H] in the activation dtype; in_wt = in_w^T [H, B]
     and out_wt = out_w^T [B, H] in the activation dtype; the rest f32.
-    Writes the block's weight-gradient partials into `slot`
-    (FinishSlots.slot) and returns dx, rows >= valid_k zero."""
+    With a skip path, gs [M, K_pad, Sc] is the skip sum's cotangent and
+    out_wt = [out_w | skip_w]^T [B + Sc, H]. Writes the block's
+    weight-gradient partials into `slot` (FinishSlots.slot) and returns dx,
+    rows >= valid_k zero."""
     dz_fn, wgrad_fn, dw_fn, dx_fn, _ = stages
     wz, win, chpart, colpart, da1p, da2p = slot
-    dz, _, gs2 = dz_fn(g, out_wt, c, s2, a2, g2, norm_type, valid_k, colpart=colpart)
-    wgrad_fn(c, g, valid_k, (s2, a2, g2, b2, norm_type), part=wz)
+    skip = {} if gs is None else {"gs": gs}
+    dz, _, gs2 = dz_fn(g, out_wt, c, s2, a2, g2, norm_type, valid_k, colpart=colpart, **skip)
+    wgrad_fn(c, g, valid_k, (s2, a2, g2, b2, norm_type), part=wz, **skip)
     db, _, gs1, _ = dw_fn(y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm_type, dilation,
                           causal, valid_k, chpart=chpart, da2part=da2p)
     dx, dy1, _ = dx_fn(db, y1, in_wt, g, s1, gs1, a1, g1, norm_type, valid_k, da1part=da1p)

@@ -20,30 +20,33 @@ from .whole_tcn import KERNEL_STAGES, PLAIN_STAGES, tcn_chain
 
 
 def _run(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
-         causal, valid_k, stages, scratch):
+         causal, valid_k, stages, scratch, skip_w=None, s=None):
     f32 = dict(dtype=torch.float32, device=x.device)
     a1 = torch.as_tensor(a1, **f32).reshape(1)
     a2 = torch.as_tensor(a2, **f32).reshape(1)
     one = [t[None] for t in (in_w, g1, b1, w, g2, b2, out_w)]
     in_w, g1, b1, w, g2, b2, out_w = one
     return tcn_chain(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
-                     causal, [dilation], valid_k, False, stages, scratch)
+                     causal, [dilation], valid_k, False, stages, scratch,
+                     None if skip_w is None else skip_w[None], s)
 
 
 def whole_block_reference(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
-                          norm_type, dilation, causal, valid_k=None):
-    """Plain PyTorch version: [M, K(,pad), B] -> same shape, one block."""
+                          norm_type, dilation, causal, valid_k=None, skip_w=None, s=None):
+    """Plain PyTorch version, one block: [M, K(,pad), B] -> (same shape,
+    s), s the skip sum updated in place with skip_w [H, Sc], else None."""
     return _run(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
-                causal, valid_k, PLAIN_STAGES, None)
+                causal, valid_k, PLAIN_STAGES, None, skip_w, s)
 
 
 def whole_block(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
-                dilation, causal, valid_k=None, scratch=None):
+                dilation, causal, valid_k=None, scratch=None, skip_w=None, s=None):
     """One block. A CPU tensor takes the plain version; a CUDA tensor runs
-    three kernel launches. `scratch` is an optional (y1, e) pair from
+    three kernel launches (K3 in its skip mode with skip_w); returns (x, s)
+    as whole_block_reference. `scratch` is an optional (y1, e) pair from
     whole_tcn.alloc_scratch, reused when a caller runs many blocks."""
     if x.device.type == "cpu":
         return whole_block_reference(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
-                                     norm_type, dilation, causal, valid_k)
+                                     norm_type, dilation, causal, valid_k, skip_w, s)
     return _run(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
-                causal, valid_k, KERNEL_STAGES, scratch)
+                causal, valid_k, KERNEL_STAGES, scratch, skip_w, s)

@@ -53,8 +53,8 @@ class _WholeBlockTrain(torch.autograd.Function):
     def forward(ctx, x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, dilation,
                 causal, valid_k, plain):
         fwd = whole_block_reference if plain else whole_block
-        out = fwd(x, in_w.to(x.dtype), a1, g1, b1, w, a2, g2, b2, out_w.to(x.dtype),
-                  norm_type, dilation, causal, valid_k)
+        out, _ = fwd(x, in_w.to(x.dtype), a1, g1, b1, w, a2, g2, b2, out_w.to(x.dtype),
+                     norm_type, dilation, causal, valid_k)
         ctx.save_for_backward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w)
         ctx.static = (norm_type, dilation, causal, valid_k, plain)
         return out

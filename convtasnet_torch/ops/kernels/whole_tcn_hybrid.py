@@ -21,6 +21,13 @@ per-block loop launches the hand-written kernels only.
 
 Residuals are kept [NB, M, K_pad, ch], each block contiguous for the
 kernels (the JAX package's layout is [M, NB, K_pad, ch]).
+
+With a skip path (skip_w [NB, H, Sc], the paper's final version) the op
+returns (out, s): every block's K3 adds e @ skip_w into one skip-sum
+buffer s [M, K_pad, Sc] in place. s is not saved per block: its cotangent
+g_s reaches every block unchanged, so the backward hands the one g_s to
+each block's KB1 and KW z (their skip modes) and KF returns d[out_w |
+skip_w], split into the two leaves' gradients.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import math
 
 import torch
 
-from .tcn_block import dwconv_plain, dwconv_stats_shape, in_gemm_plain, tcn_dwconv, tcn_in_gemm
+from .tcn_block import (dwconv_plain, dwconv_stats_shape, in_gemm_plain, out_weights,
+                        tcn_dwconv, tcn_in_gemm)
 from .tcn_block_bwd import (KERNEL_BWD, PLAIN_BWD, FinishSlots, PartCounts, alloc_grads,
                             block_partials, finish_group, part_counts, slot_bytes)
 from .whole_tcn import KERNEL_STAGES, PLAIN_STAGES
@@ -58,21 +66,22 @@ def _stats_rows(x, w, norm_type, dilations, plain):
 
 
 def chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
-                  valid_k, stages=KERNEL_STAGES, save=True, y1_res=None):
+                  valid_k, stages=KERNEL_STAGES, save=True, y1_res=None, skip_w=None, s=None):
     """Forward keeping every block's input: x [M, K_pad, B] (activation
     dtype, rows >= valid_k zero), weights stacked [NB, ...]. Block nb
     writes its output into slot nb + 1 of x_res [NB, M, K_pad, B]. With
     save, K2 runs in save mode and c_res [NB, M, K_pad, H] and the norm2
     partials s2 (one view per block) are kept too. With y1_res [NB, M,
     K_pad, H] given, K1 writes block nb's y1 into slot nb of it (the
-    per-block hybrid chain's residual). Returns (out, x_res, c_res, s2),
-    the last two None without save."""
+    per-block hybrid chain's residual). With skip_w, each block's K3 also
+    adds into the skip sum `s` [M, K_pad, Sc] (zero on entry) in place.
+    Returns (out, x_res, c_res, s2), the last two None without save."""
     in_gemm, dwconv, out_gemm = stages
     M, Kp, B = x.shape
     NB, P, H = w.shape
     dt = x.dtype
     dil = _dilations(NB, X)
-    in_w, out_w = in_w.to(dt), out_w.to(dt)
+    in_w, out_w = in_w.to(dt), out_weights(out_w, skip_w).to(dt)
     x_res = torch.empty((NB, M, Kp, B), dtype=dt, device=x.device)
     x_res[0].copy_(x)
     out = torch.empty_like(x_res[0])
@@ -93,7 +102,7 @@ def chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, 
             e, s2nb = dwconv(*dargs)
         dst = x_res[nb + 1] if nb + 1 < NB else out
         out_gemm(e, s2nb, x_res[nb], out_w[nb], g2[nb], b2[nb], norm_type, valid_k,
-                 False, dst)
+                 False, dst, *(() if skip_w is None else (s,)))
     return out, x_res, c_res, s2
 
 
@@ -115,37 +124,43 @@ def _transposed(wts, dt):
 
 @functools.lru_cache(maxsize=64)
 def finish_plan(M: int, Kp: int, B: int, H: int, P: int, dilations: tuple, dt, plain: bool,
-                index=None, group=None):
+                index=None, group=None, Sc: int = 0):
     """(blocks per KF launch, each block's PartCounts, the most partials of
-    any block) of the backward of a chain of blocks at `dilations`;
-    `group` forces the blocks per launch. Cached per shape: it is on the
-    eager step's host path."""
-    counts = [part_counts(M, Kp, B, H, P, d, dt, plain, index) for d in dilations]
+    any block) of the backward of a chain of blocks at `dilations` (Sc:
+    with a skip path); `group` forces the blocks per launch. Cached per
+    shape: it is on the eager step's host path."""
+    counts = [part_counts(M, Kp, B, H, P, d, dt, plain, index, Sc) for d in dilations]
     cap = PartCounts(*map(max, zip(*counts)))
-    G = group or finish_group(len(dilations), slot_bytes(cap, B, H, P))
+    G = group or finish_group(len(dilations), slot_bytes(cap, B, H, P, Sc))
     return min(G, len(dilations)), counts, cap
 
 
 def chain_bwd(g, x_res, c_res, s2, params, norm_type, causal, dilations, valid_k,
-              in_gemm=tcn_in_gemm, bwd_stages=KERNEL_BWD, dwconv=tcn_dwconv, group=None):
+              in_gemm=tcn_in_gemm, bwd_stages=KERNEL_BWD, dwconv=tcn_dwconv, group=None,
+              gs=None):
     """Backward of a chain of blocks from their saved inputs x_res [NB, M,
     K_pad, B]: upstream g [M, K_pad, B] -> (dx, din_w, da1, dg1, db1, dw,
     da2, dg2, db2, dout_w), the weight gradients f32 and stacked [NB, ...].
     params are the nine stacked block parameters, block nb at dilations[nb].
     With c_res / s2 None, each block recomputes c and the norm2 partials
     with K2 in save mode (the recompute form); else they are read. KF runs
-    once per group of blocks (finish_plan; `group` forces its size)."""
+    once per group of blocks (finish_plan; `group` forces its size). With
+    gs [M, K_pad, Sc], the skip sum's cotangent, the last parameter is
+    [out_w | skip_w] [NB, H, B + Sc] and so is its gradient."""
     in_w, a1, g1, b1, w, a2, g2, b2, out_w = params
     dt = x_res.dtype
     NB, M, Kp, B = x_res.shape
     P, H = w.shape[1:]
+    Sc = 0 if gs is None else gs.shape[2]
     in_wc = in_w.to(dt)
     in_wt, out_wt = _transposed(in_w, dt), _transposed(out_w, dt)
     grads = alloc_grads(params)
     plain = bwd_stages is PLAIN_BWD or x_res.device.type == "cpu"
     G, counts, cap = finish_plan(M, Kp, B, H, P, tuple(dilations), dt, plain,
-                                 x_res.device.index, group)
-    slots = FinishSlots.alloc(G, cap, B, H, P, x_res.device)
+                                 x_res.device.index, group, Sc)
+    slots = FinishSlots.alloc(G, cap, B, H, P, x_res.device, Sc)
+    if gs is not None:
+        gs = gs.to(dt).contiguous()
     finish = bwd_stages[-1]
     dx = g.to(dt).contiguous()
     y1 = e = c = None
@@ -162,7 +177,7 @@ def chain_bwd(g, x_res, c_res, s2, params, norm_type, causal, dilations, valid_k
             c, s2nb = c_res[nb], s2[nb]
         dx = block_partials(dx, x_res[nb], y1, s1, c, s2nb, in_wt[nb], a1[nb], g1[nb], b1[nb],
                             w[nb], a2[nb], g2[nb], b2[nb], out_wt[nb], norm_type, d, causal,
-                            valid_k, slots.slot(nb - nb0, counts[nb]), bwd_stages)
+                            valid_k, slots.slot(nb - nb0, counts[nb]), bwd_stages, gs)
         if nb == nb0:
             finish(slots, counts[nb0:top], grads, nb0)
     return (dx, *grads)
@@ -183,33 +198,42 @@ def whole_tcn_bwd(g, x_res, c_res, s2, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
 class _WholeTcnTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
-                valid_k, plain):
+                valid_k, plain, skip_w=None):
         stages = PLAIN_STAGES if plain else KERNEL_STAGES
-        out, x_res, c_res, s2 = chain_save(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
-                                           norm_type, causal, X, valid_k, stages)
-        ctx.save_for_backward(x_res, c_res, in_w, a1, g1, b1, w, a2, g2, b2, out_w, *s2)
-        ctx.static = (norm_type, causal, X, valid_k, plain)
-        return out
+        s = None
+        if skip_w is not None:
+            s = torch.zeros(x.shape[:2] + (skip_w.shape[2],), dtype=x.dtype, device=x.device)
+        out, x_res, c_res, s2 = chain_forward(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w,
+                                              norm_type, causal, X, valid_k, stages,
+                                              skip_w=skip_w, s=s)
+        ctx.save_for_backward(x_res, c_res, in_w, a1, g1, b1, w, a2, g2, b2,
+                              out_weights(out_w, skip_w), *s2)
+        ctx.static = (norm_type, causal, X, valid_k, plain, out_w.shape[2])
+        return out, s
 
     @staticmethod
-    def backward(ctx, gout):
-        norm_type, causal, X, valid_k, plain = ctx.static
+    def backward(ctx, gout, gs=None):
+        norm_type, causal, X, valid_k, plain, B = ctx.static
         x_res, c_res, *rest = ctx.saved_tensors
         params, s2 = rest[:9], rest[9:]
-        grads = whole_tcn_bwd(gout, x_res, c_res, s2, *params, norm_type, causal, X, valid_k,
-                              in_gemm_plain if plain else tcn_in_gemm,
-                              PLAIN_BWD if plain else KERNEL_BWD)
-        return (*grads, None, None, None, None, None)
+        grads = chain_bwd(gout, x_res, c_res, s2, params, norm_type, causal,
+                          _dilations(params[4].shape[0], X), valid_k,
+                          in_gemm_plain if plain else tcn_in_gemm,
+                          PLAIN_BWD if plain else KERNEL_BWD, gs=gs)
+        dw_out = grads[-1]
+        return (*grads[:-1], dw_out[..., :B], None, None, None, None, None,
+                None if gs is None else dw_out[..., B:])
 
 
 def whole_tcn_train(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type, causal, X,
-                    valid_k=None, plain=False):
+                    valid_k=None, plain=False, skip_w=None):
     """Differentiable whole-TCN op. x [M, K_pad, B] padded to a multiple of
     128 with exact-zero pad rows (valid_k = the true frame count; None when
     there is no padding); weights f32 stacked [NB, ...]. A CPU tensor, or
     plain=True, takes the plain versions; a CUDA tensor runs 3 kernels per
     block forward and 6 per block backward (K1 rerun, KB1, KB2, KB3, two
-    KW) and one KF per group of blocks."""
+    KW) and one KF per group of blocks. Returns (out, s): with skip_w [NB,
+    H, Sc] s is the skip sum [M, K_pad, Sc] (module docstring), else None."""
     K = x.shape[1] if valid_k is None else valid_k
     return _WholeTcnTrain.apply(x, in_w, a1, g1, b1, w, a2, g2, b2, out_w, norm_type,
-                                causal, X, K, plain)
+                                causal, X, K, plain, skip_w)

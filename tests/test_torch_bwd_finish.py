@@ -194,7 +194,7 @@ def test_chain_ops_match_jax(form, norm_type, causal):
     vk = K if K != Kp else None
     if form == "hybrid":
         jfn = lambda *a: j_tcn.whole_tcn_train(*a, norm_type, causal, X, True, vk)  # noqa: E731
-        tfn = lambda *a: whole_tcn_train(*a, norm_type, causal, X, valid_k=K)  # noqa: E731
+        tfn = lambda *a: whole_tcn_train(*a, norm_type, causal, X, valid_k=K)[0]  # noqa: E731
     else:
         jfn = lambda x, *p: _jax_whole_chain(x, *p, norm_type=norm_type,  # noqa: E731
                                              causal=causal, X=X, vk=vk)

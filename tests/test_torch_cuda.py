@@ -56,10 +56,10 @@ def test_whole_tcn_kernels_match_plain(dev, norm_type, causal, dtype, tol):
     x = torch.randn((2, 300, 128), generator=torch.Generator(device=dev).manual_seed(0),
                     device=dev).to(dtype)
     tcn_block.reset_counts()
-    got = whole_tcn(x, *args, norm_type, causal, 2)
+    got, _ = whole_tcn(x, *args, norm_type, causal, 2)
     assert tcn_block.counts()["tcn_out_gemm_fold"] == 4
     assert tcn_block.counts()["tcn_fold_weights"] == 1
-    want = whole_tcn_reference(x, *args, norm_type, causal, 2)
+    want, _ = whole_tcn_reference(x, *args, norm_type, causal, 2)
     assert got.shape == x.shape and torch.isfinite(got.float()).all()
     assert _rel_l2(got, want) <= tol
 
@@ -69,8 +69,8 @@ def test_whole_block_kernels_match_plain(dev, dilation):
     one = [a[0] for a in _blocks(1, device=dev)]
     x = torch.randn((3, 256, 128), generator=torch.Generator(device=dev).manual_seed(1),
                     device=dev)
-    got = whole_block(x, *one, "gLN", dilation, False)
-    want = whole_block_reference(x, *one, "gLN", dilation, False)
+    got, _ = whole_block(x, *one, "gLN", dilation, False)
+    want, _ = whole_block_reference(x, *one, "gLN", dilation, False)
     assert _rel_l2(got, want) <= 1e-5
 
 
@@ -79,8 +79,8 @@ def test_kernels_repeat_bit_for_bit(dev):
     args = _blocks(2, device=dev)
     x = torch.randn((2, 256, 128), generator=torch.Generator(device=dev).manual_seed(2),
                     device=dev).to(torch.bfloat16)
-    a = whole_tcn(x, *args, "gLN", False, 2)
-    b = whole_tcn(x, *args, "gLN", False, 2)
+    a, _ = whole_tcn(x, *args, "gLN", False, 2)
+    b, _ = whole_tcn(x, *args, "gLN", False, 2)
     assert torch.equal(a, b)
 
 
@@ -172,6 +172,8 @@ def _op_grads(op, x, params, g, *static, plain):
     x = x.clone().requires_grad_(True)
     ps = [p.clone().requires_grad_(True) for p in params]
     out = op(x, *ps, *static, plain=plain)
+    if op is whole_tcn_train:
+        out = out[0]  # (out, s), s None without a skip path
     grads = torch.autograd.grad(out, [x] + ps, g)
     return out.detach(), grads
 
@@ -1212,3 +1214,234 @@ def test_gloo_on_the_card_keeps_the_steps_eager(dev, tmp_path):
         assert not steps_graphable(make_mesh(1, 1, 1))
     finally:
         distributed.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The skip modes (a block with a skip path, the paper's final version) at the
+# taslp widths: M = 8 items of K = 3,999 frames (4 s at L = 16), B = 128,
+# H = 512, Sc = 128; K3 fold / unfold, KB1 and KW z against their plain
+# versions at every GEMM tile plan, KFW and KF, the training op and the
+# launch counters.
+# ---------------------------------------------------------------------------
+
+def _skip_plans(monkeypatch):
+    """Yields with the card's own GEMM plan, then with gemm_plan forced to
+    its largest tiles (a card of one SM) and its smallest (unbounded SMs)."""
+    yield "card"
+    for mod in (tcn_block, tbb):
+        monkeypatch.setattr(mod, "_resident", lambda index, mode: ())
+    for n in (1, 10 ** 6):
+        monkeypatch.setattr(tcn_block, "_sm_count", lambda index, n=n: n)
+        monkeypatch.setattr(tbb, "_sm_count", lambda index, n=n: n)
+        yield n
+
+
+def _skip_inputs(dev, norm_type="gLN", causal=False, M=8, Kp=4096, K=3999, B=128, H=512,
+                 Sc=128, dilation=2):
+    d = _bwd_inputs(dev, torch.bfloat16, norm_type, causal, dilation, K=K, Kp=Kp, M=M, B=B,
+                    H=H)
+    gen = torch.Generator(device=dev).manual_seed(Sc)
+    s = torch.randn((M, Kp, Sc), generator=gen, device=dev)
+    s[:, K:] = 0
+    gs = torch.randn((M, Kp, Sc), generator=gen, device=dev).to(torch.bfloat16)
+    skip_w = torch.randn((H, Sc), generator=gen, device=dev) * 0.1
+    e, s2e = tcn_block.dwconv_plain(d["y1"], d["s1"], d["a1"], d["g1"], d["b1"], d["w"],
+                                    d["a2"], norm_type, dilation, causal, K)
+    return dict(d, s=s.to(torch.bfloat16), gs=gs, skip_w=skip_w, e=e, s2e=s2e)
+
+
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+@pytest.mark.parametrize("B,H,Sc", [(128, 512, 128), (256, 512, 128), (128, 256, 256)])
+def test_out_gemm_skip_matches_plain(dev, monkeypatch, norm_type, causal, B, H, Sc):
+    """K3's skip mode, fold and unfold, at every tile plan: x' and the skip
+    sum s' (in place) against the plain version, rows >= K exact zeros in
+    both, two launches equal bytes, and the skip counters."""
+    d = _skip_inputs(dev, norm_type, causal, B=B, H=H, Sc=Sc)
+    K, dt = d["K"], torch.bfloat16
+    out_w = d["out_w"].float()
+    for fold in (True, False):
+        if fold:
+            wmat, va, vb = tcn_block.fold_weights(out_w, d["g2"], d["b2"], dt, d["skip_w"])
+        else:
+            wmat, va, vb = tcn_block.out_weights(out_w, d["skip_w"]).to(dt), d["g2"], d["b2"]
+        sp = d["s"].clone()
+        want = tcn_block.out_gemm_plain(d["e"], d["s2e"], d["x"], wmat, va, vb, norm_type, K,
+                                        fold, skip=sp)
+        for tile in _skip_plans(monkeypatch):
+            sk = d["s"].clone()
+            tcn_block.reset_counts()
+            got = tcn_block.tcn_out_gemm(d["e"], d["s2e"], d["x"], wmat, va, vb, norm_type,
+                                         K, fold, skip=sk)
+            name = "tcn_out_gemm_" + ("fold" if fold else "unfold")
+            assert tcn_block.counts()[name + "_skip"] == 1 and tcn_block.counts()[name] == 0
+            assert _rel_max(got, want) <= 1.6e-2 and _rel_max(sk, sp) <= 1.6e-2, (fold, tile)
+            assert torch.all(got[:, K:] == 0) and torch.all(sk[:, K:] == 0)
+            sk2 = d["s"].clone()
+            assert torch.equal(tcn_block.tcn_out_gemm(d["e"], d["s2e"], d["x"], wmat, va, vb,
+                                                      norm_type, K, fold, skip=sk2), got)
+            assert torch.equal(sk2, sk)
+
+
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+@pytest.mark.parametrize("B,H,Sc", [(128, 512, 128), (256, 512, 128)])
+def test_bwd_dz_skip_matches_plain(dev, monkeypatch, norm_type, causal, B, H, Sc):
+    """KB1's skip mode (a depth of B + Sc from g, then g_s) at every tile
+    plan, with NaN in the rows >= K of g, g_s and c."""
+    d = _skip_inputs(dev, norm_type, causal, B=B, H=H, Sc=Sc)
+    K = d["K"]
+    red = 1 if norm_type == "gLN" else 2
+    wt = tcn_block.out_weights(d["out_w"].float(), d["skip_w"]).t().contiguous().to(torch.bfloat16)
+    g, gs, c = d["g"].clone(), d["gs"].clone(), d["c"].clone()
+    for t in (g, gs, c):
+        t[:, K:] = float("nan")
+    args = (g, wt, c, d["s2"], d["a2"], d["g2"], norm_type, K)
+    dzp, colp, gs2p = tbb.bwd_dz_plain(*args, gs=gs)
+    for tile in _skip_plans(monkeypatch):
+        tbb.reset_counts()
+        dzk, colk, gs2k = tbb.tcn_bwd_dz(*args, gs=gs)
+        assert tbb.counts()["tcn_bwd_dz_skip"] == 1 and tbb.counts()["tcn_bwd_dz"] == 0
+        assert _rel_max(dzk, dzp) <= 1.6e-2 and torch.all(dzk[:, K:] == 0), tile
+        assert _rel_max(colk.sum(0), colp.sum(0)) <= 1.6e-2, tile
+        assert _rel_max(gs2k.sum(red), gs2p.sum(red)) <= 1.6e-2, tile
+        again = tbb.tcn_bwd_dz(*args, gs=gs)
+        assert all(torch.equal(u, v) for u, v in zip((dzk, colk, gs2k), again)), tile
+
+
+@pytest.mark.parametrize("plan", ["auto", "one_sm", "splits8_cluster4"])
+@pytest.mark.parametrize("norm_type", ["gLN", "cLN"])
+@pytest.mark.parametrize("B,H,Sc", [(128, 512, 128), (256, 512, 256)])
+def test_wgrad_out_skip_matches_plain(dev, monkeypatch, plan, norm_type, B, H, Sc):
+    """KW z's skip mode: d[out_w | skip_w] = z^T [g | g_s], NaN in the rows
+    >= K of both cotangents kept out; tiles never straddle the seam."""
+    _plan_sms(monkeypatch, plan == "one_sm")
+    d = _skip_inputs(dev, norm_type, False, B=B, H=H, Sc=Sc)
+    K = d["K"]
+    g, gs = d["g"].clone(), d["gs"].clone()
+    g[:, K:] = float("nan")
+    gs[:, K:] = float("nan")
+    z = (d["s2"], d["a2"], d["g2"], d["b2"], norm_type)
+    want = tbb.wgrad_plain(d["c"], g, K, z, gs=gs).sum(0)
+    forced = WGRAD_PLANS[plan]
+    tbb.reset_counts()
+    part = tbb.tcn_wgrad(d["c"], g, K, z, plan=forced, gs=gs)
+    assert tbb.counts()["tcn_wgrad_out_skip"] == 1 and tbb.counts()["tcn_wgrad_out"] == 0
+    assert part.shape[1:] == (H, B + Sc)
+    assert _rel_max(part.sum(0), want) <= 1.6e-2
+    assert torch.equal(tbb.tcn_wgrad(d["c"], g, K, z, plan=forced, gs=gs), part)
+    assert B % tbb.wgrad_launch_plan(d["c"], g, z, gs).bn == 0
+
+
+def test_fold_weights_skip_matches_plain(dev):
+    """KFW's skip kernel over [out_w | skip_w] at the taslp widths: wp bit
+    for bit, the folded vectors to f32 order, its own counter."""
+    NB, H, B, Sc = 24, 512, 128, 128
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out_w, skip_w = (torch.randn((NB, H, n), generator=gen, device=dev) * 0.1 for n in (B, Sc))
+    g2, b2 = (torch.randn((NB, H), generator=gen, device=dev) for _ in range(2))
+    tcn_block.reset_counts()
+    got = tcn_block.tcn_fold_weights(out_w, g2, b2, torch.bfloat16, skip_w)
+    want = tcn_block.fold_weights(out_w, g2, b2, torch.bfloat16, skip_w)
+    assert tcn_block.counts()["tcn_fold_weights_skip"] == 1
+    assert tcn_block.counts()["tcn_fold_weights"] == 0
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _skip_params(dev, NB, B, H, Sc, P=3):
+    params = _blocks(NB, B=B, H=H, P=P, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(NB)
+    return params, torch.randn((NB, H, Sc), generator=gen, device=dev) * 0.1
+
+
+def _train_errors(dev, params, skip_w, x, g, gs, norm_type, causal, X, K):
+    """Relative L2 of the training op's kernels against its plain stages:
+    [out, dx, the nine block gradients] (+ [s, d skip_w] with skip_w)."""
+    res = []
+    for plain in (True, False):
+        leaves = [p.clone().requires_grad_(True) for p in params]
+        sw = None if skip_w is None else skip_w.clone().requires_grad_(True)
+        xin = x.clone().requires_grad_(True)
+        out, s = whole_tcn_train(xin, *leaves, norm_type, causal, X, valid_k=K, plain=plain,
+                                 skip_w=sw)
+        if sw is None:
+            out.backward(g)
+            res.append([out, xin.grad] + [p.grad for p in leaves])
+        else:
+            torch.autograd.backward((out, s), (g, gs))
+            res.append([out, xin.grad] + [p.grad for p in leaves] + [s, sw.grad])
+    return [_rel_l2(a.detach(), b.detach()) for a, b in zip(res[1], res[0])]
+
+
+@pytest.mark.parametrize("norm_type,causal", [("gLN", False), ("cLN", True)])
+def test_skip_chain_forms_match_plain(dev, norm_type, causal):
+    """The whole-TCN fold form (KFW and K3 fold skip) and the training op
+    (K3 unfold skip forward; KB1, KW z and KF skip backward) against their
+    plain stages at the taslp widths, 8 blocks of batch 2 x 3,999 frames:
+    x and the skip sum within 2e-2; in training every output within 3e-2,
+    or within twice what the first version's kernels (the same blocks
+    without the skip path) read against their own plain stages, where bf16
+    rounding carried through 8 blocks' backward reads more (dx)."""
+    NB, X, M, K, Kp = 8, 8, 2, 3999, 4096
+    params, skip_w = _skip_params(dev, NB, 128, 512, 128)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((M, Kp, 128), generator=gen, device=dev)
+    x[:, K:] = 0
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        got = whole_tcn(x, *params, norm_type, causal, X, valid_k=K, skip_w=skip_w)
+        want = whole_tcn_reference(x, *params, norm_type, causal, X, valid_k=K, skip_w=skip_w)
+    for a, b in zip(got, want):
+        assert _rel_l2(a, b) < 2e-2
+    g = torch.randn((M, Kp, 128), generator=gen, device=dev).to(torch.bfloat16)
+    gs = torch.randn((M, Kp, 128), generator=gen, device=dev).to(torch.bfloat16)
+    tbb.reset_counts()
+    skip = _train_errors(dev, params, skip_w, x, g, gs, norm_type, causal, X, K)
+    c = tbb.counts()
+    assert c["tcn_bwd_dz_skip"] == c["tcn_wgrad_out_skip"] == NB and c["tcn_bwd_finish_skip"] >= 1
+    assert c["tcn_bwd_dz"] == c["tcn_wgrad_out"] == c["tcn_bwd_finish"] == 0
+    first = _train_errors(dev, params, None, x, g, None, norm_type, causal, X, K)
+    bound = [max(3e-2, 2 * e) for e in first] + [3e-2, 3e-2]
+    assert all(e < b for e, b in zip(skip, bound)), (skip, first)
+
+
+def test_skip_counters_leave_the_first_versions_alone(dev):
+    """A hybrid step of a skip config counts its skip launches under their
+    own names; an Sc = 0 step counts exactly the names and numbers it
+    always has, and no skip launch."""
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models.conv_tasnet import forward, init_params
+    from convtasnet_torch.ops.loss import cal_loss
+
+    skip_names = ("tcn_out_gemm_unfold_skip", "tcn_out_gemm_fold_skip", "tcn_fold_weights_skip",
+                  "tcn_bwd_dz_skip", "tcn_wgrad_out_skip", "tcn_bwd_finish_skip")
+    for Sc in (0, 128):
+        cfg = ConvTasNetConfig(N=64, L=16, B=128, H=256, P=3, X=3, R=2, C=2, Sc=Sc,
+                               use_kernels="hybrid")
+        params, _ = init_params(torch.Generator(device=dev).manual_seed(2), cfg, device=dev)
+        leaves = []
+
+        def req(t):
+            if isinstance(t, dict):
+                return {k: req(v) for k, v in t.items()}
+            leaves.append(t.requires_grad_(True))
+            return t
+        params = req(params)
+        src = torch.randn((2, 2, 4000), device=dev)
+        tcn_block.reset_counts()
+        tbb.reset_counts()
+        est, _ = forward(params, {}, cfg, src.sum(1), train=True)
+        cal_loss(src, est, torch.full((2,), 4000, device=dev))[0].backward()
+        counts = {k: v for k, v in {**tcn_block.counts(), **tbb.counts()}.items() if v}
+        NB = cfg.R * cfg.X
+        moved = {"tcn_in_gemm": 2 * NB, "tcn_dwconv_save": NB, "tcn_bwd_dwconv": NB,
+                 "tcn_bwd_dx": NB, "tcn_wgrad_in": NB}
+        if Sc:
+            moved.update(tcn_out_gemm_unfold_skip=NB, tcn_bwd_dz_skip=NB,
+                         tcn_wgrad_out_skip=NB, tcn_bwd_finish_skip=1)
+        else:
+            moved.update(tcn_out_gemm_unfold=NB, tcn_bwd_dz=NB, tcn_wgrad_out=NB,
+                         tcn_bwd_finish=1)
+        assert counts == moved, (Sc, counts)
+        assert all(t.grad is not None for t in leaves)
+        assert not Sc or not any(counts.get(k) for k in skip_names[1:3])

@@ -109,8 +109,8 @@ def test_whole_tcn_matches_jax_fold_form(norm_type, causal):
     vk = K if K != Kp else None
     want = whole_tcn_pallas(jnp.asarray(x), *[jnp.asarray(p) for p in ps], norm_type, causal,
                             X, interpret=True, valid_k=vk, fold_norm2=True)
-    got = whole_tcn(torch.from_numpy(x), *[torch.from_numpy(p) for p in ps], norm_type, causal,
-                    X, valid_k=K)
+    got, _ = whole_tcn(torch.from_numpy(x), *[torch.from_numpy(p) for p in ps], norm_type,
+                       causal, X, valid_k=K)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
     assert not got[:, K:].any()
 
@@ -209,7 +209,7 @@ def _forward_events(meta_lib, NB, dt):
             return func(*args, **(kwargs or {}))
 
     with Log():
-        out = whole_tcn(x, *params, "gLN", False, X, valid_k=K)
+        out, _ = whole_tcn(x, *params, "gLN", False, X, valid_k=K)
     drain()
     assert out.shape == x.shape and out.dtype == dt
     return events

@@ -52,8 +52,8 @@ def test_whole_tcn_reference_matches_pallas(norm_type, causal, K):
     x = (rng.normal(size=(3, K, 16)) * 0.5).astype(np.float32)
     want = whole_tcn_pallas(jnp.asarray(x), *_args(bp, jnp.asarray), norm_type,
                             causal, X, interpret=True, fold_norm2=True)
-    got = whole_tcn_reference(torch.from_numpy(x), *_args(bp, torch.as_tensor),
-                              norm_type, causal, X)
+    got, _ = whole_tcn_reference(torch.from_numpy(x), *_args(bp, torch.as_tensor),
+                                 norm_type, causal, X)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -65,8 +65,8 @@ def test_whole_block_reference_matches_pallas(norm_type, causal, K):
     d = 4
     want = whole_block_pallas(jnp.asarray(x), *_args(bp, jnp.asarray), norm_type,
                               d, causal, interpret=True)
-    got = whole_block_reference(torch.from_numpy(x), *_args(bp, torch.as_tensor),
-                                norm_type, d, causal)
+    got, _ = whole_block_reference(torch.from_numpy(x), *_args(bp, torch.as_tensor),
+                                   norm_type, d, causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -79,8 +79,8 @@ def test_prepadded_valid_k_keeps_pad_rows_zero():
     xp = torch.nn.functional.pad(x, (0, 0, 0, 28))
     before = xp.clone()
     args = _args(bp, torch.as_tensor)
-    got = whole_tcn_reference(xp, *args, "gLN", False, 2, valid_k=100)
-    want = whole_tcn_reference(x, *args, "gLN", False, 2)
+    got, _ = whole_tcn_reference(xp, *args, "gLN", False, 2, valid_k=100)
+    want, _ = whole_tcn_reference(x, *args, "gLN", False, 2)
     np.testing.assert_allclose(got[:, :100].numpy(), want.numpy(), rtol=1e-6, atol=1e-7)
     assert torch.all(got[:, 100:] == 0)
     assert torch.equal(xp, before)
@@ -94,11 +94,11 @@ def test_cpu_tensors_take_the_plain_versions():
     x = torch.from_numpy((rng.normal(size=(2, 130, 16)) * 0.5).astype(np.float32))
     args = _args(bp, torch.as_tensor)
     tcn_block.reset_counts()
-    got = whole_tcn(x, *args, "cLN", True, 2)
-    assert torch.equal(got, whole_tcn_reference(x, *args, "cLN", True, 2))
+    got, _ = whole_tcn(x, *args, "cLN", True, 2)
+    assert torch.equal(got, whole_tcn_reference(x, *args, "cLN", True, 2)[0])
     one = [a[0] for a in args]
-    got = whole_block(x, *one, "gLN", 2, False)
-    assert torch.equal(got, whole_block_reference(x, *one, "gLN", 2, False))
+    got, _ = whole_block(x, *one, "gLN", 2, False)
+    assert torch.equal(got, whole_block_reference(x, *one, "gLN", 2, False)[0])
     assert tcn_block.counts() == {k: 0 for k in tcn_block.counts()}
 
 

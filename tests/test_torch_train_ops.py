@@ -90,7 +90,7 @@ def test_whole_tcn_train_matches_jax(norm_type, causal, K):
     want, wgrads = _jax_grads(
         lambda *a: j_tcn.whole_tcn_train(*a, norm_type, causal, X, True, vk), x, ps, g)
     got, ggrads = _torch_grads(
-        lambda *a: whole_tcn_train(*a, norm_type, causal, X, valid_k=K), x, ps, g)
+        lambda *a: whole_tcn_train(*a, norm_type, causal, X, valid_k=K)[0], x, ps, g)
     np.testing.assert_allclose(got, want, **FWD)
     _check_grads(ggrads, wgrads)
 
