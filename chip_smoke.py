@@ -274,6 +274,8 @@ GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "do
 # How each kernel is built (bf16, the main path's type).
 # stencil+bulk: the staged stencil of csrc/tcn_dwconv_sm90.cuh (row boxes
 # by TMA bulk copies on mbarriers, 16-byte vectors, converted once per row).
+# stream+ring: KB2's strip, streamed through a ring of TMA stages by a
+# producer warp, each row converted once per CTA into a ring of dc.
 # grouped-stream: KF over a group of blocks' slots, a grid resident on every
 # SM looping over units, 8 loads in flight per thread. split-h+ticket: KFW
 # with H split over CTAs, the last CTA of a column tile (a device ticket)
@@ -281,7 +283,7 @@ GRAD_NAMES = ("dx", "din_w", "da1", "dg1", "db1", "dw", "da2", "dg2", "db2", "do
 STENCIL = "stencil+bulk"
 DESIGN = {"tcn_in_gemm": "wgmma+tma", "tcn_dwconv": STENCIL, "tcn_out_gemm_fold": "wgmma+tma",
           "tcn_out_gemm_unfold": "wgmma+tma", "tcn_dwconv_save": STENCIL,
-          "tcn_bwd_dz": "wgmma+tma", "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": STENCIL,
+          "tcn_bwd_dz": "wgmma+tma", "tcn_wgrad_out": "wgmma+tma", "tcn_bwd_dwconv": "stream+ring",
           "tcn_bwd_dx": "wgmma+tma", "tcn_wgrad_in": "wgmma+tma",
           "tcn_bwd_finish": "grouped-stream", "tcn_fold_weights": "split-h+ticket"}
 # The skip modes share their first-version kernel's body and design.
@@ -692,6 +694,76 @@ def fold_phase(dev):
     torch.cuda.synchronize()
     chk.done()
     return err
+
+
+def kb2_cell_phase(blocks, cfg, dev, M=8):
+    """KB2 at the train cells' shapes (batch 8 of K = 3,199 and 3,999
+    frames; H = 512, P = 3, the config's norm, not causal) at every
+    dilation of the chain, in f32 and bf16, against bwd_dwconv_plain: db
+    with NaN in y1's, c's and dz's rows >= K and its pad rows zero, the
+    channel partials (dw, dg1, db1), the norm1 sums, d_alpha2, two launches
+    equal bytes, and the launches counted under tcn_bwd_dwconv alone. The
+    strip plan depends on the batch: these are the plans the cells run."""
+    from convtasnet_torch.ops.kernels import tcn_block as tb, tcn_block_bwd as tbb
+
+    chk = Checks("KB2 train-cell phase")
+    log(f"KB2 at the train cells' shapes, batch {M} (kernel vs plain version):")
+    nb, norm = 3, cfg.norm_type
+    red = (1,) if norm == "gLN" else (2,)
+    a1, g1, b1, w, a2, g2 = (blocks[k][nb] for k in (
+        "in_prelu", "in_gamma", "in_beta", "dw_w", "dw_prelu", "dw_gamma"))
+    reset_all_counts()
+    launches = 0
+    for K in (3199, 3999):
+        Kp = -(-K // tb.ROW_ALIGN) * tb.ROW_ALIGN
+        gen = torch.Generator(device=dev).manual_seed(K)
+        x32 = torch.randn((M, Kp, cfg.B), generator=gen, device=dev)
+        x32[:, K:] = 0
+        g32 = torch.randn((M, Kp, cfg.B), generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            tol = TOL_F32 if dt == torch.float32 else TOL_BF16
+            tag = f"{'f32' if dt == torch.float32 else 'bf16'} M={M} K={K}"
+            x, g = x32.to(dt), g32.to(dt)
+            out_wt = blocks["out_w"][nb].to(dt).t().contiguous()
+            y1, s1 = tb.in_gemm_plain(x, blocks["in_w"][nb].to(dt), a1, norm)
+            for xi in range(cfg.X):
+                d = 2 ** xi
+                what = f"{tag} d={d}"
+                _, s2, c = tb.dwconv_plain(y1, s1, a1, g1, b1, w, a2, norm, d, False, K,
+                                           save=True)
+                dz, _, gs2 = tbb.bwd_dz_plain(g, out_wt, c, s2, a2, g2, norm, K)
+                bargs = (y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm, d, False, K)
+                nargs = (nan_pad(y1, K), nan_pad(c, K), nan_pad(dz, K)) + bargs[3:]
+                got = tbb.tcn_bwd_dwconv(*nargs)
+                again = tbb.tcn_bwd_dwconv(*nargs)
+                launches += 2
+                db, chp, gs1, da2 = tbb.bwd_dwconv_plain(*bargs)
+                sp = tbb._kb2_plan(cfg.P, d, cfg.H, dt, M, Kp, dev.index)
+                log(f"  KB2 plan {what}: {sp.bands} strips of {sp.strip} rows x {sp.cols} "
+                    f"channels, ring {sp.ring * sp.chunk} rows, {sp.stages} stages of "
+                    f"{sp.chunk} rows, {sp.grid} CTAs")
+                chk(f"KB2 {what} db, NaN in the rows >= K", rel_max(got[0], db), tol)
+                chk(f"KB2 {what} db pad rows zero", float(got[0][:, K:].abs().max()), 0.0)
+                chk(f"KB2 {what} dw/dg1/db1", rel_max(got[1].sum(0), chp.sum(0)), tol)
+                chk(f"KB2 {what} norm1 sums", rel_max(got[2].sum(red), gs1.sum(red)), tol)
+                chk(f"KB2 {what} d_alpha2", rel_max(got[3].sum(), da2.sum()),
+                    max(tol, TOL_ALPHA_F32))
+                chk(f"KB2 {what} repeat", float(sum(not torch.equal(u, v)
+                                                    for u, v in zip(got, again))), 0.0)
+    counted = all_counts()
+    chk(f"KB2 launches: {launches} under tcn_bwd_dwconv, none under another name",
+        float(abs(counted["tcn_bwd_dwconv"] - launches)
+              + sum(v for k, v in counted.items() if k != "tcn_bwd_dwconv")), 0.0)
+    torch.cuda.synchronize()
+    chk.done()
+
+
+def train_specs(blocks, cfg, dev, K):
+    """train_kernel_specs at batch 5, KB2's at the train cells' batch 8 (its
+    strip plan depends on the batch)."""
+    specs = train_kernel_specs(blocks, cfg, dev, M=5, K=K)
+    specs["tcn_bwd_dwconv"] = train_kernel_specs(blocks, cfg, dev, M=8, K=K)["tcn_bwd_dwconv"]
+    return specs
 
 
 def hybrid_chain_phase(stacked, cfg, dev, M=5, K=3199):
@@ -1195,9 +1267,11 @@ def train_kernel_phase(blocks, stacked, cfg, dev, M=5, K=3199):
                     dbk, chpk, gs1k, da2k = tbb.tcn_bwd_dwconv(*nargs)
                     db, chp, gs1, da2 = tbb.bwd_dwconv_plain(*bargs)
                     if dt == torch.bfloat16 and norm == "gLN" and not causal:
-                        log(f"  tiles at d={d}: K2 {tuple(tb.dw_plan(cfg.P, d, cfg.H, 2)[:3])}, "
-                            f"KB2 {tuple(tb.dw_plan(cfg.P, d, cfg.H, 2, True)[:3])} "
-                            "(rows, channels, lanes)")
+                        sp = tbb._kb2_plan(cfg.P, d, cfg.H, dt, M, Kp, dev.index)
+                        log(f"  plans at d={d}: K2 {tuple(tb.dw_plan(cfg.P, d, cfg.H, 2)[:3])} "
+                            f"(rows, channels, lanes), KB2 strips of {sp.strip} rows x "
+                            f"{sp.cols} channels, ring {sp.ring * sp.chunk} rows, {sp.stages} "
+                            f"stages of {sp.chunk} rows, {sp.grid} CTAs")
                     chk(f"KB2 {what} db, NaN in c's and dz's rows >= K", rel_max(dbk, db), tol)
                     chk(f"KB2 {what} db pad rows zero", float(dbk[:, K:].abs().max()), 0.0)
                     if ends:
@@ -2913,7 +2987,7 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
         return f(*(a or kb2_args), norm, d, cfg.causal, K)
 
     def kb2_chpart(d):
-        return rows // tb.dw_plan(P, d, H, it, backward=True).rows * (P + 2) * H * 4
+        return M * tbb._kb2_plan(P, d, H, y1.dtype, M, Kp, dev.index).bands * (P + 2) * H * 4
 
     return {
         "tcn_dwconv_save": dict(
@@ -2942,11 +3016,11 @@ def train_kernel_specs(blocks, cfg, dev, M=5, K=3199):
         "tcn_bwd_dwconv": dict(
             source=SOURCE_DW, replaces=BWD_BLOCK, call=per_dilation(kb2), args=kb2_args,
             plain=per_dilation(kb2, plain=True), library=per_dilation(conv, transpose=True),
-            per=cfg.X,
+            per=cfg.X, shape=f"M={M}, K_pad={Kp} ({rows} rows), B={B}, H={H}",
             # the bound is the work's bytes; the f32 channel partials the
             # tile writes (and block_bwd sums back) are logged beside it
             per_d=dict(kernel=kb2, library=lambda d: conv(d, transpose=True),
-                       plan=lambda d: tb.dw_plan(P, d, H, it, backward=True),
+                       plan=lambda d: tbb._kb2_plan(P, d, H, y1.dtype, M, Kp, dev.index),
                        chpart_bytes=kb2_chpart, dilations=[2 ** xi for xi in range(cfg.X)]),
             bytes=4 * rows * H * it + (s1.numel() + s2.numel() + gs2.numel()) * 4
             + (2 * P + 4) * H * 4, flops=rows * H * (4.0 * P + 30)),
@@ -3613,7 +3687,7 @@ def timing_only(cfg, blocks, dev) -> int:
     rows = {}
     fwd, _ = forward_kernel_specs(blocks, cfg, dev, M=8, K=K)
     rows.update(time_kernels(fwd, f"M=8, K_pad={Kp}, B={cfg.B}, H={cfg.H}", full=False))
-    rows.update(time_kernels(train_kernel_specs(blocks, cfg, dev, M=5, K=K),
+    rows.update(time_kernels(train_specs(blocks, cfg, dev, K),
                              f"M=5, K_pad={Kp}, B={cfg.B}, H={cfg.H}", full=False))
     kernels = [{"name": k, **v} for k, v in rows.items()]
     log(card_line())
@@ -3634,6 +3708,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", action="store_true",
                     help="only the streaming phases: the stream phase and the stream block "
                          "kernel's (no other)")
+    ap.add_argument("--kb2", action="store_true",
+                    help="only KB2 at the train cells' shapes against its plain version, and "
+                         "its warm and cold times there (no other phase)")
     ap.add_argument("--skip", action="store_true",
                     help="only the skip phase: the skip modes' kernels at the taslp widths "
                          "(no other)")
@@ -3720,6 +3797,19 @@ def main(argv=None) -> int:
     stacked = [blocks[k] for k in order]
     if args.timing:
         return timing_only(cfg, blocks, dev)
+    if args.kb2:
+        kb2_cell_phase(blocks, cfg, dev)
+        spec = {"tcn_bwd_dwconv": train_kernel_specs(blocks, cfg, dev, M=8, K=3199)[
+            "tcn_bwd_dwconv"]}
+        row = time_kernels(spec, "")["tcn_bwd_dwconv"]
+        log(card_line())
+        log(json.dumps({"kb2": row, "profiler_blind": PROFILER_BLIND}))
+        check_cold([{"name": "tcn_bwd_dwconv", **row}])
+        if PROFILER_BLIND:
+            raise AssertionError(f"torch.profiler fell short for {PROFILER_BLIND}")
+        log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0)}}))
+        return 0
 
     # ---- kernel phase -----------------------------------------------------
     M, K = 8, 3199                     # batch 8 of 4 s at 8 kHz
@@ -3804,6 +3894,7 @@ def main(argv=None) -> int:
 
     # ---- training kernel phase ---------------------------------------------
     train_errs = train_kernel_phase(blocks, stacked, cfg, dev)
+    kb2_cell_phase(blocks, cfg, dev)
     hybrid_chain = hybrid_chain_phase(stacked, cfg, dev)
     skip_res, skip_kernels = skip_phase(dev)
     torch.cuda.empty_cache()
@@ -3937,12 +4028,12 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], **row,
         })
     M5 = 5
-    train_specs = train_kernel_specs(blocks, cfg, dev, M=M5, K=K)
-    for name, row in time_kernels(train_specs, f"M={M5}, K_pad={Kp} ({M5 * Kp} rows), B={B}, "
-                                               f"H={H}").items():
+    tspecs = train_specs(blocks, cfg, dev, K)
+    for name, row in time_kernels(tspecs, f"M={M5}, K_pad={Kp} ({M5 * Kp} rows), B={B}, "
+                                          f"H={H}").items():
         kernels.append({
-            "name": name, "route": "cuda", "source": train_specs[name]["source"],
-            "design": DESIGN[name], "replaces": train_specs[name]["replaces"],
+            "name": name, "route": "cuda", "source": tspecs[name]["source"],
+            "design": DESIGN[name], "replaces": tspecs[name]["replaces"],
             "launches": train_counts[name],
             "path": "train --use_kernels hybrid --epochs 2, steps as CUDA graphs",
             "max_abs_err": train_errs[name], **row,

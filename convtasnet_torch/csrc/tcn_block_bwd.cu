@@ -16,7 +16,7 @@
 //                       c; split over ranges of rows
 //   KB2 tcn_bwd_dwconv  de = round(inv2*(dz*g2 - mean(dz*g2)
 //                       - ehat*mean(dz*g2*ehat))), dc = round(de*PReLU2'(c))
-//                       (staged once per row of the conv window), the
+//                       (converted once per row of the strip's ring), the
 //                       depthwise transpose db[j] = round(sum_p w[p]*
 //                       dc[j+left-p*d]), partials of dw[p] = sum_j b[j]*
 //                       dc[j+left-p*d] (b from the own rows of y1), dg1, db1,
@@ -59,7 +59,8 @@
 // bf16 on its own TMA + wgmma kernel (tcn_wgrad_sm90.cuh: reduction over
 // the rows, split partials summed inside a cluster). In f32, KB1, KB3 and
 // KW keep the SIMT shared-memory tiles of the forward, with no pipeline.
-// KB2, in both types, is the staged stencil of tcn_dwconv_sm90.cuh.
+// KB2, in both types, is the streaming stencil of tcn_dwconv_sm90.cuh: one
+// producer warp feeds a ring of TMA stages down a strip of rows.
 #include <cstdint>
 #include <type_traits>
 
@@ -526,8 +527,8 @@ extern "C" int tcn_wgrad_max_clusters(int device, int n_cols, int cluster) {
   return e == cudaSuccess ? n : -1;
 }
 
-// (br, lanes, staged, chunk, stages, smem): the tile plan of
-// tcn_block.dw_plan (backward form); P <= 8.
+// (chunk, stages, ring, strip, bands, smem): the strip plan of
+// tcn_block.kb2_plan; P <= 8.
 extern "C" int tcn_bwd_dwconv(int device, int dtype, const void* y1, const void* c,
                               const void* dz, const float* stats1, int n1,
                               const float* stats2, int n2, const float* gs2, int ng2,
@@ -535,20 +536,23 @@ extern "C" int tcn_bwd_dwconv(int device, int dtype, const void* y1, const void*
                               const float* w, const float* alpha2, const float* g2,
                               void* db, float* chpart, float* gs1, float* da2part, int M,
                               int kpad, int k_valid, int H, int P, int dilation, int causal,
-                              int gln, int br, int lanes, int staged, int chunk, int stages,
+                              int gln, int chunk, int stages, int ring, int strip, int bands,
                               int smem, void* stream) {
   cudaSetDevice(device);
   const int span = (P - 1) * dilation;
-  DwbArgs a{c, dz, stats1, n1, stats2, n2, gs2, ng2, alpha1, g1, b1, w, alpha2, g2,
+  const int bc = KB2_VECS * (dtype ? 8 : 4), rows = M * kpad;
+  if (P < 1 || P > 8 || stages < 2 || stages > KB2_MAX_STAGES || chunk < 1 || chunk > 256 ||
+      H % bc || kpad % chunk || strip % chunk || strip < chunk ||
+      ring < (span + chunk - 1) / chunk + 1 || bands != (kpad + strip - 1) / strip ||
+      chunk % (KB2_CONSUMERS / KB2_VECS) || smem > hop::SMEM_LIMIT)
+    return cudaErrorInvalidValue;
+  DwbArgs a{stats1, n1, stats2, n2, gs2, ng2, alpha1, g1, b1, w, alpha2, g2,
             db, chpart, gs1, da2part, M, kpad, k_valid, H, P, dilation,
-            causal ? span : span / 2, gln,
-            DwTile{br, lanes, staged, chunk, stages}};
-  if (stages < 1 || stages > DW_MAX_STAGES) return cudaErrorInvalidValue;
+            causal ? span : span / 2, gln, StripPlan{chunk, stages, ring, strip, bands}};
   DwMaps m;
-  const int bc = lanes * (dtype ? 8 : 4), rows = M * kpad;
-  if (!hop::tensor_map_rows(&m.a, c, dtype == 0, rows, H, DW_BOX, bc) ||
-      !hop::tensor_map_rows(&m.b, dz, dtype == 0, rows, H, DW_BOX, bc) ||
-      !hop::tensor_map_rows(&m.c, y1, dtype == 0, rows, H, DW_BOX, bc))
+  if (!hop::tensor_map_rows(&m.a, c, dtype == 0, rows, H, chunk, bc) ||
+      !hop::tensor_map_rows(&m.b, dz, dtype == 0, rows, H, chunk, bc) ||
+      !hop::tensor_map_rows(&m.c, y1, dtype == 0, rows, H, chunk, bc))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype ? bwd_dwconv_sm90<bf16>(m, a, smem, s) : bwd_dwconv_sm90<float>(m, a, smem, s);

@@ -1,7 +1,8 @@
 // The depthwise kernels of a temporal block on Hopper (sm_90a): K2
-// tcn_dwconv (forward, inference and save modes; tcn_block.cu) and KB2
-// tcn_bwd_dwconv (its backward; tcn_block_bwd.cu). Both are staged stencils
-// over tiles of `br` rows x `bc` channels of one batch item.
+// tcn_dwconv (forward, inference and save modes; tcn_block.cu), a staged
+// stencil over tiles of `br` rows x `bc` channels of one batch item, and KB2
+// tcn_bwd_dwconv (its backward; tcn_block_bwd.cu), a streaming stencil down
+// strips of rows (see KB2 below).
 //
 // Replaces the depthwise part of the TPU kernels
 // convtasnet_tpu/ops/pallas/whole_tcn.py (_tcn_kernel, norm1 -> dilated
@@ -15,7 +16,7 @@
 // Bound: device-memory bytes. The conv is diagonal in the channels, so there
 // is no product for tensor cores; at the paper config (H=512, bf16) K2 moves
 // y1 in and e (and c) out, KB2 c, dz and y1 in and db out, a few operations
-// per byte. What the design does about it:
+// per byte. What K2's design does about it:
 //   - every global access is a 16-byte vector: a thread owns VEC = 8 (bf16)
 //     or 4 (f32) consecutive channels, `lanes` threads a row's bc channels;
 //   - the rows a tile's taps reach arrive as TMA boxes of DW_BOX rows x bc
@@ -35,17 +36,17 @@
 //     SM. (A second buffer, to prefetch the next tile inside the CTA,
 //     measured slower on the H100: it halves the CTAs per SM.);
 //   - each staged row is converted once, in place and in the working type,
-//     which is exactly where the reference rounds: K2 b = round(g1 *
-//     norm1(PReLU1(y1)) + b1), KB2 dc = round(round(de) * PReLU2'(c)). The P
-//     taps of an output row then read the staged row P times from shared
-//     memory, not device memory;
+//     which is exactly where the reference rounds: b = round(g1 *
+//     norm1(PReLU1(y1)) + b1). The P taps of an output row then read the
+//     staged row P times from shared memory, not device memory;
 //   - per-channel parameters live in registers or come through L1;
 //     statistics fold per thread, then in a fixed order (lanes by
 //     xor-shuffle, then warps or row groups in index order), one partial per
 //     tile, and no float atomic is used: two runs give the same bytes,
 //     whatever the grid.
-// The tile plan (br, lanes, staged rows, chunk, stages, shared memory) comes
-// from tcn_block.dw_plan on the host.
+// K2's tile plan (br, lanes, staged rows, chunk, stages, shared memory)
+// comes from tcn_block.dw_plan on the host, KB2's strip plan from
+// tcn_block.kb2_plan.
 #pragma once
 
 #include <cstdint>
@@ -57,7 +58,7 @@
 namespace tcn {
 
 constexpr int DW_HEAD = 128;       // bytes of mbarriers ahead of the window buffer
-constexpr int DW_MAX_STAGES = 8;   // KB2 has one more barrier, for its own y1 rows
+constexpr int DW_MAX_STAGES = 8;   // K2's barriers
 constexpr int DW_BOX = 16;         // rows per TMA box (divides every br)
 
 // Tile plan, from tcn_block.dw_plan.
@@ -79,29 +80,8 @@ struct TileRange {
   }
 };
 
-// Sums of (a, b, c) over the CTA in a fixed order, as block_sum2.
-__device__ __forceinline__ float3 block_sum3(float a, float b, float c, float4* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-    c += __shfl_xor_sync(0xffffffffu, c, off);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = make_float4(a, b, c, 0.f);
-  __syncthreads();
-  float3 t = make_float3(0.f, 0.f, 0.f);
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
-    t.x += red[i].x;
-    t.y += red[i].y;
-    t.z += red[i].z;
-  }
-  __syncthreads();
-  return t;
-}
-
-// Tensor maps over [M * kpad, H] with a box of DW_BOX rows x bc channels: K2
-// y1 (a); KB2 c (a), dz (b) and y1 (c).
+// Tensor maps over [M * kpad, H] with a box of DW_BOX rows x bc channels (K2:
+// y1, a) or of chunk rows x bc channels (KB2: c, a; dz, b; y1, c).
 struct DwMaps {
   CUtensorMap a, b, c;
 };
@@ -148,21 +128,33 @@ template <int N> __device__ __forceinline__ void load_f(const float* p, float* f
   }
 }
 
-// Slot <-> row arithmetic of a staged window (mirrored in Python by
-// tcn_block.dw_window, dw_stride and dw_slot_of, which the CPU tests hold
-// against the plain versions).
+// n consecutive floats from shared memory (n a multiple of 4, 16-byte aligned).
+template <int N> __device__ __forceinline__ void load_fs(const float* p, float* f) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + j);
+    f[j] = v.x;
+    f[j + 1] = v.y;
+    f[j + 2] = v.z;
+    f[j + 3] = v.w;
+  }
+}
+
+// n consecutive floats stored (n a multiple of 4, 16-byte aligned).
+template <int N> __device__ __forceinline__ void store_f(float* p, const float* f) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4)
+    *reinterpret_cast<float4*>(p + j) = make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
+}
+
+// Slot <-> row arithmetic of K2's staged window (mirrored in Python by
+// tcn_block.dw_window and dw_stride, which the CPU tests hold against the
+// plain version).
 struct Window {
   int base, br, d;
   bool contig;
   __device__ __forceinline__ int row(int s) const {
     return contig ? base + s : base + (s / br) * d + s % br;
-  }
-  // The slot holding row j (j >= base), or -1 when no window holds it.
-  __device__ __forceinline__ int slot_of(int j, int P) const {
-    const int off = j - base;
-    if (contig) return off;
-    const int q = off / d, rem = off - q * d;
-    return (q < P && rem < br) ? q * br + rem : -1;
   }
 };
 
@@ -194,7 +186,7 @@ __device__ __forceinline__ float2 row_sum2(float a, float b, int lanes) {
 }
 
 // Thread 0: every box of the window, stage by stage, from `map` (and from
-// `map2` into `dst2` on the same barriers, KB2's dz beside c).
+// `map2` into `dst2` on the same barriers where one is given; K2 gives none).
 __device__ __forceinline__ void load_window(uint64_t* bars, const DwTile& t, const Window& w,
                                             const CUtensorMap* map, uint4* dst,
                                             const CUtensorMap* map2, uint4* dst2, int col,
@@ -420,24 +412,61 @@ static cudaError_t dwconv_sm90(const DwMaps& m, const DwArgs& g, int smem, cudaS
 
 // ---------------------------------------------------------------------------
 // KB2: de = round(inv2 * (dz*g2 - mean(dz*g2) - ehat*mean(dz*g2*ehat))),
-// dc = round(de * PReLU2'(c)) (rows outside [0, K) zero) staged once per row
-// of the window k + left - p*d; then for each own row k < K:
+// dc = round(de * PReLU2'(c)) (rows outside [0, K) zero); then for each own
+// row k:
 //   db[k]  = round(sum_p w[p] * dc[k + left - p*d])   (rows >= K: 0)
-//   b[k]   = round(g1 * ahat[k] + b1), ahat from y1[k] (own rows, staged)
+//   b[k]   = round(g1 * ahat[k] + b1), ahat from y1[k]
 //   dw[p] += b[k] * dc[k + left - p*d]
 // which is dw[p] = sum_k dc[k] * b[k - left + p*d] summed over the b index:
-// the same taps feed db and dw, so no b window is needed. dg1, db1 and dw
-// stay in registers across the tile's rows and are summed over the row
-// groups in a fixed order into chpart [M*kpad/br, P+2, H]; d_alpha2 =
-// sum de * min(c, 0) over the own rows (from the window, or from one more
-// load of c and dz where no window holds the row: P even, non-causal,
-// dilation > br); the norm1 backward sums of db*g1 and db*g1*ahat per row
-// and channel tile (cLN) or per tile (gLN).
-// Persistent grid (dw_launch), DW_THREADS threads; NP = P taps.
+// the same taps feed db and dw, so no b window is needed.
+//
+// A streaming stencil. A CTA owns one item x bc = KB2_VECS * VEC channels
+// (rows of 128 bytes) x one strip of `strip` rows [k_begin, k_end) (StripPlan, from
+// tcn_block.kb2_plan) and walks it in increasing k, `chunk` rows at a time.
+// Its load stream is the rows j0 = k_begin + left - span onwards: `pre` =
+// ceil(span / chunk) chunks ahead of the first own chunk, then one chunk of
+// c and dz per own chunk. One producer warp keeps the loads in flight
+// through a ring of `stages` stages, each one TMA box per stream (c, dz and
+// the own chunk's y1), on full / empty mbarriers. Each of the four consumer
+// warps owns a quarter of the channels of every row: it converts its part
+// of each chunk of c and dz once into dc, in the working type, in a ring of
+// `ring` = pre + 1 chunks (the span behind the own chunk and the own
+// chunk), and reads the P taps of its own rows from it. A warp reads only
+// what it wrote, so the ring needs no barrier across warps (__syncwarp
+// orders it), and the warps drift apart as far as the stages allow. Only
+// the pre chunks at a strip's start are loaded by two CTAs.
+//
+// dw, dg1, db1 stay in registers over the strip and are summed over a
+// warp's row groups by xor-shuffles in a fixed order into chpart [M *
+// bands, P + 2, H]; d_alpha2 = sum de * min(c, 0) over the own rows (taken
+// where they are converted); the norm1 backward sums of db*g1 and
+// db*g1*ahat per row and warp's share of a channel tile (cLN) or per strip
+// (gLN). One partial per strip, no float atomic.
+// Grid: M * bands * H / bc CTAs of KB2_THREADS threads, three resident per
+// SM up to four taps (two above), so that each thread keeps 128 registers
+// (168): nine warps a CTA at two CTAs an SM would leave 96 and spill.
+// NP = P taps.
 // ---------------------------------------------------------------------------
+constexpr int KB2_CONSUMERS = 128;                  // four warps convert and compute,
+constexpr int KB2_THREADS = KB2_CONSUMERS + 32;     // one producer warp issues the loads
+constexpr int KB2_WARPS = KB2_CONSUMERS / 32;
+// 16-byte vectors a row: rows of 128 bytes, two vectors a row for each
+// consumer warp. Wider rows halve the CTAs, narrower ones meet bank
+// conflicts (both measured slower on the H100).
+constexpr int KB2_VECS = 8;
+constexpr int KB2_MAX_STAGES = 8;                   // full and empty barriers fit DW_HEAD
+constexpr int KB2_SYNC = 1;                         // the consumers' named barrier
+
+// Strip plan, from tcn_block.kb2_plan.
+struct StripPlan {
+  int chunk;    // rows per stage and per TMA box
+  int stages;   // stages of the load ring, <= KB2_MAX_STAGES
+  int ring;     // chunks of the dc ring: ceil(span / chunk) + 1
+  int strip;    // own rows per CTA, a multiple of chunk
+  int bands;    // strips per item: ceil(kpad / strip)
+};
+
 struct DwbArgs {
-  const void* c;         // [rows, H]
-  const void* dz;        // [rows, H]
   const float* stats1;   // K1 partials of a: n1 pairs per item / row
   int n1;
   const float* stats2;   // K2 partials of e
@@ -451,264 +480,350 @@ struct DwbArgs {
   const float* alpha2;
   const float* g2;
   void* db;              // [rows, H]
-  float* chpart;         // [rows / br, P + 2, H]: dw[0..P), dg1, db1
-  float* gs1;            // gLN [M, kpad / br * H / bc] pairs; cLN [rows, H / bc] pairs
-  float* da2part;        // [tiles]
+  float* chpart;         // [M * bands, P + 2, H]: dw[0..P), dg1, db1
+  float* gs1;            // gLN [M, bands * H / bc] pairs; cLN [rows, H / bc] pairs
+  float* da2part;        // [M * bands * H / bc]
   int M, kpad, k_valid, H, P, dilation, left, gln;
-  DwTile t;
+  StripPlan t;
 };
 
+// Sums of (a, b, c) over the consumer threads in a fixed order (xor-shuffle
+// tree inside each warp, then warps in index order) on the consumers' named
+// barrier; every consumer gets the totals.
+__device__ __forceinline__ float3 consumer_sum3(float a, float b, float c, float4* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+    c += __shfl_xor_sync(0xffffffffu, c, off);
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = make_float4(a, b, c, 0.f);
+  hop::named_sync(KB2_SYNC, KB2_CONSUMERS);
+  float3 t = make_float3(0.f, 0.f, 0.f);
+  for (int i = 0; i < KB2_WARPS; ++i) {
+    t.x += red[i].x;
+    t.y += red[i].y;
+    t.z += red[i].z;
+  }
+  hop::named_sync(KB2_SYNC, KB2_CONSUMERS);
+  return t;
+}
+
 template <typename T, int NP>
-__global__ void __launch_bounds__(DW_THREADS, NP <= 4 ? 2 : 1)
+__global__ void __launch_bounds__(KB2_THREADS, NP <= 4 ? 3 : 2)
     bwd_dwconv_sm90_kernel(const __grid_constant__ DwMaps maps, const DwbArgs g) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int NB = DW_MAX_STAGES + 1;  // barriers: stages, own y1 rows
   extern __shared__ __align__(128) unsigned char dsm[];
-  __shared__ float2 red[DW_THREADS / 32];
-  __shared__ float4 red4[DW_THREADS / 32];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(dsm);  // [NB]
-  const DwTile& t = g.t;
-  const int nct = g.H / (t.lanes * VEC);
-  const int ntiles = g.M * (g.kpad / t.br) * nct;
+  __shared__ float4 red[KB2_WARPS];
+  const StripPlan& t = g.t;
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsm);  // [stages]
+  uint64_t* empty = full + KB2_MAX_STAGES;            // [stages]
+  constexpr int lanes = KB2_VECS, bc = lanes * VEC;
+  const int ch = t.chunk;
+  const int nct = g.H / bc;
+  const int ct = blockIdx.x % nct;
+  const int band = blockIdx.x / nct % t.bands;
+  const int item = blockIdx.x / (nct * t.bands);
+  const int k_begin = band * t.strip, k_end = min(g.kpad, k_begin + t.strip);
   const int span = (NP - 1) * g.dilation;
-  const int stride = g.dilation <= t.br ? g.dilation : t.br;
-  const int nslot = (t.staged + DW_BOX - 1) / DW_BOX * DW_BOX;  // whole boxes
-  const float n_g = (float)g.k_valid * (float)g.H;
-  const float a1 = *g.alpha1, a2 = *g.alpha2;
-  const T* cin = static_cast<const T*>(g.c);
-  const T* dzin = static_cast<const T*>(g.dz);
-  T* dbout = static_cast<T*>(g.db);
-  // window buffer: [nslot][lanes] c then dc, [nslot][lanes] dz, [br][lanes]
-  // own rows of y1
-  uint4* cw = reinterpret_cast<uint4*>(dsm + DW_HEAD);
-  uint4* zw = cw + (size_t)nslot * t.lanes;
-  uint4* yw = zw + (size_t)nslot * t.lanes;
-  const TileRange tr(ntiles);
-  auto issue = [&](int i) {
-    const int tile = tr.first + i;
-    if (tile >= tr.last) return;
-    const TilePos tp(t, g.kpad, nct, VEC, tile);
-    const Window wd{tp.k0 + g.left - span, t.br, g.dilation, g.dilation <= t.br};
-    const int col = tp.ct * t.lanes * VEC, row0 = tp.item * g.kpad;
-    const uint32_t bar = hop::smem_u32(&bars[DW_MAX_STAGES]);
-    hop::mbar_expect_tx(bar, t.br * t.lanes * 16);
-    for (int r = 0; r < t.br; r += DW_BOX)
-      hop::tma_load(hop::smem_u32(yw + (size_t)r * t.lanes), &maps.c, bar, col, row0 + tp.k0 + r);
-    load_window(bars, t, wd, &maps.a, cw, &maps.b, zw, col, row0);
-  };
+  const int pre = t.ring - 1;                 // load chunks ahead of the first own chunk
+  const int nq = (k_end - k_begin) / ch + pre;  // load chunks of the strip
+  const int j0 = k_begin + g.left - span;     // the load stream's first row
+  const int R = t.ring * ch;                  // rows of the dc ring
+  const int col = ct * bc;
+  const int box = ch * lanes;                 // 16-byte vectors of one box
+  // [stages][c, dz, y1][chunk][lanes], the dc ring [R][lanes], the taps
+  uint4* stage0 = reinterpret_cast<uint4*>(dsm + DW_HEAD);
+  uint4* ring = stage0 + t.stages * 3 * box;
+  float* wsm = reinterpret_cast<float*>(ring + t.ring * ch * lanes);  // [NP][bc] taps
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < NB; ++i) hop::mbar_init(hop::smem_u32(&bars[i]), 1);
+    for (int s = 0; s < t.stages; ++s) {
+      hop::mbar_init(hop::smem_u32(&full[s]), 1);
+      hop::mbar_init(hop::smem_u32(&empty[s]), KB2_WARPS);
+    }
     hop::fence_barrier_init();
-    issue(0);
   }
   __syncthreads();
-  int item_m = -1;  // the item whose gLN moments m1g, m2g hold
-  float4 m2g = make_float4(0.f, 0.f, 0.f, 0.f);  // (mean2, inv2, mean(dz*g2), mean(dz*g2*ehat))
-  float2 m1g = make_float2(0.f, 0.f);
-  for (int i = 0; tr.first + i < tr.last; ++i) {
-    const int tile = tr.first + i;
-    const TilePos tp(t, g.kpad, nct, VEC, tile);
-    const size_t ibase = (size_t)tp.item * g.kpad;
-    const Window wd{tp.k0 + g.left - span, t.br, g.dilation, g.dilation <= t.br};
-    const uint32_t parity = i & 1;
 
-    if (g.gln && tp.item != item_m) {  // uniform across the CTA
-      item_m = tp.item;
-      const float2 s1 = reduce_partials(g.stats1 + 2 * (size_t)tp.item * g.n1, g.n1, red);
-      const float2 s2 = reduce_partials(g.stats2 + 2 * (size_t)tp.item * g.n2, g.n2, red);
-      const float2 sg = reduce_partials(g.gs2 + 2 * (size_t)tp.item * g.ng2, g.ng2, red);
-      m1g = moments(s1.x, s1.y, n_g);
-      const float2 m2 = moments(s2.x, s2.y, n_g);
-      m2g = make_float4(m2.x, m2.y, sg.x / n_g, sg.y / n_g);
+  if (threadIdx.x >= KB2_CONSUMERS) {  // the producer warp: one thread issues
+    if (threadIdx.x == KB2_CONSUMERS) {
+      const int row0 = item * g.kpad;
+      const uint32_t box_bytes = (uint32_t)box * 16;
+      for (int q = 0; q < nq; ++q) {
+        const int s = q % t.stages, use = q / t.stages;
+        if (use > 0) hop::mbar_wait(hop::smem_u32(&empty[s]), (use - 1) & 1);
+        const bool own = q >= pre;
+        const uint32_t bar = hop::smem_u32(&full[s]);
+        uint4* dst = stage0 + s * 3 * box;
+        hop::mbar_expect_tx(bar, box_bytes * (own ? 3 : 2));
+        hop::tma_load(hop::smem_u32(dst), &maps.a, bar, col, row0 + j0 + q * ch);
+        hop::tma_load(hop::smem_u32(dst + box), &maps.b, bar, col, row0 + j0 + q * ch);
+        if (own)
+          hop::tma_load(hop::smem_u32(dst + 2 * box), &maps.c, bar, col,
+                        row0 + k_begin + (q - pre) * ch);
+      }
     }
-    // dc of row src (in [0, K)) from its c and dz vectors; d_alpha2 terms of
-    // an own row added to da2.
-    auto dc_row = [&](int src, uint4 cu, uint4 zu, const float* g2v, float* dcv, float& da2,
-                      bool own) {
-      float4 m = m2g;
-      if (!g.gln) {
-        const float2 s2 = sum_pairs(g.stats2 + 2 * (ibase + src) * g.n2, g.n2);
-        const float2 sg = sum_pairs(g.gs2 + 2 * (ibase + src) * g.ng2, g.ng2);
-        const float2 m2 = moments(s2.x, s2.y, (float)g.H);
-        m = make_float4(m2.x, m2.y, sg.x / (float)g.H, sg.y / (float)g.H);
-      }
-      float cf[VEC], dzf[VEC];
-      unpack<T>(cu, cf);
-      unpack<T>(zu, dzf);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float ehat = (prelu(cf[j], a2) - m.x) * m.y;
-        const float de = round_dt<T>(m.y * (dzf[j] * g2v[j] - m.z - ehat * m.w));
-        dcv[j] = de * dprelu(cf[j], a2);
-        if (own) da2 += de * fminf(cf[j], 0.f);
-      }
-    };
+    return;
+  }
 
-    float da2 = 0.f;
+  // Each warp owns the vectors [warp * L, warp * L + L) of every row: lane
+  // `sub` of a row group `rg`; a chunk's rows rg, rg + RG, ...
+  constexpr int L = lanes / KB2_WARPS, RG = 32 / L;
+  const int warp = threadIdx.x >> 5;
+  const int sub = (threadIdx.x & 31) % L, rg = (threadIdx.x & 31) / L;
+  const int v = warp * L + sub;                // this thread's vector of a row
+  const int c0 = col + v * VEC;
+  // The ring's rows are swizzled: vector v of ring row r lies at v ^ ((r &
+  // 3) * L), so that the 4 consecutive rows of a quarter-warp's access fall
+  // on distinct banks (5 % faster than plain rows on the H100).
+  auto ring_at = [&](int r) { return r * lanes + (v ^ ((r & 3) * L)); };
+  const size_t ibase = (size_t)item * g.kpad;
+  const float a1 = *g.alpha1, a2 = *g.alpha2;
+  // The tile's taps into shared memory once: read there with 32-bit
+  // addresses, P times a row, they cost fewer instructions than from L1.
+  for (int i = threadIdx.x; i < NP * bc; i += KB2_CONSUMERS)
+    wsm[i] = g.w[(size_t)(i / bc) * g.H + col + i % bc];
+  hop::named_sync(KB2_SYNC, KB2_CONSUMERS);
+  // gLN moments of the item (the first loads land meanwhile)
+  float2 m1g = make_float2(0.f, 0.f);
+  float4 m2g = make_float4(0.f, 0.f, 0.f, 0.f);  // (mean2, inv2, mean(dz*g2), mean(dz*g2*ehat))
+  if (g.gln) {
+    const float* p1 = g.stats1 + 2 * (size_t)item * g.n1;
+    const float* p2 = g.stats2 + 2 * (size_t)item * g.n2;
+    const float* pg = g.gs2 + 2 * (size_t)item * g.ng2;
+    float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int i = threadIdx.x; i < g.n1; i += KB2_CONSUMERS) {
+      s[0] += p1[2 * i];
+      s[1] += p1[2 * i + 1];
+    }
+    for (int i = threadIdx.x; i < g.n2; i += KB2_CONSUMERS) {
+      s[2] += p2[2 * i];
+      s[3] += p2[2 * i + 1];
+    }
+    for (int i = threadIdx.x; i < g.ng2; i += KB2_CONSUMERS) {
+      s[4] += pg[2 * i];
+      s[5] += pg[2 * i + 1];
+    }
+    const float3 u = consumer_sum3(s[0], s[1], s[2], red);
+    const float3 u2 = consumer_sum3(s[3], s[4], s[5], red);
+    const float n_g = (float)g.k_valid * (float)g.H;
+    m1g = moments(u.x, u.y, n_g);
+    const float2 m2 = moments(u.z, u2.x, n_g);
+    m2g = make_float4(m2.x, m2.y, u2.y / n_g, u2.z / n_g);
+  }
+
+  float dw[NP][VEC], dg1[VEC], db1[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    dg1[e] = db1[e] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) dw[p][e] = 0.f;
+  }
+  float da2 = 0.f, ts = 0.f, tss = 0.f;
+  T* dbout = static_cast<T*>(g.db);
+  int conv_slot = 0;    // ring row of load chunk q's first row
+  int own_slot = span;  // ring row of tap 0 of own chunk i's first row
+  for (int q = 0; q < nq; ++q) {
+    const int s = q % t.stages;
+    hop::mbar_wait(hop::smem_u32(&full[s]), (q / t.stages) & 1);
+    const uint4* cs = stage0 + s * 3 * box;
+
+    // this warp's part of the dc of load chunk q into the ring; d_alpha2 of
+    // the own rows < K
     {
       float g2v[VEC];
-      load_f<VEC>(g.g2 + tp.c0, g2v);
-      for (int st = 0; st < t.stages; ++st) {
-        hop::mbar_wait(hop::smem_u32(&bars[st]), parity);
-        const int s_end = min(t.staged, (st + 1) * t.chunk * DW_BOX);
-        for (int s = st * t.chunk * DW_BOX + tp.rg; s < s_end; s += tp.RG) {
-          const int src = wd.row(s);
-          uint4* p = cw + (size_t)s * t.lanes + tp.lane;
-          float f[VEC];
-          if (src >= 0 && src < g.k_valid) {
-            const bool own = src >= tp.k0 && src < tp.k0 + t.br;
-            dc_row(src, *p, zw[(size_t)s * t.lanes + tp.lane], g2v, f, da2, own);
-          } else {
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) f[j] = 0.f;
+      load_f<VEC>(g.g2 + c0, g2v);
+      for (int x = rg; x < ch; x += RG) {
+        const int j = j0 + q * ch + x;
+        float f[VEC];
+        if (j >= 0 && j < g.k_valid) {
+          float4 m = m2g;
+          if (!g.gln) {
+            const float2 s2 = sum_pairs(g.stats2 + 2 * (ibase + j) * g.n2, g.n2);
+            const float2 sg = sum_pairs(g.gs2 + 2 * (ibase + j) * g.ng2, g.ng2);
+            const float2 m2 = moments(s2.x, s2.y, (float)g.H);
+            m = make_float4(m2.x, m2.y, sg.x / (float)g.H, sg.y / (float)g.H);
           }
-          *p = pack<T>(f);
+          float cf[VEC], dzf[VEC];
+          unpack<T>(cs[x * lanes + v], cf);
+          unpack<T>(cs[box + x * lanes + v], dzf);
+          const bool own = j >= k_begin && j < k_end;
+          // de = inv2 * (dz*g2 - mean(dz*g2) - ehat * mean(dz*g2*ehat)), ehat =
+          // (PReLU2(c) - mean2) * inv2, in the plain version's order and
+          // roundings (no fused multiply-add): de is rounded to the working
+          // type next, and d_alpha2 sums it against min(c, 0) with much
+          // cancellation, so a different f32 order flips more of its ulps.
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float ehat = __fmul_rn(__fsub_rn(prelu(cf[e], a2), m.x), m.y);
+            f[e] = __fmul_rn(m.y, __fsub_rn(__fsub_rn(__fmul_rn(dzf[e], g2v[e]), m.z),
+                                            __fmul_rn(ehat, m.w)));
+          }
+          unpack<T>(pack<T>(f), f);  // de = round(...)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            if (own) da2 += f[e] * fminf(cf[e], 0.f);
+            f[e] *= dprelu(cf[e], a2);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) f[e] = 0.f;
         }
+        const int r = conv_slot + x;
+        ring[ring_at(r)] = pack<T>(f);
       }
-      // Own rows < K that no window holds: d_alpha2 from their c and dz.
-      if (!wd.contig) {
-        for (int r = tp.rg; r < t.br && tp.k0 + r < g.k_valid; r += tp.RG) {
-          const int k = tp.k0 + r;
-          if (wd.slot_of(k, NP) >= 0) continue;
-          const size_t idx = (ibase + k) * g.H + tp.c0;
-          float f[VEC];
-          dc_row(k, *reinterpret_cast<const uint4*>(cin + idx),
-                 *reinterpret_cast<const uint4*>(dzin + idx), g2v, f, da2, true);
-        }
-      }
+      conv_slot += ch;
+      if (conv_slot == R) conv_slot = 0;
     }
-    hop::mbar_wait(hop::smem_u32(&bars[DW_MAX_STAGES]), parity);
-    __syncthreads();
+    __syncwarp();  // this warp's ring rows through chunk q are written
 
-    float gv[VEC], bv[VEC];
-    load_f<VEC>(g.g1 + tp.c0, gv);
-    load_f<VEC>(g.b1 + tp.c0, bv);
-    float dw[NP][VEC], dg1[VEC], db1[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      dg1[j] = db1[j] = 0.f;
-#pragma unroll
-      for (int p = 0; p < NP; ++p) dw[p][j] = 0.f;
-    }
-    float ts = 0.f, tss = 0.f;
-    for (int r = tp.rg; r < t.br; r += tp.RG) {
-      const int k = tp.k0 + r;
-      const bool valid = k < g.k_valid;
-      float ahat[VEC], bb[VEC], acc[VEC];
-      if (valid) {
-        float2 m1 = m1g;
-        if (!g.gln) {
-          const float2 q = sum_pairs(g.stats1 + 2 * (ibase + k) * g.n1, g.n1);
-          m1 = moments(q.x, q.y, (float)g.H);
-        }
-        unpack<T>(yw[(size_t)r * t.lanes + tp.lane], ahat);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          ahat[j] = (prelu(ahat[j], a1) - m1.x) * m1.y;
-          bb[j] = round_dt<T>(gv[j] * ahat[j] + bv[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        float wv[VEC], dcv[VEC];
-        load_f<VEC>(g.w + (size_t)p * g.H + tp.c0, wv);
-        unpack<T>(cw[(size_t)(r + (NP - 1 - p) * stride) * t.lanes + tp.lane], dcv);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          acc[j] = fmaf(wv[j], dcv[j], acc[j]);
-          if (valid) dw[p][j] = fmaf(bb[j], dcv[j], dw[p][j]);
-        }
-      }
-      float dbv[VEC];
-      float rs = 0.f, rss = 0.f;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        dbv[j] = valid ? round_dt<T>(acc[j]) : 0.f;
+    if (q >= pre) {  // own chunk q - pre: its taps reach load chunks q - pre .. q
+      const int k0 = k_begin + (q - pre) * ch;
+      const uint4* ys = cs + 2 * box;
+      float gv[VEC], bv[VEC];
+      load_f<VEC>(g.g1 + c0, gv);
+      load_f<VEC>(g.b1 + c0, bv);
+      for (int r = rg; r < ch; r += RG) {
+        const int k = k0 + r;
+        const bool valid = k < g.k_valid;
+        float ahat[VEC], bb[VEC], acc[VEC];
         if (valid) {
-          dg1[j] += dbv[j] * ahat[j];
-          db1[j] += dbv[j];
-          const float dbg = dbv[j] * gv[j];
-          rs += dbg;
-          rss += dbg * ahat[j];
+          float2 m1 = m1g;
+          if (!g.gln) {
+            const float2 q1 = sum_pairs(g.stats1 + 2 * (ibase + k) * g.n1, g.n1);
+            m1 = moments(q1.x, q1.y, (float)g.H);
+          }
+          unpack<T>(ys[r * lanes + v], ahat);
+          const float nb = -m1.x * m1.y;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            ahat[e] = fmaf(prelu(ahat[e], a1), m1.y, nb);
+            bb[e] = gv[e] * ahat[e] + bv[e];
+          }
+          unpack<T>(pack<T>(bb), bb);  // b = round(g1 * ahat + b1)
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+        int slot = own_slot + r;  // tap 0: row k + left
+        if (slot >= R) slot -= R;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          int sp = slot - p * g.dilation;  // row k + left - p*d
+          if (sp < 0) sp += R;
+          float wv[VEC], dcv[VEC];
+          load_fs<VEC>(wsm + p * bc + v * VEC, wv);
+          unpack<T>(ring[ring_at(sp)], dcv);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            acc[e] = fmaf(wv[e], dcv[e], acc[e]);
+            if (valid) dw[p][e] = fmaf(bb[e], dcv[e], dw[p][e]);
+          }
+        }
+        uint4 dbu = make_uint4(0u, 0u, 0u, 0u);  // rows >= K: zero
+        float rs = 0.f, rss = 0.f;
+        if (valid) {
+          dbu = pack<T>(acc);  // db = round(acc), two at a time in bf16
+          float dbv[VEC];
+          unpack<T>(dbu, dbv);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            dg1[e] += dbv[e] * ahat[e];
+            db1[e] += dbv[e];
+          }
+          if (!g.gln) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              const float dbg = dbv[e] * gv[e];
+              rs += dbg;
+              rss += dbg * ahat[e];
+            }
+          }
+        }
+        *reinterpret_cast<uint4*>(dbout + (ibase + k) * g.H + c0) = dbu;
+        if (!g.gln) {
+          const float2 sm = row_sum2(rs, rss, L);
+          if (sub == 0) {
+            float* o = g.gs1 + 2 * (((ibase + k) * nct + ct) * KB2_WARPS + warp);
+            o[0] = sm.x;
+            o[1] = sm.y;
+          }
         }
       }
-      *reinterpret_cast<uint4*>(dbout + (ibase + k) * g.H + tp.c0) = pack<T>(dbv);
-      if (g.gln) {
-        ts += rs;
-        tss += rss;
-      } else {
-        const float2 s = row_sum2(rs, rss, t.lanes);
-        if (tp.lane == 0) {
-          float* o = g.gs1 + 2 * ((ibase + k) * nct + tp.ct);
-          o[0] = s.x;
-          o[1] = s.y;
-        }
-      }
+      own_slot += ch;
+      if (own_slot >= R) own_slot -= R;
     }
+    // this warp is done with stage s: the producer may refill it
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) hop::mbar_arrive(hop::smem_u32(&empty[s]));
+  }
 
-    // Tile partials: d_alpha2 and the gLN sums over the CTA; the channel
-    // partials over the row groups in index order, through this buffer
-    // (block_sum3 syncs first: every read of the window is done).
-    const float3 q = block_sum3(da2, ts, tss, red4);
-    if (threadIdx.x == 0) {
-      g.da2part[tile] = q.x;
-      if (g.gln) {
-        g.gs1[2 * (size_t)tile] = q.y;
-        g.gs1[2 * (size_t)tile + 1] = q.z;
-      }
-    }
-    const int bc = t.lanes * VEC;
-    float* rbuf = reinterpret_cast<float*>(cw);  // [groups][NP + 2][bc]
-    if (tp.rg < t.br) {
-      float* o = rbuf + (size_t)tp.rg * (NP + 2) * bc + tp.lane * VEC;
+  // Strip partials. Each warp's channel sums over its row groups by
+  // xor-shuffles (the lanes of one vector differ in the bits above
+  // log2(L)), in a fixed order; gLN's norm1 backward sums of the strip,
+  // sum db*g1 = sum_c g1[c] * db1[c] and sum db*g1*ahat = sum_c g1[c] *
+  // dg1[c], and d_alpha2 over the consumers.
+  for (int off = L; off < 32; off <<= 1) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
+    for (int e = 0; e < VEC; ++e) {
 #pragma unroll
-        for (int p = 0; p < NP; ++p) o[p * bc + j] = dw[p][j];
-        o[NP * bc + j] = dg1[j];
-        o[(NP + 1) * bc + j] = db1[j];
-      }
+      for (int p = 0; p < NP; ++p) dw[p][e] += __shfl_xor_sync(0xffffffffu, dw[p][e], off);
+      dg1[e] += __shfl_xor_sync(0xffffffffu, dg1[e], off);
+      db1[e] += __shfl_xor_sync(0xffffffffu, db1[e], off);
     }
-    __syncthreads();
-    const int groups = min(tp.RG, t.br);
-    for (int x = threadIdx.x; x < (NP + 2) * bc; x += blockDim.x) {
-      float s = 0.f;
-      for (int r = 0; r < groups; ++r) s += rbuf[(size_t)r * (NP + 2) * bc + x];
-      const int qd = x / bc, ch = x % bc;
-      g.chpart[((size_t)tp.rt * (NP + 2) + qd) * g.H + tp.ct * bc + ch] = s;
+  }
+  if (g.gln && rg == 0) {
+    float gv[VEC];
+    load_f<VEC>(g.g1 + c0, gv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      ts = fmaf(gv[e], db1[e], ts);
+      tss = fmaf(gv[e], dg1[e], tss);
     }
-    // The buffer is free: the next window (TMA, the async proxy) may land.
-    hop::fence_proxy_async();
-    __syncthreads();
-    if (threadIdx.x == 0) issue(i + 1);
+  }
+  const float3 tot = consumer_sum3(da2, ts, tss, red);
+  if (threadIdx.x == 0) {
+    g.da2part[blockIdx.x] = tot.x;
+    if (g.gln) {
+      g.gs1[2 * (size_t)blockIdx.x] = tot.y;
+      g.gs1[2 * (size_t)blockIdx.x + 1] = tot.z;
+    }
+  }
+  if (rg == 0) {
+    float* out = g.chpart + (size_t)(item * t.bands + band) * (NP + 2) * g.H + c0;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) store_f<VEC>(out + (size_t)p * g.H, dw[p]);
+    store_f<VEC>(out + (size_t)NP * g.H, dg1);
+    store_f<VEC>(out + (size_t)(NP + 1) * g.H, db1);
   }
 }
 
 template <typename T, int NP>
-static cudaError_t bwd_dwconv_sm90_np(const DwMaps& m, const DwbArgs& g, int tiles, int smem,
+static cudaError_t bwd_dwconv_sm90_np(const DwMaps& m, const DwbArgs& g, int grid, int smem,
                                       cudaStream_t s) {
-  int grid = 0;
-  const cudaError_t e = dw_launch<bwd_dwconv_sm90_kernel<T, NP>>(smem, tiles, &grid);
-  if (e != cudaSuccess) return e;
-  bwd_dwconv_sm90_kernel<T, NP><<<grid, DW_THREADS, smem, s>>>(m, g);
+  static int set = 48 * 1024;  // the dynamic shared memory this instantiation admits
+  if (smem > set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_dwconv_sm90_kernel<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    set = smem;
+  }
+  bwd_dwconv_sm90_kernel<T, NP><<<grid, KB2_THREADS, smem, s>>>(m, g);
   return cudaGetLastError();
 }
 
 template <typename T>
 static cudaError_t bwd_dwconv_sm90(const DwMaps& m, const DwbArgs& g, int smem, cudaStream_t s) {
-  const int tiles = g.M * (g.kpad / g.t.br) * (g.H / (g.t.lanes * (16 / (int)sizeof(T))));
+  const int grid = g.M * g.t.bands * (g.H / (KB2_VECS * (16 / (int)sizeof(T))));
   switch (g.P) {
-    case 1: return bwd_dwconv_sm90_np<T, 1>(m, g, tiles, smem, s);
-    case 2: return bwd_dwconv_sm90_np<T, 2>(m, g, tiles, smem, s);
-    case 3: return bwd_dwconv_sm90_np<T, 3>(m, g, tiles, smem, s);
-    case 4: return bwd_dwconv_sm90_np<T, 4>(m, g, tiles, smem, s);
-    case 5: return bwd_dwconv_sm90_np<T, 5>(m, g, tiles, smem, s);
-    case 6: return bwd_dwconv_sm90_np<T, 6>(m, g, tiles, smem, s);
-    case 7: return bwd_dwconv_sm90_np<T, 7>(m, g, tiles, smem, s);
-    case 8: return bwd_dwconv_sm90_np<T, 8>(m, g, tiles, smem, s);
+    case 1: return bwd_dwconv_sm90_np<T, 1>(m, g, grid, smem, s);
+    case 2: return bwd_dwconv_sm90_np<T, 2>(m, g, grid, smem, s);
+    case 3: return bwd_dwconv_sm90_np<T, 3>(m, g, grid, smem, s);
+    case 4: return bwd_dwconv_sm90_np<T, 4>(m, g, grid, smem, s);
+    case 5: return bwd_dwconv_sm90_np<T, 5>(m, g, grid, smem, s);
+    case 6: return bwd_dwconv_sm90_np<T, 6>(m, g, grid, smem, s);
+    case 7: return bwd_dwconv_sm90_np<T, 7>(m, g, grid, smem, s);
+    case 8: return bwd_dwconv_sm90_np<T, 8>(m, g, grid, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }

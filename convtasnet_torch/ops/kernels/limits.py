@@ -18,10 +18,12 @@ library ops.
                   min(br + span, P * br) rows of a channel slice as narrow as
                   16 bytes, so shared memory does not bind below ~14,000 rows.
   BWD_MAXP        KB2 is compiled for 1..8 taps: dw[P] of a thread's
-                  channels stays in registers across the tile's rows.
+                  channels stays in registers across the strip's rows.
   BWD_MAX_SPAN    the largest conv span KB2 is held to on the card (its card
-                  tests run it); its staged windows (dw_plan, backward form)
-                  hold at most P * br rows whatever the span.
+                  tests run it); its dc ring (tcn_block.kb2_plan) holds the
+                  span rounded up to 32-row chunks plus one chunk, 1,056
+                  rows of 128 bytes at this limit, within a CTA's shared
+                  memory.
 
 K1 and KB1 on the bf16 TMA + wgmma pipeline (modes H_IN and H_DZ of
 tcn_gemm_sm90.cuh) bring no limit of their own: the depth B runs through

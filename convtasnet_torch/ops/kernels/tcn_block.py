@@ -157,7 +157,7 @@ def card_resident(lib, index: int, mode: int) -> Tuple:
     return tuple((t, lib.tcn_gemm_resident(index, mode, *t)) for t in GEMM_TILES)
 
 
-# Tile plan of the depthwise kernels K2 and KB2 (csrc/tcn_dwconv_sm90.cuh).
+# Tile plan of the depthwise kernel K2 (csrc/tcn_dwconv_sm90.cuh).
 DW_THREADS = 256
 DW_ROW_TILES = (128, 64, 32, 16)   # rows per CTA; each divides any K_pad
 DW_LANES = (32, 16, 8, 4, 2, 1)    # threads per row, one 16-byte vector each
@@ -168,12 +168,11 @@ SMEM_LIMIT = 232448 - 1024         # a CTA's 227 KB (hop::SMEM_LIMIT) less its s
 
 
 class DwPlan(NamedTuple):
-    """Tile of K2 / KB2: `rows` x `cols` channels of one item per CTA,
-    `lanes` threads per row; `staged` window slots per staged stream
-    (`contiguous`: br + span rows in order; else P disjoint windows of br
-    rows), loaded as TMA boxes of DW_BOX rows in `stages` stages of
-    `chunk` boxes; `smem` bytes of dynamic shared memory (the barriers and
-    the window buffer)."""
+    """Tile of K2: `rows` x `cols` channels of one item per CTA, `lanes`
+    threads per row; `staged` window slots (`contiguous`: br + span rows in
+    order; else P disjoint windows of br rows), loaded as TMA boxes of
+    DW_BOX rows in `stages` stages of `chunk` boxes; `smem` bytes of
+    dynamic shared memory (the barriers and the window buffer)."""
     rows: int
     cols: int
     lanes: int
@@ -185,35 +184,31 @@ class DwPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def dw_plan(P: int, dilation: int, H: int, itemsize: int, backward: bool = False) -> DwPlan:
-    """Tile plan of K2 (backward=False: y1 staged) or KB2 (c and dz staged,
-    plus y1's own rows; its channel partials reduced through the same
-    shared memory) for P taps at `dilation`, width H (a multiple of 128)
-    and activations of `itemsize` bytes.
+def dw_plan(P: int, dilation: int, H: int, itemsize: int) -> DwPlan:
+    """Tile plan of K2 (y1 staged) for P taps at `dilation`, width H (a
+    multiple of 128) and activations of `itemsize` bytes.
 
     A tile's taps reach S = min(br + span, P * br) rows, each read from
-    shared memory instead of device memory, so S / br is the reads of each
-    staged stream per output row. A tile costs those bytes per output
-    element (KB2 stages two streams, c and dz) plus, in KB2, its f32
-    channel partials, (P + 2) floats per channel and tile, written and
-    summed back. Among the tiles that fit a CTA's shared memory the plan
-    takes the least cost, then the most rows, then the widest row up to 256
-    bytes (rows of 512 bytes, and tiles small enough for a second CTA per
-    SM, measured no faster on the H100: tools/time_dwconv.py). At the paper
-    widths in bf16: K2 and KB2 take 128 x 128 at every dilation 1..128."""
+    shared memory instead of device memory, so S / br is the reads of the
+    staged stream per output row: a tile's cost per output element. Among
+    the tiles that fit a CTA's shared memory the plan takes the least cost,
+    then the most rows, then the widest row up to 256 bytes (rows of 512
+    bytes, and tiles small enough for a second CTA per SM, measured no
+    faster on the H100: tools/time_dwconv.py). At the paper widths in bf16:
+    128 x 128 at every dilation 1..128."""
     _require(P >= 1 and dilation >= 1 and H % KERNEL_WIDTH == 0 and itemsize in (2, 4),
              f"no depthwise tile for P={P}, dilation={dilation}, H={H}")
-    fit = [dw_tile(P, dilation, H, itemsize, backward, br, lanes)
+    fit = [dw_tile(P, dilation, H, itemsize, br, lanes)
            for lanes in DW_LANES if H % (lanes * 16 // itemsize) == 0 for br in DW_ROW_TILES]
     fit = [c for c in fit if c[1].smem <= SMEM_LIMIT]
     _require(bool(fit), f"no depthwise tile fits shared memory at P={P}, dilation={dilation}")
     return min(fit)[1]
 
 
-def dw_tile(P: int, dilation: int, H: int, itemsize: int, backward: bool, br: int,
+def dw_tile(P: int, dilation: int, H: int, itemsize: int, br: int,
             lanes: int) -> Tuple[Tuple, DwPlan]:
-    """(cost key, plan) of the tile of `br` rows and `lanes` threads per row
-    (see dw_plan); card tests force each tile through it."""
+    """(cost key, plan) of K2's tile of `br` rows and `lanes` threads per
+    row (see dw_plan); card tests force each tile through it."""
     vec = 16 // itemsize
     bc = lanes * vec
     _require(H % bc == 0 and br in DW_ROW_TILES and lanes in DW_LANES,
@@ -223,22 +218,17 @@ def dw_tile(P: int, dilation: int, H: int, itemsize: int, backward: bool, br: in
     staged = br + span if contiguous else P * br
     boxes = -(-staged // DW_BOX)             # TMA boxes of DW_BOX rows
     data = boxes * DW_BOX * lanes * 16
-    cost = staged / br * (2 if backward else 1) * itemsize
-    if backward:
-        groups = min(DW_THREADS // lanes, br)
-        data = max(data * 2 + br * lanes * 16, groups * (P + 2) * bc * 4)
-        cost += 2 * (P + 2) * 4 / br
+    cost = staged / br * itemsize
     chunk = -(-boxes // min(DW_MAX_STAGES, boxes))
     plan = DwPlan(br, bc, lanes, staged, contiguous, chunk, -(-boxes // chunk), DW_HEAD + data)
     return (cost, -br, -min(bc * itemsize, 256)), plan
 
 
 def dw_window(plan: DwPlan, base: int, dilation: int) -> List[int]:
-    """The row each window slot stages (csrc/tcn_dwconv_sm90.cuh Window):
-    slot s holds base + s (contiguous) or base + (s // br) * d + s % br.
-    Tap p of tile row r reads slot r + p * dw_stride (K2's b window, base
-    k0 - left) or r + (P - 1 - p) * dw_stride (KB2's dc window, base k0 +
-    left - span)."""
+    """The row each window slot of K2 stages (csrc/tcn_dwconv_sm90.cuh
+    Window): slot s holds base + s (contiguous) or base + (s // br) * d +
+    s % br. Tap p of tile row r reads slot r + p * dw_stride (base k0 -
+    left)."""
     br = plan.rows
     if plan.contiguous:
         return [base + s for s in range(plan.staged)]
@@ -249,14 +239,141 @@ def dw_stride(plan: DwPlan, dilation: int) -> int:
     return dilation if plan.contiguous else plan.rows
 
 
-def dw_slot_of(plan: DwPlan, base: int, dilation: int, P: int, j: int) -> int:
-    """The slot of the window at `base` that holds row j >= base, or -1
-    (csrc/tcn_dwconv_sm90.cuh Window::slot_of)."""
-    off = j - base
-    if plan.contiguous:
-        return off
-    q, rem = divmod(off, dilation)
-    return q * plan.rows + rem if q < P and rem < plan.rows else -1
+# Strip plan of KB2 (csrc/tcn_dwconv_sm90.cuh): KB2_CONSUMERS threads convert
+# and compute, one more warp issues the TMA loads; a row of a CTA's channels
+# is KB2_VECS 16-byte vectors (128 bytes), a quarter of them each consumer
+# warp's.
+KB2_CONSUMERS = 128
+KB2_WARPS = KB2_CONSUMERS // 32
+KB2_VECS = 8
+KB2_CHUNK = 32      # rows per stage (one TMA box per stream), one a consumer lane
+KB2_STAGES = 2      # stages of the load ring: a third measured 2-10 % slower
+SM_SMEM = 233472    # an SM's shared memory; a CTA reserves 1 KB of it
+# An SM's rate with k of KB2's CTAs resident (k = 1, 2, 3), relative to
+# three: the kernel is bound by the latency of its arithmetic, which the
+# CTAs of an SM hide from each other. H100, tools/time_dwconv.py --strips.
+KB2_SM_RATE = (0.6, 0.85, 1.0)
+# A CTA's fixed cost, as bytes moved: its launch, the fill of its load ring
+# and its partials.
+KB2_CTA_BYTES = 16384
+
+
+class StripPlan(NamedTuple):
+    """KB2's strip plan: a CTA owns one item x `cols` channels (rows of 128
+    bytes) x `strip` rows, `bands` strips per item (the last one ending at
+    K_pad); it streams c and dz down the strip `chunk` rows a stage through
+    a ring of `stages` TMA stages (c, dz and the own chunk's y1),
+    converting them once into a dc ring of `ring` chunks (the conv span
+    rounded up to chunks, plus the own chunk); `smem` bytes of dynamic
+    shared memory; `grid` CTAs (M * bands * H / cols)."""
+    cols: int
+    chunk: int
+    stages: int
+    ring: int
+    strip: int
+    bands: int
+    smem: int
+    grid: int
+
+
+def kb2_resident(P: int, smem: int) -> int:
+    """KB2's CTAs resident per SM: three by its launch bounds up to 4 taps,
+    two above, fewer where shared memory binds."""
+    return min(3 if P <= 4 else 2, SM_SMEM // (smem + 1024))
+
+
+@functools.lru_cache(maxsize=1024)
+def kb2_plan(P: int, dilation: int, H: int, itemsize: int, M: int, Kp: int,
+             sms: int) -> StripPlan:
+    """Strip plan of KB2 for P taps at `dilation`, width H (a multiple of
+    128), activations of `itemsize` bytes and M items of K_pad rows (a
+    multiple of 128), on a card of `sms` SMs: the number of strips an item.
+
+    A strip of L rows loads its own L rows of y1, c and dz and writes L
+    rows of db, and loads the conv span (rounded up to chunks) of c and dz
+    twice, once by the strip before it: a CTA's work is (4 L + 2 span) x
+    128 bytes, plus KB2_CTA_BYTES. The card's time is taken as the waves of
+    resident CTAs times a CTA's work times the k CTAs an SM runs at once,
+    over the SM's rate with k (KB2_SM_RATE). Among the band counts with up
+    to twice as many CTAs as the card holds at once, the plan takes the
+    least time, then the most strips. At the paper's and taslp's train
+    shapes (bf16, H=512, P=3, M=8) on 132 SMs: 64 channels, six strips an
+    item (384 CTAs, three an SM) at every dilation 1..128."""
+    _require(1 <= P <= 8 and dilation >= 1 and H % KERNEL_WIDTH == 0 and itemsize in (2, 4)
+             and M >= 1 and Kp % KB2_CHUNK == 0 and Kp > 0 and sms >= 1,
+             f"no strip plan for P={P}, dilation={dilation}, H={H}, M={M}, K_pad={Kp}")
+    best = None
+    for bands in range(1, Kp // KB2_CHUNK + 1):
+        cost, plan = kb2_strip(P, dilation, H, itemsize, M, Kp, bands, sms)
+        if bands > 1 and plan.grid > 2 * sms * kb2_resident(P, plan.smem):
+            break
+        if plan.bands == bands and (best is None or cost <= best[0]):
+            best = (cost, plan)
+    plan = best[1]
+    _require(plan.smem <= SMEM_LIMIT,
+             f"no strip plan fits shared memory at P={P}, dilation={dilation}, H={H}")
+    return plan
+
+
+def kb2_strip(P: int, dilation: int, H: int, itemsize: int, M: int, Kp: int, bands: int,
+              sms: int = 132) -> Tuple[float, StripPlan]:
+    """(cost, plan) of KB2 at `bands` strips per item (see kb2_plan; the
+    strip is K_pad / bands rounded up to chunks, so fewer bands may
+    result); card tests force plans through it."""
+    bc = KB2_VECS * 16 // itemsize
+    chunk, stages = KB2_CHUNK, KB2_STAGES
+    _require(H % bc == 0 and Kp % chunk == 0 and bands >= 1,
+             f"no strip of {chunk}-row chunks x {bc} channels at H={H}, K_pad={Kp}")
+    span = (P - 1) * dilation
+    pre = -(-span // chunk)
+    row = KB2_VECS * 16
+    strip = -(-Kp // (bands * chunk)) * chunk
+    bands = -(-Kp // strip)
+    ring = pre + 1
+    smem = DW_HEAD + (stages * 3 + ring) * chunk * row + P * bc * 4  # and the f32 taps
+    grid = M * bands * (H // bc)
+    plan = StripPlan(bc, chunk, stages, ring, strip, bands, smem, grid)
+    resident = max(1, kb2_resident(P, smem)) if smem <= SMEM_LIMIT else 1
+    k = min(resident, -(-grid // sms))
+    waves = -(-grid // (sms * resident))
+    work = row * (4 * strip + 2 * pre * chunk) + KB2_CTA_BYTES
+    return waves * k * work / KB2_SM_RATE[min(k, 3) - 1], plan
+
+
+def kb2_load_rows(plan: StripPlan, Kp: int, band: int, left: int,
+                  span: int) -> List[Tuple[int, Optional[int]]]:
+    """The rows of an item that strip `band` loads, load chunk by load
+    chunk (csrc: the producer's loop): [(first c / dz row, first y1 row or
+    None)]; y1 rows are the strip's own, from load chunk ring - 1 on."""
+    k_begin = band * plan.strip
+    pre = plan.ring - 1
+    j0 = k_begin + left - span
+    nown = (min(k_begin + plan.strip, Kp) - k_begin) // plan.chunk
+    return [(j0 + q * plan.chunk, k_begin + (q - pre) * plan.chunk if q >= pre else None)
+            for q in range(nown + pre)]
+
+
+def kb2_tap_slots(plan: StripPlan, dilation: int, span: int, P: int, i: int, r: int) -> List[int]:
+    """The dc ring rows that taps p = 0..P-1 of row r of own chunk i read
+    (rows k + left - p * d), by the kernel's arithmetic: own chunk i's tap 0
+    starts at ring row (i * chunk + span) mod R, each chunk adding chunk
+    rows, a row r more, a tap p * d fewer, each wrapped once."""
+    R = plan.ring * plan.chunk
+    own = span
+    for _ in range(i):
+        own += plan.chunk
+        if own >= R:
+            own -= R
+    slot = own + r
+    if slot >= R:
+        slot -= R
+    out = []
+    for p in range(P):
+        sp = slot - p * dilation
+        if sp < 0:
+            sp += R
+        out.append(sp)
+    return out
 
 
 @functools.lru_cache(maxsize=None)

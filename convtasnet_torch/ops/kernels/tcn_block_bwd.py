@@ -12,9 +12,9 @@ conv output c and the norm2 partials s2 (K2 in save mode), runs as
   KW  tcn_wgrad (z):   dout_w = z^T g, z = round(norm2(PReLU2(c)));
   KB2 tcn_bwd_dwconv:  de, dc = round(de * PReLU2'(c)), the depthwise
                        transpose db, partials of dw, dg1, db1, d_alpha2 and
-                       of the norm1 backward sums; a staged stencil
-                       (csrc/tcn_dwconv_sm90.cuh), tiled by
-                       tcn_block.dw_plan;
+                       of the norm1 backward sums; a streaming stencil
+                       down strips of rows (csrc/tcn_dwconv_sm90.cuh),
+                       planned by tcn_block.kb2_plan;
   KB3 tcn_bwd_dx:      da, dy1 = round(da * PReLU1'(y1)), dx = round(round(
                        dy1 @ in_w^T) + g) with rows >= K zero, d_alpha1
                        partials; in bf16 on the TMA + wgmma pipeline
@@ -66,9 +66,9 @@ import torch.nn.functional as F
 from . import _build
 from .limits import BWD_MAX_SPAN, BWD_MAXP
 from .limits import KERNEL_WIDTH
-from .tcn_block import (_DTYPES, BM, BN, H_DX, H_DZ, H_SKIP, _check_cuda, _check_dw_plan,
+from .tcn_block import (_DTYPES, BM, BN, H_DX, H_DZ, H_SKIP, SMEM_LIMIT, StripPlan, _check_cuda,
                         _check_gemm_h, _check_widths, _moments, _prelu_f32, _require, _sm_count,
-                        _stream, card_resident, dw_plan, gemm_plan)
+                        _stream, card_resident, gemm_plan, kb2_plan, KB2_WARPS)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -523,15 +523,21 @@ def bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
             _into(da2part, da2.reshape(1)))
 
 
+def _kb2_plan(P: int, dilation: int, H: int, dt, M: int, Kp: int, index) -> StripPlan:
+    return kb2_plan(P, dilation, H, torch.empty((), dtype=dt).element_size(), M, Kp,
+                    _sm_count(index))
+
+
 def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
                    g2, norm_type, dilation, causal, valid_k, plan=None, chpart=None,
                    da2part=None):
     """KB2. Same signature and results as bwd_dwconv_plain, with channel
-    partials per row tile of `dw_plan` (backward form), norm1-backward
-    partials per CTA tile (gLN) or per row and channel tile (cLN) and
-    d_alpha2 partials per CTA tile (bwd_dwconv_parts); a staged stencil
-    (csrc/tcn_dwconv_sm90.cuh). `plan` forces a tile (tcn_block.dw_tile,
-    backward form)."""
+    partials per strip of `kb2_plan` ([M * bands, P + 2, H]), norm1-backward
+    partials per strip and channel tile (gLN, [M, bands * H / cols, 2]) or
+    per row and consumer warp's quarter of a channel tile (cLN, [M, K_pad,
+    KB2_WARPS * H / cols, 2]), and d_alpha2 partials per strip and channel
+    tile; a streaming stencil (csrc/tcn_dwconv_sm90.cuh). `plan` forces a
+    strip plan (tcn_block.kb2_strip)."""
     if y1.device.type == "cpu":
         return bwd_dwconv_plain(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w,
                                 alpha2, g2, norm_type, dilation, causal, valid_k, chpart,
@@ -554,22 +560,24 @@ def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
     for s, what in ((stats1, "stats1"), (stats2, "stats2"), (gs2, "KB1 partials")):
         _check_stats(s, M, Kp, gln, what)
     _check_params(alpha1, g1, b1, w, alpha2, g2)
-    plan = plan or dw_plan(P, dilation, H, y1.element_size(), backward=True)
-    _check_dw_plan(plan, H)
+    plan = plan or _kb2_plan(P, dilation, H, dt, M, Kp, y1.device.index)
+    _require(H % plan.cols == 0 and plan.smem <= SMEM_LIMIT and plan.bands * plan.strip >= Kp
+             and plan.grid == M * plan.bands * (H // plan.cols),
+             f"KB2 strip plan {tuple(plan)} does not fit H={H}, M={M}, K_pad={Kp}")
     nct = H // plan.cols
     db = torch.empty_like(y1)
-    chpart = _part_out(chpart, (M * Kp // plan.rows, P + 2, H), y1.device, "KB2 chpart")
-    gs1 = torch.empty((M, Kp // plan.rows * nct, 2) if gln else (M, Kp, nct, 2),
+    chpart = _part_out(chpart, (M * plan.bands, P + 2, H), y1.device, "KB2 chpart")
+    gs1 = torch.empty((M, plan.bands * nct, 2) if gln else (M, Kp, nct * KB2_WARPS, 2),
                       dtype=torch.float32, device=y1.device)
-    da2part = _part_out(da2part, (M * Kp // plan.rows * nct,), y1.device, "KB2 da2part")
+    da2part = _part_out(da2part, (plan.grid,), y1.device, "KB2 da2part")
     rc = _lib().tcn_bwd_dwconv(
         y1.device.index, _DTYPES[dt], y1.data_ptr(), c.data_ptr(), dz.data_ptr(),
         stats1.data_ptr(), _n_parts(stats1, gln), stats2.data_ptr(), _n_parts(stats2, gln),
         gs2.data_ptr(), _n_parts(gs2, gln), alpha1.data_ptr(), g1.data_ptr(),
         b1.data_ptr(), w.data_ptr(), alpha2.data_ptr(), g2.data_ptr(), db.data_ptr(),
         chpart.data_ptr(), gs1.data_ptr(), da2part.data_ptr(), M, Kp, valid_k, H, P,
-        dilation, int(causal), int(gln), plan.rows, plan.lanes, plan.staged, plan.chunk,
-        plan.stages, plan.smem, _stream(y1))
+        dilation, int(causal), int(gln), plan.chunk, plan.stages, plan.ring, plan.strip,
+        plan.bands, plan.smem, _stream(y1))
     _build.check(rc, "tcn_bwd_dwconv")
     _LAUNCHES["tcn_bwd_dwconv"] += 1
     return db, chpart, gs1, da2part
@@ -657,8 +665,8 @@ FINISH_SLOTS_CAP = 512 << 20
 
 class PartCounts(NamedTuple):
     """The f32 partials one block's backward writes: KW z (nz) and din
-    (nin) [n, H, B] / [n, B, H], KB2's channel rows (nch, [n, P + 2, H])
-    and d_alpha2 (nda2), KB1's colpart (ncol, [n, 2, H]) and KB3's
+    (nin) [n, H, B] / [n, B, H], KB2's channel rows (nch, [n, P + 2, H],
+    one per strip) and d_alpha2 (nda2, one per strip and channel tile), KB1's colpart (ncol, [n, 2, H]) and KB3's
     d_alpha1 (nda1). The plain versions write one of each."""
     nz: int
     nin: int
@@ -681,10 +689,9 @@ def part_counts(M: int, Kp: int, B: int, H: int, P: int, dilation: int, dt,
         nin = _card_plan(index, rows, Kp, H, B, _sm_count(index)).parts
     else:
         nz = nin = rows // wgrad_chunk(Kp)
-    plan = dw_plan(P, dilation, H, torch.empty((), dtype=dt).element_size(), backward=True)
-    nch = rows // plan.rows
-    return PartCounts(nz, nin, nch, rows // _dz_tile(rows, B, H, dt, index, Sc)[0],
-                      rows // _dx_tile(rows, B, H, dt, index)[0], nch * (H // plan.cols))
+    plan = _kb2_plan(P, dilation, H, dt, M, Kp, index)
+    return PartCounts(nz, nin, M * plan.bands, rows // _dz_tile(rows, B, H, dt, index, Sc)[0],
+                      rows // _dx_tile(rows, B, H, dt, index)[0], plan.grid)
 
 
 def slot_bytes(n: PartCounts, B: int, H: int, P: int, Sc: int = 0) -> int:

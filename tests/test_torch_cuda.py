@@ -605,7 +605,8 @@ SPAN_CASES = [(3, 512, True), (8, 128, True), (3, 2048, False)]
 def test_dwconv_kernels_at_the_span_limits(dev, P, dilation, backward, norm_type, causal,
                                            dtype, tol):
     """K2 (and its save mode) and, within KB2's limits, KB2 against their
-    plain versions at the largest span each takes."""
+    plain versions at the largest span each takes (KB2 with NaN in the rows
+    >= K it never reads, its pad rows zero, two launches equal bytes)."""
     from convtasnet_torch.ops.kernels import limits
 
     span = (P - 1) * dilation
@@ -632,12 +633,17 @@ def test_dwconv_kernels_at_the_span_limits(dev, P, dilation, backward, norm_type
     g = torch.randn((M, Kp, B), generator=gen, device=dev).to(dtype)
     dz, _, gs2 = tbb.bwd_dz_plain(g, out_w.to(dtype).t().contiguous(), c, s2, a2, g2, norm_type,
                                   K)
-    bargs = (y1, c, dz, s1, s2, gs2, a1, g1, b1, w, a2, g2, norm_type, dilation, causal, K)
-    dbk, chk, gs1k, da2k = tbb.tcn_bwd_dwconv(*bargs)
-    dbp, chp, gs1p, da2p = tbb.bwd_dwconv_plain(*bargs)
+    tail = (s1, s2, gs2, a1, g1, b1, w, a2, g2, norm_type, dilation, causal, K)
+    # KB2 never reads the rows >= K of y1, c and dz: NaN there
+    nargs = (_nan_rows(y1, K), _nan_rows(c, K), _nan_rows(dz, K)) + tail
+    dbk, chk, gs1k, da2k = tbb.tcn_bwd_dwconv(*nargs)
+    dbp, chp, gs1p, da2p = tbb.bwd_dwconv_plain(y1, c, dz, *tail)
     assert _rel_max(dbk, dbp) <= tol and _rel_max(chk.sum(0), chp.sum(0)) <= tol
+    assert torch.all(dbk[:, K:] == 0)
     assert _rel_max(gs1k.sum(red), gs1p.sum(red)) <= tol
     assert _rel_max(da2k.sum(), da2p.sum()) <= max(tol, 2e-3)
+    assert all(torch.equal(u, v) for u, v in zip((dbk, chk, gs1k, da2k),
+                                                 tbb.tcn_bwd_dwconv(*nargs)))
 
 
 def test_gemm_occupancy_query(dev):
@@ -651,10 +657,11 @@ def test_gemm_occupancy_query(dev):
 
 
 # ---------------------------------------------------------------------------
-# K2 (both modes) and KB2 as staged stencils (csrc/tcn_dwconv_sm90.cuh): at
-# every tile the plan can take, over dilations 1..512 with P in {2, 3, 8},
-# with K not a multiple of the tile's rows, NaN in the rows >= K of y1, c
-# and dz (never read), and two launches giving equal bytes.
+# K2 (both modes), a staged stencil, and KB2, a streaming stencil down strips
+# (csrc/tcn_dwconv_sm90.cuh): K2 at every tile its plan can take, KB2 at
+# every strip shape, over dilations 1..512 with P in {2, 3, 8}, with K not a
+# multiple of the tile's rows or the strip's chunks, NaN in the rows >= K of
+# y1, c and dz (never read), and two launches giving equal bytes.
 # ---------------------------------------------------------------------------
 
 def _dw_case(dev, dtype, norm_type, P, M=2, Kp=1280, K=1201, H=256, seed=0):
@@ -700,11 +707,19 @@ def _check_dw(d, dilation, causal, tol, plan=None, bplan=None, backward=True):
     P = d["w"].shape[0]
     if not backward or P > limits.BWD_MAXP or (P - 1) * dilation > limits.BWD_MAX_SPAN:
         return
+    _check_kb2(d, cp, s2p, dilation, causal, tol, bplan)
+
+
+def _check_kb2(d, cp, s2p, dilation, causal, tol, bplan=None):
+    """KB2 against bwd_dwconv_plain at one dilation, NaN in the rows >= K
+    of y1, c and dz, db's pad rows zero, two launches equal bytes."""
+    K, norm = d["K"], d["norm"]
+    red = 1 if norm == "gLN" else 2
     dz, _, gs2 = tbb.bwd_dz_plain(d["g"], d["out_wt"], cp, s2p, d["a2"], d["g2"], norm, K)
     tail = (s2p, gs2, d["a1"], d["g1"], d["b1"], d["w"], d["a2"], d["g2"], norm, dilation,
             causal, K)
     want = tbb.bwd_dwconv_plain(d["y1"], cp, dz, d["s1"], *tail)
-    bargs = (y1n, _nan_rows(cp, K), _nan_rows(dz, K), d["s1"]) + tail
+    bargs = (_nan_rows(d["y1"], K), _nan_rows(cp, K), _nan_rows(dz, K), d["s1"]) + tail
     got = tbb.tcn_bwd_dwconv(*bargs, plan=bplan)
     assert _rel_max(got[0], want[0]) <= tol and torch.all(got[0][:, K:] == 0)
     assert _rel_max(got[1].sum(0), want[1].sum(0)) <= tol
@@ -721,8 +736,9 @@ DW_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)]
                                               ("cLN", True)])
 @pytest.mark.parametrize("dtype,tol", DW_DTYPES)
 def test_dwconv_kernels_over_dilations(dev, P, norm_type, causal, dtype, tol):
-    """The planned tile at every dilation 1..512 (spans up to 3,584 rows at
-    P = 8, beyond K = 1,201: the halo reads nothing), K2 and KB2."""
+    """The planned tile and strips at every dilation 1..512 (spans up to
+    3,584 rows at P = 8, beyond K = 1,201: the halo reads nothing), K2 and
+    KB2."""
     d = _dw_case(dev, dtype, norm_type, P, seed=P)
     for i in range(10):
         _check_dw(d, 2 ** i, causal, tol)
@@ -732,30 +748,69 @@ def test_dwconv_kernels_over_dilations(dev, P, norm_type, causal, dtype, tol):
 @pytest.mark.parametrize("br", [128, 64, 32, 16])
 @pytest.mark.parametrize("dtype,tol", DW_DTYPES)
 def test_dwconv_kernels_at_every_tile(dev, br, lanes, dtype, tol):
-    """Each tile dw_plan can pick (rows x lanes), forced, contiguous
-    (dilation 3) and disjoint (dilation 2 * br + 1) windows, P = 3 and P = 4
-    (even: own rows outside KB2's windows), gLN and cLN; a persistent CTA
-    walks several tiles through its window buffer."""
+    """Each tile dw_plan can pick for K2 (rows x lanes), forced, contiguous
+    (dilation 3) and disjoint (dilation 2 * br + 1) windows, P = 3 and P = 4,
+    gLN and cLN; a persistent CTA walks several tiles through its window
+    buffer."""
     it = torch.finfo(dtype).bits // 8
     for P, norm_type, causal in ((3, "gLN", False), (4, "cLN", False), (4, "gLN", True)):
         d = _dw_case(dev, dtype, norm_type, P, Kp=640, K=555, seed=br + lanes)
         for dil in (3, 2 * br + 1):
-            plan = tcn_block.dw_tile(P, dil, 256, it, False, br, lanes)[1]
-            bplan = tcn_block.dw_tile(P, dil, 256, it, True, br, lanes)[1]
+            plan = tcn_block.dw_tile(P, dil, 256, it, br, lanes)[1]
             if plan.smem > tcn_block.SMEM_LIMIT:  # e.g. 128 rows x 512 bytes, P * 128 staged
                 continue
-            _check_dw(d, dil, causal, tol, plan=plan, bplan=bplan,
-                      backward=bplan.smem <= tcn_block.SMEM_LIMIT)
+            _check_dw(d, dil, causal, tol, plan=plan, backward=False)
+
+
+@pytest.mark.parametrize("bands", [1, 3, 7, 20])
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+def test_kb2_at_every_strip_shape(dev, bands, dtype, tol):
+    """KB2 forced through kb2_strip at one strip an item (K_pad rows), a
+    few (the last one shorter), and many (strips of one chunk, shorter than
+    the span, so a strip's halo reaches past the strip before it), at a
+    span inside one chunk (dilation 3) and over several (65), P = 3 and
+    P = 4 (even: taps off centre), gLN and cLN, causal or not; K ends
+    inside a strip's last chunk."""
+    it = torch.finfo(dtype).bits // 8
+    for P, norm_type, causal in ((3, "gLN", False), (4, "cLN", False), (4, "gLN", True),
+                                 (3, "cLN", True)):
+        d = _dw_case(dev, dtype, norm_type, P, Kp=640, K=555, seed=bands)
+        for dil in (3, 65):
+            bplan = tcn_block.kb2_strip(P, dil, 256, it, 2, 640, bands)[1]
+            assert bplan.bands == bands
+            args = (d["y1"], d["s1"], d["a1"], d["g1"], d["b1"], d["w"], d["a2"], norm_type,
+                    dil, causal, d["K"])
+            _, s2p, cp = tcn_block.dwconv_plain(*args, save=True)
+            _check_kb2(d, cp, s2p, dil, causal, tol, bplan)
+
+
+@pytest.mark.parametrize("shape", [(8, 3199, 3200), (8, 3999, 4096)])
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+def test_kb2_at_the_train_cells_shapes(dev, shape, dtype, tol):
+    """KB2's planned strips at the paper and taslp train cells' shapes
+    (batch 8, H = 512, P = 3, gLN) at every dilation 1..128 of the chain."""
+    M, K, Kp = shape
+    d = _dw_case(dev, dtype, "gLN", 3, M=M, Kp=Kp, K=K, H=512, seed=K)
+    for i in range(8):
+        args = (d["y1"], d["s1"], d["a1"], d["g1"], d["b1"], d["w"], d["a2"], "gLN", 2 ** i,
+                False, K)
+        _, s2p, cp = tcn_block.dwconv_plain(*args, save=True)
+        _check_kb2(d, cp, s2p, 2 ** i, False, tol)
 
 
 def test_dwconv_plans_are_what_the_wrappers_take(dev):
     """At the paper widths every plan dw_plan returns for dilations 1..128 is
-    a tile test_dwconv_kernels_at_every_tile forces."""
-    for bw in (False, True):
-        for it in (2, 4):
-            for i in range(8):
-                p = tcn_block.dw_plan(3, 2 ** i, 512, it, bw)
-                assert p.rows in (128, 64, 32, 16) and p.lanes in (32, 16, 8, 4, 2, 1)
+    a tile test_dwconv_kernels_at_every_tile forces, and every strip plan
+    kb2_plan returns at the train cells' shapes is kb2_strip's at its band
+    count, on this card's SMs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for it in (2, 4):
+        for i in range(8):
+            p = tcn_block.dw_plan(3, 2 ** i, 512, it)
+            assert p.rows in (128, 64, 32, 16) and p.lanes in (32, 16, 8, 4, 2, 1)
+            for Kp in (3200, 4096):
+                s = tcn_block.kb2_plan(3, 2 ** i, 512, it, 8, Kp, sms)
+                assert s == tcn_block.kb2_strip(3, 2 ** i, 512, it, 8, Kp, s.bands, sms)[1]
 
 
 # ---- the streaming separator's CUDA graphs ---------------------------------
@@ -1157,6 +1212,69 @@ def test_graphed_train_step_gives_the_eager_steps_bytes(dev):
     for tree in (lambda s: s.params, lambda s: s.opt_state.mu, lambda s: s.opt_state.nu):
         for a, b in zip(tree_leaves(tree(g[0])), tree_leaves(tree(e[0]))):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["paper", "taslp"])
+def test_graphed_hybrid_step_gradients_match_eager_autograd(dev, name):
+    """A replayed graphed hybrid step (KB2 on its strip plans at every
+    dilation 1..128) at the paper and taslp configs, batch 2 x 1 s: each
+    gradient leaf of the replay (mu_3 - m * mu_2 of SGD with momentum m, no
+    clipping) against eager autograd's (use_kernels 0) at the replay's
+    parameters and batch, relative L2 per leaf.
+
+    Paper, f32: 1e-3; H100 readings at seeds 3, 5, 7 up to 4.9e-4, and
+    3.5e-2 with KB2's db of one 32-row chunk of one item and channel tile
+    read one row late. Taslp, bf16 (its skip modes run bf16 only): 1e-1;
+    readings up to 0.093, because bf16 rounding flips compound over 24
+    blocks, and 0.106 with that fault. Against the chain's plain stages,
+    which round where the kernels do, the readings are as wide (up to
+    0.082), so at taslp this mainly checks that the replay runs and agrees
+    roughly; KB2's own checks at the taslp shape are
+    test_kb2_at_the_train_cells_shapes and chip_smoke.py's KB2 train-cell
+    phase."""
+    from convtasnet_torch.config import ConvTasNetConfig
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.conv_tasnet import init_params
+    from convtasnet_torch.ops.loss import cal_loss
+    from convtasnet_torch.training.optim import Optimizer, tree_leaves, tree_map
+    from convtasnet_torch.training.solver import GraphedStep, _forward_fn, make_train_step
+
+    kw, tol = {"paper": (dict(compute_dtype="float32"), 1e-3),
+               "taslp": (dict(N=512, L=16, B=128, Sc=128, R=3, encoder_relu=False,
+                              input_norm="gLN", mask_nonlinear="sigmoid",
+                              compute_dtype="bfloat16"), 1e-1)}[name]
+    cfg = ConvTasNetConfig(use_kernels="hybrid", **kw)
+    assert cfg.kernel_form(True, dev) == "whole_tcn_train"
+    params, state = init_params(torch.Generator(device=dev).manual_seed(3), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    src = torch.randn((2, 2, 8000), generator=gen, device=dev) * 0.3
+    mix, lens = src.sum(1), torch.tensor([8000, 7000], device=dev, dtype=torch.int32)
+    momentum = 0.5
+    opt = Optimizer("sgd", lr=1e-4, momentum=momentum)
+    o = opt.init(params)
+    step = GraphedStep(make_train_step(cfg, opt, 1e9), params, o, state,
+                       tag=(cfg.kernel_form(True, dev),))
+    saved, graphed.MAX_GRAPHS = graphed.MAX_GRAPHS, 16
+    try:
+        p, s = params, state
+        for _ in range(2):  # eager, then captured
+            p, o, s, _, _ = step(p, o, s, mix, src, lens)
+        before = tree_map(lambda t: t.clone(), p)
+        mu2 = [t.clone() for t in tree_leaves(o.mu)]
+        p, o, s, _, _ = step(p, o, s, mix, src, lens)  # replayed
+        torch.cuda.synchronize()
+    finally:
+        graphed.MAX_GRAPHS = saved
+    assert step.graphed.stats()["replays"] == 1
+    got = [m3 - momentum * m2 for m3, m2 in zip(tree_leaves(o.mu), mu2)]
+    eager = ConvTasNetConfig(use_kernels=0, **kw)
+    leaves_tree = tree_map(lambda t: t.detach().requires_grad_(True), before)
+    est, _ = _forward_fn(eager, None, True)(leaves_tree, state, mix)
+    loss, *_ = cal_loss(src, est, lens)
+    want = torch.autograd.grad(loss, tree_leaves(leaves_tree))
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _rel_l2(a, b.float()) <= tol, (i, tuple(b.shape))
 
 
 def test_graphed_train_step_reads_the_lr_set_in_place(dev):
