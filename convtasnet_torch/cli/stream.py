@@ -2,10 +2,11 @@
 
 Counterpart of convtasnet_tpu/cli/stream.py. The mixture is fed in
 fixed-duration chunks through a stateful chunk step (carried frame tail,
-per-block dilation rings, overlap-add tail; models/streaming.py), captured
-as CUDA graphs on the card, and the concatenated chunk outputs reproduce
-the offline forward. Files are grouped `--batch` at a time into
-concurrent streams, zero-padded to the group's chunk count.
+per-block dilation rings, overlap-add tail; models/streaming.py), run
+through the graph layer's CUDA graphs on the card (models/graphed.py),
+and the concatenated chunk outputs reproduce the offline forward. Files
+are grouped `--batch` at a time into concurrent streams, zero-padded to
+the group's chunk count.
 
 Writes `<base>.wav` and `<base>_s{c}.wav` per speaker like the separate
 CLI, and reports the wall-clock real-time factor (RTF): each chunk's
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..data.wavio import read_wav, write_wav
+from ..models import graphed
 from ..models.conv_tasnet import resolve_device
 from ..models.streaming import StreamingSeparator
 from ..training.checkpoint import load_model
@@ -104,12 +106,14 @@ def stream_files(args) -> int:
         sep.reset()
 
         outs = []
+        before = graphed.counts()
         t0 = time.perf_counter()
         for k in range(n_chunks):
             out = sep.push(torch.from_numpy(padded[:, k * chunk_len:(k + 1) * chunk_len]))
             outs.append(out.cpu().numpy())  # real fetch: live-consumer timing
         outs.append(sep.flush().cpu().numpy())
         dt = time.perf_counter() - t0
+        setup = {k: graphed.counts()[k] - before[k] for k in ("eager_calls", "captures")}
 
         ests = np.concatenate(outs, axis=-1)  # [B, C, >= max T]
         for b, path in enumerate(group):
@@ -133,7 +137,9 @@ def stream_files(args) -> int:
               f"{dt:.3f} s wall | "
               f"chunk {1000 * chunk_len / args.sample_rate:.1f} ms | "
               f"{1000 * dt / n_chunks:.2f} ms/chunk | RTF {dt / audio_sec:.3f}"
-              + (" (includes CUDA graph capture)" if g == 0 and sep.graphed else ""))
+              + (f" (includes {setup['eager_calls']} eager first call(s) and "
+                 f"{setup['captures']} CUDA graph capture(s))"
+                 if sep.graphed and any(setup.values()) else ""))
     return written
 
 

@@ -19,14 +19,20 @@ tensors the same way:
 * later calls: the inputs are copied into the static buffers, the graph is
   replayed.
 
-A `stateful` function (the train step, training/solver.GraphedStep)
-updates tensors it closes over in place, so it must run exactly once per
-call: on its capturing call the side-stream warm-up is that call's run,
-the capture only records, and the call returns the warm-up's outputs
-without a replay. A function whose warm-up ran a collective (a mesh's CV
+A `stateful` function (the train step, training/solver.GraphedStep; the
+stream chunk step, models/streaming.StreamingSeparator) updates tensors it
+closes over in place, so it must run exactly once per call: on its
+capturing call the side-stream warm-up is that call's run, the capture
+only records, and the call returns the warm-up's outputs without a
+replay. A function whose warm-up ran a collective (a mesh's CV
 step: parallel/comm.py counts them) is treated the same way: each call
 runs each collective once on every rank, so a rank that captures and a
 rank that replays in the same call stay in step.
+
+The static inputs live on the inputs' device, or on the wrapper's
+`device` where one is given: the separator's host chunks are then copied
+straight into them on each replay (non_blocking), and the function itself
+takes a host input to the device on an eager call.
 
 A replay returns clones of the static outputs, so the next replay never
 overwrites what a caller still holds (both CLIs keep one batch in flight).
@@ -45,20 +51,20 @@ The layer counts its work on the host, always: `counts()` gives the
 captures, replays and eager calls, each with the host nanoseconds of its
 calls (`capture_ns`: the warm-up and the capture; `replay_ns` and
 `eager_ns`: entry to return of the call), and `over_cap`, the keys sent
-eager for good past MAX_GRAPHS. models/streaming.StreamingSeparator
-counts its captures and replays here too (`count`). While a
-torch.profiler session is active each call also records its spans
-(utils/observability.span): `graphed.call` (attribute `path`: replay,
+eager for good past MAX_GRAPHS. While a torch.profiler session is
+active each call also records its spans (utils/observability.span):
+`graphed.call` (attribute `path`: replay,
 capture or eager) over `graphed.copy_in`, `graphed.replay` (the launch
-and the launch counters' bookkeeping) and `graphed.clone`, or
+and the launch ledger's delta) and `graphed.clone`, or
 `graphed.warm_up` and `graphed.capture`, or `graphed.eager`.
 
 The kernel wrappers count their launches, and parallel/comm.py its
-collectives, on the host, which a replay never reaches. What is counted
-while a key is captured (recorded, not executed) is taken off the
-counters again and added back on every replay, so `tcn_block.counts()`
-and `comm.counts()` keep counting executions: the side-stream warm-up's,
-the eager calls' and each replay's.
+collectives, in one ledger on the host (utils/ledger.py), which a replay
+never reaches. What is counted while a key is captured (recorded, not
+executed) is taken off the ledger again and that delta added back on every
+replay, so `tcn_block.counts()`, `tcn_block_bwd.counts()` and
+`comm.counts()` keep counting executions: the side-stream warm-up's, the
+eager calls' and each replay's.
 
 A process that holds CUDA graphs keeps CUPTI attached between
 torch.profiler sessions (`keep_cupti`), PyTorch's own remedy for graphs
@@ -76,8 +82,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..ops.kernels import tcn_block, tcn_block_bwd
 from ..parallel import comm
+from ..utils import ledger
 from ..utils.observability import span
 
 # Graphs kept per wrapper, read at each new key. Its graphs share one pool,
@@ -116,16 +122,6 @@ class Program(NamedTuple):
     outputs: object
     pool: object
     pool_bytes: int
-
-
-def count(what: str, since: int) -> int:
-    """One more of `what` (captures, replays, eager_calls) in the layer's
-    counters, with the host nanoseconds since `since` (a
-    time.perf_counter_ns() reading); returns those nanoseconds."""
-    ns = time.perf_counter_ns() - since
-    _COUNTS[what] += 1
-    _COUNTS[_NS[what]] += ns
-    return ns
 
 
 def keep_cupti() -> None:
@@ -176,21 +172,13 @@ class CudaGraphs:
                        torch.cuda.memory_reserved(dev) - before)
 
 
+_CUDA = CudaGraphs()
+
+
 def backend_for(device: torch.device):
     """The capture backend of `device`: CUDA graphs on a card, None (every
     call eager) on the CPU."""
-    return CudaGraphs() if device.type == "cuda" else None
-
-
-def _launches() -> Dict[str, int]:
-    """The kernel launch counters and the collective counter."""
-    return {**tcn_block.counts(), **tcn_block_bwd.counts(), **comm.counts()}
-
-
-def _add_launches(delta: Dict[str, int]) -> None:
-    tcn_block.add_counts(delta)
-    tcn_block_bwd.add_counts(delta)
-    comm.add_counts(delta)
+    return _CUDA if device.type == "cuda" else None
 
 
 class _Graph(NamedTuple):
@@ -215,12 +203,16 @@ def _clones(outs: Sequence[torch.Tensor], single: bool):
 class GraphedForward:
     """fn(*tensors) -> tensor or tuple of tensors, captured per key as
     described in the module docstring. `tag` joins every key; `stateful`
-    says that fn updates state in place and must run once per call."""
+    says that fn updates state in place and must run once per call;
+    `device` (None: the inputs') is where the static inputs live and whose
+    backend captures."""
 
-    def __init__(self, fn: Callable, tag: Tuple = (), stateful: bool = False):
+    def __init__(self, fn: Callable, tag: Tuple = (), stateful: bool = False,
+                 device: Optional[torch.device] = None):
         self.fn = fn
         self.tag = tuple(tag)
         self.stateful = stateful
+        self.device = device
         # this wrapper's share of _COUNTS' counts (not of their ns)
         self.calls = dict.fromkeys((*_NS, "over_cap"), 0)
         self._state: Dict[tuple, object] = {}
@@ -229,8 +221,14 @@ class GraphedForward:
         _LIVE.add(self)
 
     def _count(self, what: str, since: int) -> int:
+        """One more of `what` (captures, replays, eager_calls) here and in
+        the layer's counters, with the host nanoseconds since `since` (a
+        time.perf_counter_ns() reading); returns those nanoseconds."""
+        ns = time.perf_counter_ns() - since
         self.calls[what] += 1
-        return count(what, since)
+        _COUNTS[what] += 1
+        _COUNTS[_NS[what]] += ns
+        return ns
 
     def key(self, inputs: Sequence[torch.Tensor]) -> tuple:
         return tuple((tuple(t.shape), t.dtype, t.device) for t in inputs) + self.tag
@@ -240,7 +238,7 @@ class GraphedForward:
         with span("graphed.call") as sp:
             if not inputs or not all(isinstance(t, torch.Tensor) for t in inputs):
                 raise TypeError("GraphedForward takes tensors only")
-            backend = backend_for(inputs[0].device)
+            backend = backend_for(inputs[0].device if self.device is None else self.device)
             key = self.key(inputs)
             state = self._state.get(key)
             if isinstance(state, _Graph):
@@ -264,14 +262,15 @@ class GraphedForward:
             return out
 
     def _capture(self, key, backend, inputs):
-        static = tuple(t.clone() for t in inputs)
+        static = tuple(t.to(t.device if self.device is None else self.device, copy=True)
+                       for t in inputs)
         t0 = time.perf_counter_ns()
         try:
             ran = comm.counts()["collectives"]
             with span("graphed.warm_up"):
                 warm = backend.warm_up(self.fn, static)
             once = self.stateful or comm.counts()["collectives"] != ran
-            before = _launches()
+            before = ledger.read()
             with span("graphed.capture"):
                 program = backend.capture(self.fn, static, self._pool)
         except Exception as e:
@@ -279,8 +278,9 @@ class GraphedForward:
             self._state[key] = err
             raise err from e
         capture_ms = self._count("captures", t0) * 1e-6
-        launches = {k: v - before[k] for k, v in _launches().items() if v != before[k]}
-        _add_launches({k: -v for k, v in launches.items()})  # recorded, not run
+        launches = {k: v - before.get(k, 0) for k, v in ledger.read().items()
+                    if v != before.get(k, 0)}
+        ledger.add({k: -v for k, v in launches.items()})  # recorded, not run
         single = isinstance(program.outputs, torch.Tensor)
         outs = (program.outputs,) if single else tuple(program.outputs)
         graph = _Graph(program._replace(outputs=outs), static, single, launches, capture_ms)
@@ -294,10 +294,10 @@ class GraphedForward:
         try:
             with span("graphed.copy_in"):
                 for dst, src in zip(graph.inputs, inputs):
-                    dst.copy_(src)
+                    dst.copy_(src, non_blocking=True)
             with span("graphed.replay"):
                 graph.program.replay()
-                _add_launches(graph.launches)
+                ledger.add(graph.launches)
         except Exception as e:
             raise GraphError(f"replay of key {key} failed: {type(e).__name__}: {e}") from e
         with span("graphed.clone"):
@@ -331,10 +331,9 @@ def graph_row(fn: Optional[GraphedForward]) -> dict:
 
 def counts() -> dict:
     """captures, replays, eager_calls, over_cap and the host ns of the
-    first three (module docstring) since reset_counts(), the streaming
-    separator's included; graphs and pool_bytes held now by the live
-    GraphedForward wrappers only (a StreamingSeparator's two graphs and
-    their pool are not among them)."""
+    first three (module docstring) since reset_counts(); graphs and
+    pool_bytes held now by the live GraphedForward wrappers (a
+    StreamingSeparator's among them)."""
     live = [g for f in list(_LIVE) for g in f._graphs.values()]
     return {**_COUNTS, "graphs": len(live),
             "pool_bytes": sum(g.program.pool_bytes for g in live)}

@@ -21,27 +21,24 @@ writes the block's new history into its ring in place, and its plain
 version on the CPU; or "library", the same ops one by one
 (stream_block_plain) wherever the config takes no kernels or the kernel
 does not admit its widths or dtype. On a CUDA device `StreamingSeparator`
-runs the step as CUDA graphs, one per (first chunk or not, chunk length)
-at its batch: the counterpart of the JAX package's two jitted steps. The
-state then lives in static device buffers that the graph updates in place,
-and each chunk is copied into a static input buffer before the replay. On
+runs the step through models/graphed.GraphedForward (stateful), one
+wrapper per value of `first` and one CUDA graph per chunk shape at its
+batch: the counterpart of the JAX package's two jitted steps. The state
+then lives in static device buffers that every call updates in place, and
+each chunk is copied into the wrapper's static input before a replay. On
 the CPU (or with graph=False) the same step runs eagerly.
 
-The separator's captures and replays count in models/graphed's counters
-(`graphed.counts()`: one replay per graphed push, with its host ns from
-entry to return of push; a capture's warm-ups and capture under
-`capture_ns`). While a torch.profiler session is active a push records
-its spans (utils/observability.span): `stream.push` over
-`stream.copy_in` (the chunk into the static input, or onto the device
-when eager), `stream.replay` and `stream.clone`, or `stream.eager`, and
-`stream.capture` at a key's first push. The block kernel's launches count
-in `stream_block.launches` (tcn_block.counts()["tcn_stream_block"]), a
-graph's added back on each replay: R * X a push.
+The graph layer counts the graphed pushes (`graphed.counts()`: eager
+calls, captures and replays, one a push) and records their spans: while a
+torch.profiler session is active a push records `stream.push` over the
+layer's `graphed.call` (utils/observability.span), or, eager, over
+`stream.copy_in` (the chunk onto the device) and `stream.eager`. The block
+kernel counts its launches in the launch ledger
+(tcn_block.counts()["tcn_stream_block"]): R * X a push, replayed or not.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -56,10 +53,6 @@ from . import graphed
 from .conv_tasnet import decode, encode, mask_of, resolve_device
 
 StreamState = Dict[str, Any]
-
-# Runs of the step on a side stream before a capture (cuBLAS handles and
-# workspaces, the allocator's blocks), as torch.cuda.graphs asks.
-CAPTURE_WARMUP = 2
 
 # Parameter leaves every use of which casts them to the compute dtype; the
 # separator casts them once, ahead of any capture (a repeated cast is exact).
@@ -171,15 +164,33 @@ def _step_params(params, cfg: ConvTasNetConfig, device: torch.device):
     return walk(params)
 
 
+def _step_in_place(params, state: StreamState, cfg: ConvTasNetConfig, device: torch.device,
+                   first: bool):
+    """stream_step on `state` as a function of the chunk alone, writing the
+    new state into `state` in place: a captured graph reads and writes the
+    same buffers on every replay. A host chunk is taken to `device` first
+    (a no-op on the graph layer's static input)."""
+    def step(chunk: torch.Tensor) -> torch.Tensor:
+        x = chunk.to(device, torch.float32, non_blocking=True)
+        out, new = stream_step(params, state, cfg, x, first)
+        for dst, src in zip(state_leaves(state), state_leaves(new)):
+            if src is not dst:  # a ring the kernel updated in place needs no copy
+                dst.copy_(src)
+        return out
+    return step
+
+
 class StreamingSeparator:
     """Stateful wrapper over stream_step for `batch` concurrent streams.
 
     push() per chunk, then flush() for the final L-S overlap-add samples;
     the concatenation equals the offline forward on the whole waveform.
-    On a CUDA device with graph=True (the default) each chunk step is one
-    replay of a CUDA graph, captured at the first push of each (first
-    chunk or not, chunk length); a failed capture raises. graph=False, or
-    a CPU device, runs the step eagerly."""
+    Where models/graphed has a capture backend for the device (a card) and
+    graph=True (the default), the chunk step runs through one stateful
+    GraphedForward per value of `first`, keyed by the chunk's shape: a
+    key's first push eager, its second captured, later ones replayed, the
+    state held in place throughout; a failed capture raises. graph=False,
+    or a CPU device, runs the step eagerly."""
 
     def __init__(self, cfg: ConvTasNetConfig, params, batch: int = 1, device=None,
                  graph: bool = True):
@@ -188,12 +199,12 @@ class StreamingSeparator:
         self.device = resolve_device(device)
         self.params = _step_params(params, cfg, self.device)
         self._batch = batch
-        self.graphed = graph and self.device.type == "cuda"
+        self.graphed = graph and graphed.backend_for(self.device) is not None
         self.state = init_stream_state(cfg, batch, self.device)
-        # (first, chunk length) -> (graph, static input, static output)
-        self._graphs: Dict[Tuple[bool, int], tuple] = {}
-        # (first, chunk length) -> the block kernel's launches a replay
-        self._launches: Dict[Tuple[bool, int], int] = {}
+        if self.graphed:
+            self._steps = {first: graphed.GraphedForward(
+                _step_in_place(self.params, self.state, cfg, self.device, first),
+                stateful=True, device=self.device) for first in (True, False)}
         self._warm = 0
 
     def reset(self) -> None:
@@ -214,72 +225,21 @@ class StreamingSeparator:
         """Feed [M, T_chunk] samples (host or device); returns a new tensor
         on the device with the separated samples that became final
         ([M, C, T_chunk - S] for the first chunk, then [M, C, T_chunk])."""
-        t0 = time.perf_counter_ns()
         with span("stream.push"):
             if chunk.dim() != 2 or chunk.shape[0] != self._batch:
                 raise ValueError(f"chunk of shape {tuple(chunk.shape)}: expected "
                                  f"[{self._batch}, T_chunk]")
             first = self._warm == 0
             if self.graphed:
-                key = (first, int(chunk.shape[1]))
-                if key not in self._graphs:
-                    self._graphs[key] = self._capture(first, tuple(chunk.shape))
-                    t0 = time.perf_counter_ns()  # the capture is counted apart
-                out = self._replay(self._graphs[key], chunk)
-                stream_block.launches += self._launches.get(key, 0)
+                out = self._steps[first](chunk)
             else:
                 with span("stream.copy_in"):
                     x = chunk.to(self.device, torch.float32, non_blocking=True)
                 with span("stream.eager"):
                     out, self.state = stream_step(self.params, self.state, self.cfg, x, first)
             self._warm += 1
-        if self.graphed:
-            graphed.count("replays", t0)
         return out
 
     def flush(self) -> torch.Tensor:
         """Emit the final overlap-add tail ([M, C, L - S]) as a new tensor."""
         return self.state["ola_tail"].clone()
-
-    @staticmethod
-    def _replay(entry: tuple, chunk: torch.Tensor) -> torch.Tensor:
-        graph, static_in, static_out = entry
-        with span("stream.copy_in"):
-            static_in.copy_(chunk, non_blocking=True)
-        with span("stream.replay"):
-            graph.replay()
-        with span("stream.clone"):
-            # The next replay overwrites static_out.
-            return static_out.clone()
-
-    def _capture(self, first: bool, shape) -> tuple:
-        t0 = time.perf_counter_ns()
-        with span("stream.capture"):
-            entry = self._record(first, shape)
-        graphed.count("captures", t0)
-        return entry
-
-    def _record(self, first: bool, shape) -> tuple:
-        static_in = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        # The warm-ups run on copies of the rings: the block kernel writes
-        # its history in place, and the stream's own must not move.
-        warm = {**self.state, "conv_hist": [[h.clone() for h in row]
-                                            for row in self.state["conv_hist"]]}
-
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(CAPTURE_WARMUP):
-                stream_step(self.params, warm, self.cfg, static_in, first)
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = stream_block.launches
-        with torch.cuda.graph(graph):
-            out, new_state = stream_step(self.params, self.state, self.cfg, static_in, first)
-            for dst, src in zip(state_leaves(self.state), state_leaves(new_state)):
-                if src is not dst:  # a ring the kernel updated in place needs no copy
-                    dst.copy_(src)
-        self._launches[(first, shape[1])] = stream_block.launches - before
-        stream_block.launches = before  # recorded, not run
-        return graph, static_in, out

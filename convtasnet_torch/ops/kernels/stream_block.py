@@ -16,9 +16,9 @@ The kernel runs the whole block in one launch, one cluster of 8 CTAs per
 stream (`stream_plan`), and writes the new history into `hist` itself, so
 the step needs no concatenation of the history and no copy of it into the
 state. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. The wrapper counts its launches in
-`stream_block.launches`; tcn_block.counts() carries that counter with the
-other kernels' (as "tcn_stream_block").
+kernel or raises. The wrapper counts its launches as "tcn_stream_block"
+in the port's launch ledger (utils/ledger.py), which tcn_block.counts()
+reads with the other kernels' counters.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ...utils import ledger
 from ..activations import prelu
 from ..conv import pointwise
 from ..norms import channelwise_layer_norm
@@ -167,8 +168,5 @@ def stream_block(x: torch.Tensor, hist: torch.Tensor, bp: Dict[str, torch.Tensor
         out_w.data_ptr(), hist.data_ptr(), M, Kc, B, H, P, dilation, int(pdl),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "tcn_stream_block")
-    stream_block.launches += 1
+    ledger.count("tcn_stream_block")
     return out, hist
-
-
-stream_block.launches = 0

@@ -34,7 +34,8 @@ write one partial per CTA tile; the plain versions write n = 1. The reader
 sums whatever n it is given.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Each wrapper counts its launches in `<wrapper>.launches`.
+raises. Each wrapper counts its launches in the port's launch ledger
+(utils/ledger.py) under the names of `COUNTERS`.
 """
 
 from __future__ import annotations
@@ -47,9 +48,9 @@ import torch
 import torch.nn.functional as F
 
 from ...config import EPS
+from ...utils import ledger
 from . import _build
 from .limits import DWCONV_MAX_SPAN, GEMM_MAX_H, KERNEL_WIDTH
-from .stream_block import stream_block
 
 # Tile sizes of csrc/tcn_block.cuh (the f32 SIMT GEMM tiles).
 BM, BN, BK = 64, 128, 32
@@ -453,11 +454,8 @@ def tcn_in_gemm(x, in_w, alpha1, norm_type, y1: Optional[torch.Tensor] = None):
                             alpha1.data_ptr(), y1.data_ptr(), stats.data_ptr(),
                             M * Kp, Kp, B, H, int(gln), bm, bn, _stream(x))
     _build.check(rc, "tcn_in_gemm")
-    tcn_in_gemm.launches += 1
+    ledger.count("tcn_in_gemm")
     return y1, stats
-
-
-tcn_in_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -574,15 +572,8 @@ def tcn_dwconv(y1, stats1, alpha1, g1, b1, w, alpha2, norm_type, dilation,
                            int(causal), int(gln), plan.rows, plan.lanes, plan.staged,
                            plan.chunk, plan.stages, plan.smem, _stream(y1))
     _build.check(rc, "tcn_dwconv")
-    if save:
-        tcn_dwconv.launches_save += 1
-        return e, stats, c
-    tcn_dwconv.launches += 1
-    return e, stats
-
-
-tcn_dwconv.launches = 0
-tcn_dwconv.launches_save = 0
+    ledger.count("tcn_dwconv_save" if save else "tcn_dwconv")
+    return (e, stats, c) if save else (e, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -680,15 +671,8 @@ def tcn_fold_weights(out_w, g2, b2, dtype, skip_w=None):
                 wp.data_ptr(), g2w.data_ptr(), b2w.data_ptr(), part.data_ptr(), ticket.data_ptr(),
                 int(fresh), splits, rows, NB, H, B, _stream(out_w))
     _build.check(rc, "tcn_fold_weights")
-    if skip:
-        tcn_fold_weights.launches_skip += 1
-    else:
-        tcn_fold_weights.launches += 1
+    ledger.count("tcn_fold_weights_skip" if skip else "tcn_fold_weights")
     return wp, g2w, b2w
-
-
-tcn_fold_weights.launches = 0
-tcn_fold_weights.launches_skip = 0
 
 
 def out_gemm_plain(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k,
@@ -775,47 +759,23 @@ def tcn_out_gemm(e, stats2, res, wmat, vec_a, vec_b, norm_type, valid_k, fold,
                              skip.data_ptr() if Sc else None, M * Kp, Kp, valid_k, H, B, Sc,
                              int(gln), bm, bn, _stream(e))
     _build.check(rc, "tcn_out_gemm")
-    name = ("fold" if fold else "unfold") + ("_skip" if Sc else "")
-    setattr(tcn_out_gemm, f"launches_{name}", getattr(tcn_out_gemm, f"launches_{name}") + 1)
+    ledger.count("tcn_out_gemm_" + ("fold" if fold else "unfold") + ("_skip" if Sc else ""))
     return out
 
 
-tcn_out_gemm.launches_fold = 0
-tcn_out_gemm.launches_unfold = 0
-tcn_out_gemm.launches_fold_skip = 0
-tcn_out_gemm.launches_unfold_skip = 0
-
-
-# Counter name -> (wrapper, attribute): every forward kernel of csrc/ and
-# the stream chunk step's block kernel (stream_block.py).
-_COUNTERS = {
-    "tcn_in_gemm": (tcn_in_gemm, "launches"),
-    "tcn_dwconv": (tcn_dwconv, "launches"),
-    "tcn_dwconv_save": (tcn_dwconv, "launches_save"),
-    "tcn_out_gemm_fold": (tcn_out_gemm, "launches_fold"),
-    "tcn_out_gemm_unfold": (tcn_out_gemm, "launches_unfold"),
-    "tcn_fold_weights": (tcn_fold_weights, "launches"),
-    "tcn_stream_block": (stream_block, "launches"),
-    "tcn_out_gemm_fold_skip": (tcn_out_gemm, "launches_fold_skip"),
-    "tcn_out_gemm_unfold_skip": (tcn_out_gemm, "launches_unfold_skip"),
-    "tcn_fold_weights_skip": (tcn_fold_weights, "launches_skip"),
-}
+# The counters of `counts()`: every forward kernel of csrc/ and its modes,
+# and the stream chunk step's block kernel (stream_block.py).
+COUNTERS = ("tcn_in_gemm", "tcn_dwconv", "tcn_dwconv_save", "tcn_out_gemm_fold",
+            "tcn_out_gemm_unfold", "tcn_fold_weights", "tcn_stream_block",
+            "tcn_out_gemm_fold_skip", "tcn_out_gemm_unfold_skip", "tcn_fold_weights_skip")
 
 
 def reset_counts() -> None:
-    for fn, attr in _COUNTERS.values():
-        setattr(fn, attr, 0)
-
-
-def add_counts(delta: dict) -> None:
-    """Add launches executed without passing through a wrapper (a CUDA
-    graph's replay, models/graphed.py); names of other modules are skipped."""
-    for name, (fn, attr) in _COUNTERS.items():
-        setattr(fn, attr, getattr(fn, attr) + delta.get(name, 0))
+    ledger.reset(COUNTERS)
 
 
 def counts() -> dict:
     """Launches of the forward kernels, and of the stream chunk step's
     block kernel (stream_block.py): every kernel of csrc/ but the backward
     ones (tcn_block_bwd.counts()), whose records the timers check."""
-    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
+    return ledger.read(COUNTERS)

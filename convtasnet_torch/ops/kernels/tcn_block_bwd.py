@@ -63,6 +63,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...utils import ledger
 from . import _build
 from .limits import BWD_MAX_SPAN, BWD_MAXP
 from .limits import KERNEL_WIDTH
@@ -189,25 +190,18 @@ def _dx_tile(rows: int, B: int, H: int, dt, index) -> Tuple[int, int]:
     return BM, BN
 
 
-_LAUNCHES = {"tcn_bwd_dz": 0, "tcn_wgrad_out": 0, "tcn_bwd_dwconv": 0,
-             "tcn_bwd_dx": 0, "tcn_wgrad_in": 0, "tcn_bwd_finish": 0,
-             "tcn_bwd_dz_skip": 0, "tcn_wgrad_out_skip": 0, "tcn_bwd_finish_skip": 0}
+# The counters of `counts()` in the launch ledger (utils/ledger.py): every
+# backward kernel of csrc/ and its skip modes.
+COUNTERS = ("tcn_bwd_dz", "tcn_wgrad_out", "tcn_bwd_dwconv", "tcn_bwd_dx", "tcn_wgrad_in",
+            "tcn_bwd_finish", "tcn_bwd_dz_skip", "tcn_wgrad_out_skip", "tcn_bwd_finish_skip")
 
 
 def counts() -> dict:
-    return dict(_LAUNCHES)
+    return ledger.read(COUNTERS)
 
 
 def reset_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-
-
-def add_counts(delta: dict) -> None:
-    """Add launches executed without passing through a wrapper (a CUDA
-    graph's replay, models/graphed.py); names of other modules are skipped."""
-    for k in _LAUNCHES:
-        _LAUNCHES[k] += delta.get(k, 0)
+    ledger.reset(COUNTERS)
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +274,7 @@ def tcn_bwd_dz(g, out_wt, c, stats2, alpha2, g2, norm_type, valid_k, colpart=Non
                            colpart.data_ptr(), npart.data_ptr(), _ptr(gs), M * Kp, Kp,
                            valid_k, B, Sc, H, int(gln), bm, bn, _stream(g))
     _build.check(rc, "tcn_bwd_dz")
-    _LAUNCHES["tcn_bwd_dz_skip" if Sc else "tcn_bwd_dz"] += 1
+    ledger.count("tcn_bwd_dz_skip" if Sc else "tcn_bwd_dz")
     return dz, colpart, npart
 
 
@@ -475,8 +469,8 @@ def tcn_wgrad(A, Bm, valid_k, z=None, plan=None, part=None, gs=None):
                           _ptr(alpha2), _ptr(g2), _ptr(b2), M * Kp, Kp, valid_k, n1, n2, Sc,
                           splits, cluster, gln, _stream(A))
     _build.check(rc, "tcn_wgrad")
-    _LAUNCHES["tcn_wgrad_out_skip" if Sc else
-              "tcn_wgrad_out" if z is not None else "tcn_wgrad_in"] += 1
+    ledger.count("tcn_wgrad_out_skip" if Sc else
+                 "tcn_wgrad_out" if z is not None else "tcn_wgrad_in")
     return part
 
 
@@ -579,7 +573,7 @@ def tcn_bwd_dwconv(y1, c, dz, stats1, stats2, gs2, alpha1, g1, b1, w, alpha2,
         dilation, int(causal), int(gln), plan.chunk, plan.stages, plan.ring, plan.strip,
         plan.bands, plan.smem, _stream(y1))
     _build.check(rc, "tcn_bwd_dwconv")
-    _LAUNCHES["tcn_bwd_dwconv"] += 1
+    ledger.count("tcn_bwd_dwconv")
     return db, chpart, gs1, da2part
 
 
@@ -640,7 +634,7 @@ def tcn_bwd_dx(db, y1, in_wt, g, stats1, gs1, alpha1, g1, norm_type, valid_k, da
                            da1part.data_ptr(), M * Kp, Kp, valid_k, B, H, int(gln), bm, bn,
                            _stream(db))
     _build.check(rc, "tcn_bwd_dx")
-    _LAUNCHES["tcn_bwd_dx"] += 1
+    ledger.count("tcn_bwd_dx")
     return dx, dy1, da1part
 
 
@@ -846,7 +840,7 @@ def tcn_bwd_finish(slots: FinishSlots, counts, grads, nb0: int) -> None:
                                ctypes.byref(_fin_args(slots, counts, grads, nb0)), int(skip),
                                _stream(din_w))
     _build.check(rc, "tcn_bwd_finish")
-    _LAUNCHES["tcn_bwd_finish_skip" if skip else "tcn_bwd_finish"] += 1
+    ledger.count("tcn_bwd_finish_skip" if skip else "tcn_bwd_finish")
 
 
 # ---------------------------------------------------------------------------

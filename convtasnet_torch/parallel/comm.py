@@ -23,12 +23,12 @@ follows from which:
 GradBucket is the data-parallel gradient all-reduce: one flat buffer,
 every gradient leaf a view of it, one collective per step.
 
-Each launched collective adds one to `counts()["collectives"]`; a group of
-one rank launches nothing for a shift. The count is kept on the host, as
-the kernel wrappers' launch counts are, so models/graphed.py treats it as
-they do: what a capture records is taken off again and added back on
-every replay, and the count says how many collectives ran, whether a step
-ran eagerly or as a graph. Nothing here falls back: a backend that cannot
+Each launched collective counts one `collectives` in the port's launch
+ledger (utils/ledger.py), read by `counts()`; a group of one rank launches
+nothing for a shift. The ledger holds the kernel wrappers' launch counts
+too, and models/graphed.py takes what a capture records off it again and
+adds it back on every replay, so the count says how many collectives ran,
+whether a step ran eagerly or as a graph. Nothing here falls back: a backend that cannot
 carry an op raises from torch.distributed.
 
 What the ops do on the device is all the device needs: none reads a value
@@ -44,21 +44,17 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-_COUNTS = {"collectives": 0}
+from ..utils import ledger
+
+COUNTERS = ("collectives",)
 
 
 def counts() -> dict:
-    return dict(_COUNTS)
+    return ledger.read(COUNTERS)
 
 
 def reset_counts() -> None:
-    _COUNTS["collectives"] = 0
-
-
-def add_counts(delta: dict) -> None:
-    """Add collectives run without passing through an op (a CUDA graph's
-    replay, models/graphed.py); other names are skipped."""
-    _COUNTS["collectives"] += delta.get("collectives", 0)
+    ledger.reset(COUNTERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +83,7 @@ class ParallelContext:
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """In-place sum over the group (no autograd); returns t."""
-    _COUNTS["collectives"] += 1
+    ledger.count("collectives")
     dist.all_reduce(t, group=group)
     return t
 
@@ -165,7 +161,7 @@ def _exchange(x: torch.Tensor, group, step: int) -> torch.Tensor:
     if 0 <= r - step < n:
         ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, r - step), group))
     if ops:
-        _COUNTS["collectives"] += 1
+        ledger.count("collectives")
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return out
@@ -195,7 +191,7 @@ def shift_left(x: torch.Tensor, group) -> torch.Tensor:
 def broadcast_(tensors: List[torch.Tensor], src: int = 0) -> None:
     """Broadcast each tensor in place from global rank `src`."""
     for t in tensors:
-        _COUNTS["collectives"] += 1
+        ledger.count("collectives")
         dist.broadcast(t, src)
 
 

@@ -6,9 +6,10 @@
 Seeded weights at the causal paper config (N=256, L=20, B=256, H=512,
 P=3, X=8, R=4, C=2, cLN, causal, relu, bf16; --tiny: a small f32 config).
 For each (chunk, batch) point a StreamingSeparator is made (CUDA graphs on
-a card with --graph 1, the eager step with --graph 0), its first two
-pushes (which capture the first-chunk and steady graphs) are timed as
-`setup_ms`, then after warm-up `steps` chunks are pushed from the host,
+a card with --graph 1, the eager step with --graph 0), its first SETUP
+pushes (the first-chunk and steady steps' eager first calls, and the
+steady step's capture: models/graphed's rule) are timed as `setup_ms`,
+then after warm-up `steps` chunks are pushed from the host,
 each fetched back to the host before the next, as a live consumer sees
 them. One JSON row per point: the median `latency_ms` per chunk, `rtf`
 (latency / chunk duration; < 1 is real time), `streams_per_card_rt`
@@ -37,7 +38,8 @@ CAUSAL_PAPER = dict(N=256, L=20, B=256, H=512, P=3, X=8, R=4, C=2, norm_type="cL
                     causal=True)
 TINY = dict(N=32, L=16, B=32, H=64, P=3, X=3, R=2, C=2, norm_type="cLN", causal=True,
             compute_dtype="float32")
-WARM = 3        # steady chunks pushed after the two set-up pushes, untimed
+SETUP = 3       # pushes until the steady step replays
+WARM = 3        # steady chunks pushed after the set-up pushes, untimed
 PROFILED = 10   # chunks under torch.profiler for device busy and operations
 
 
@@ -80,11 +82,11 @@ def measure(cfg: ConvTasNetConfig, params, batch: int, chunk_len: int, sample_ra
     dev = torch.device(device)
     sep = StreamingSeparator(cfg, params, batch=batch, device=dev, graph=graph)
     on_card = dev.type == "cuda"
-    chunks = host_chunks(batch, chunk_len, 2 + WARM + steps + (PROFILED if on_card else 0))
-    setup = chunk_ms(sep, chunks[:2])
-    chunk_ms(sep, chunks[2:2 + WARM])
-    times = chunk_ms(sep, chunks[2 + WARM:2 + WARM + steps])
-    busy, ops = profile_chunks(sep, chunks[2 + WARM + steps:]) if on_card else (None, None)
+    chunks = host_chunks(batch, chunk_len, SETUP + WARM + steps + (PROFILED if on_card else 0))
+    setup = chunk_ms(sep, chunks[:SETUP])
+    chunk_ms(sep, chunks[SETUP:SETUP + WARM])
+    times = chunk_ms(sep, chunks[SETUP + WARM:SETUP + WARM + steps])
+    busy, ops = profile_chunks(sep, chunks[SETUP + WARM + steps:]) if on_card else (None, None)
     lat = float(np.median(times))
     rtf = lat / (1e3 * chunk_len / sample_rate)
     return {"chunk_ms": 1e3 * chunk_len / sample_rate, "batch": batch,

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from convtasnet_torch.ops.kernels import tcn_block
+from convtasnet_torch.utils import ledger
 from convtasnet_torch.ops.kernels.whole_block import whole_block, whole_block_reference
 from convtasnet_torch.ops.kernels.whole_tcn import whole_tcn, whole_tcn_reference
 
@@ -892,6 +893,10 @@ STREAM_BLOCK_TOL = 1e-2
 STREAM_KERNEL_TOL = 3e-2
 
 
+def _stream_launches() -> int:
+    return ledger.read(("tcn_stream_block",))["tcn_stream_block"]
+
+
 def _stream_bp(dev):
     """One block's leaves at the causal widths as the separator holds them:
     the weights and slopes in bf16, the norms' affines in f32."""
@@ -918,10 +923,10 @@ def test_stream_block_kernel_matches_plain(dev, dilation, Kc, M):
         old = hist.clone()
         x = torch.randn((M, Kc, 256), generator=gen, device=dev).to(bf)
         want, want_h = sb.stream_block_plain(x, want_h, bp, dilation, bf)
-        before = sb.stream_block.launches
+        before = _stream_launches()
         got, got_h = sb.stream_block(x, hist, bp, dilation, bf)
         torch.cuda.synchronize()
-        assert sb.stream_block.launches == before + 1 and got_h is hist
+        assert _stream_launches() == before + 1 and got_h is hist
         assert got.shape == x.shape and torch.isfinite(got.float()).all()
         assert _rel_l2(got.float() - x.float(), want.float() - x.float()) <= STREAM_BLOCK_TOL
         assert _rel_l2(got_h, want_h) <= STREAM_BLOCK_TOL
@@ -971,36 +976,43 @@ def test_stream_block_kernel_refuses_what_it_is_not_built_for(dev):
 
 def test_stream_kernel_separator_matches_library_and_offline(dev):
     """The causal config in bf16, two streams of 20 ms chunks: the graphed
-    separator on the block kernel against the eager one on the library ops
-    (output, and every state leaf in state_leaves' order), and against the
-    offline causal forward; R * X launches a replayed push; reset() zeroes
-    every ring in place."""
+    separator on the block kernel against its own eager run bit for bit,
+    and against the eager one on the library ops (output, and every state
+    leaf in state_leaves' order) and the offline causal forward; R * X
+    launches every push, eager, capturing or replayed; reset() zeroes every
+    ring in place."""
     from convtasnet_torch.config import ConvTasNetConfig
     from convtasnet_torch.models.conv_tasnet import forward, init_params
-    from convtasnet_torch.models.streaming import (CAPTURE_WARMUP, StreamingSeparator,
-                                                   block_form, state_leaves)
-    from convtasnet_torch.ops.kernels.stream_block import stream_block
+    from convtasnet_torch.models import graphed
+    from convtasnet_torch.models.streaming import StreamingSeparator, block_form, state_leaves
 
+    graphed.reset_counts()
     cfg = ConvTasNetConfig(**STREAM_CAUSAL)
     lib = ConvTasNetConfig(use_kernels=0, **STREAM_CAUSAL)
     assert block_form(cfg, dev) == "kernel" and block_form(lib, dev) == "library"
     params, state = init_params(torch.Generator(device=dev).manual_seed(6), cfg, device=dev)
     x = torch.randn((2, 160 * 30), generator=torch.Generator().manual_seed(7)) * 0.3
     k = StreamingSeparator(cfg, params, batch=2, device=dev)
+    e = StreamingSeparator(cfg, params, batch=2, device=dev, graph=False)
     p = StreamingSeparator(lib, params, batch=2, device=dev, graph=False)
+    assert k.graphed and not e.graphed
     NB = cfg.R * cfg.X
-    got, want, per_push = [], [], []
+    got, eager, want, per_push = [], [], [], []
     for i in range(0, x.shape[1], 160):
-        before = stream_block.launches
+        before = _stream_launches()
         got.append(k.push(x[:, i:i + 160]))
-        per_push.append(stream_block.launches - before)
+        per_push.append(_stream_launches() - before)
+        eager.append(e.push(x[:, i:i + 160]))
         want.append(p.push(x[:, i:i + 160]))
-    assert per_push == [(CAPTURE_WARMUP + 1) * NB] * 2 + [NB] * (len(per_push) - 2)
+    assert per_push == [NB] * len(per_push)
+    c = graphed.counts()
+    assert (c["eager_calls"], c["captures"], c["replays"]) == (2, 1, len(per_push) - 3)
     assert len(state_leaves(k.state)) == len(state_leaves(p.state)) == 2 + NB
     for i, (a, b) in enumerate(zip(state_leaves(k.state), state_leaves(p.state))):
         assert a.shape == b.shape and a.dtype == b.dtype, i
         assert _rel_l2(a, b) <= STREAM_KERNEL_TOL, i
     got = torch.cat(got + [k.flush()], dim=-1)
+    assert torch.equal(got, torch.cat(eager + [e.flush()], dim=-1))
     want = torch.cat(want + [p.flush()], dim=-1)
     assert _rel_l2(got, want) <= STREAM_KERNEL_TOL
     off, _ = forward(params, state, lib, x.to(dev))

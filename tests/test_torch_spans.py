@@ -235,52 +235,45 @@ def test_eager_stream_push_gives_its_spans():
     assert graphed.counts()["replays"] == graphed.counts()["captures"] == 0
 
 
-class _StandInGraph:
-    """A stream graph on the CPU: its replay runs the step and writes the
-    output and the new state into the captured buffers."""
-
-    def __init__(self, sep, first, static_in, static_out):
-        self.sep, self.first, self.static_in, self.static_out = sep, first, static_in, static_out
-
-    def replay(self):
-        s = self.sep
-        out, new = ts.stream_step(s.params, s.state, s.cfg, self.static_in, self.first)
-        self.static_out.copy_(out)
-        for dst, src in zip(ts.state_leaves(s.state), ts.state_leaves(new)):
-            dst.copy_(src)
-
-
-def test_stream_replays_count_one_per_push(monkeypatch):
-    """With the capture stood in on the CPU, a graphed separator counts one
-    replay per push and one capture per key in the graph layer's counters,
-    records its spans, and streams what the eager one does."""
-    def record(self, first, shape):
-        static_in = torch.zeros(shape)
-        out, _ = ts.stream_step(self.params, self.state, self.cfg, static_in, first)
-        static_out = torch.empty_like(out)
-        return _StandInGraph(self, first, static_in, static_out), static_in, static_out
-
-    monkeypatch.setattr(ts.StreamingSeparator, "_record", record)
+def test_stream_replays_count_one_per_push(record_only):
+    """With the capture stood in on the CPU, a graphed separator runs each
+    push as one call of the graph layer: a key's first push eager, its
+    second captured, later ones replayed; every push records its
+    `graphed.*` spans under `stream.push`, and the streams are bit for bit
+    what the eager separator streams."""
     sep, eager = _separator(), _separator(graph=False)
-    sep.graphed = True
-    x = torch.randn(1, 32 * 6, generator=torch.Generator().manual_seed(3))
-    want = [eager.push(x[:, 32 * k:32 * (k + 1)]) for k in range(6)]
-    got = []
+    assert sep.graphed and not eager.graphed
+    x = torch.randn(1, 32 * 4, generator=torch.Generator().manual_seed(3))
+    want, got, paths = [], [], []
     with torch.profiler.profile(activities=CPU):
-        for k in range(6):
-            before = graphed.counts()["replays"]
-            got.append(sep.push(x[:, 32 * k:32 * (k + 1)]))
-            assert graphed.counts()["replays"] == before + 1
-    c = graphed.counts()
-    assert (c["captures"], c["replays"], c["eager_calls"]) == (2, 6, 0)
-    assert c["capture_ns"] > 0 and c["replay_ns"] > 0
+        for _ in range(3):  # three utterances of four chunks
+            for k in range(4):
+                chunk = x[:, 32 * k:32 * (k + 1)]
+                want.append(eager.push(chunk))
+                before = graphed.counts()
+                got.append(sep.push(chunk))
+                after = graphed.counts()
+                assert sum(after[c] - before[c] for c in COUNTERS[:3]) == 1
+                paths.append(next(c for c in COUNTERS[:3] if after[c] != before[c]))
+            want.append(eager.flush())
+            got.append(sep.flush())
+            eager.reset()
+            sep.reset()
+    # first chunk (one key) and steady chunks (another): eager, capture, replays
+    assert paths == (["eager_calls", "eager_calls", "captures", "replays"]
+                     + ["captures"] + ["replays"] * 3 + ["replays"] * 4)
+    assert record_only.captures == 2
     torch.testing.assert_close(torch.cat(got, -1), torch.cat(want, -1), rtol=0, atol=0)
     roots = [s for s in ob.spans() if s.name == "stream.push" and s.unit_id == s.span_id]
-    assert len(roots) == 6
+    assert len(roots) == 24  # the eager separator's twelve and the graphed one's
+    calls = [s for s in ob.spans() if s.name == "graphed.call"]
+    assert len(calls) == 12 and {c.parent_id for c in calls} <= {r.span_id for r in roots}
+    assert [c.attrs["path"] for c in calls] == ["eager", "eager", "capture", "replay",
+                                                "capture"] + ["replay"] * 7
     kids = collections.Counter(s.name for s in ob.spans()
-                               if s.parent_id in {r.span_id for r in roots})
-    assert kids == {"stream.copy_in": 6, "stream.replay": 6, "stream.clone": 6,
-                    "stream.capture": 2}
+                               if s.parent_id in {c.span_id for c in calls})
+    assert kids == {"graphed.eager": 2, "graphed.warm_up": 2, "graphed.capture": 2,
+                    "graphed.copy_in": 8, "graphed.replay": 8, "graphed.clone": 8}
 
 
 def test_profile_trace_writes_the_port_spans(tmp_path):
